@@ -1,0 +1,9 @@
+"""ggml_gfx906_tpu_torch — the PyTorch and CUDA port of ggml_gfx906_tpu.
+
+The JAX package beside it stays the reference. This package imports torch
+and numpy only. Its main path loads a llama-class Q4_K GGUF
+(`models.llama.load`) and serves it through the continuous-batching
+`runtime.engine.Engine`, on hand-written Hopper kernels (`ops/cuda/`,
+sources in `csrc/`). Entry points run on the card unless the caller passes
+device="cpu", where every kernel wrapper takes its plain PyTorch version.
+"""

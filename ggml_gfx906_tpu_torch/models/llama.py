@@ -1,0 +1,269 @@
+"""Llama-family decoder — the port of ggml_gfx906_tpu/models/llama.py.
+
+The same op sequence as the reference (RMS_NORM + MUL_MAT + ROPE(NeoX) +
+causal FLASH_ATTN + SWIGLU), in eager PyTorch over a params dict:
+{"wte", "out_norm", ["lm_head"], "blocks": [{attn_norm, wq, wk, wv, wo,
+ffn_norm, w_gate, w_up, w_down}, ...]}, where each matrix is a Q4_K
+QuantTensor or a dense tensor. Q4_K matmuls run on kernels K1/K3 and
+attention on K2 (ops/cuda/).
+
+GGUF schema: llama.cpp conventions (kv `llama.*`; tensors blk.N.attn_q|
+attn_k|attn_v|attn_output|ffn_gate|ffn_up|ffn_down|attn_norm|ffn_norm).
+
+Entry points (`load`, `params_from_numpy`, `generate`) run on the card
+unless device="cpu" is passed, and raise when no CUDA device exists.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .. import ops
+from ..gguf import GGUFReader
+from ..ops.quantized import QuantTensor, embed_rows, qmatmul
+from ..quant.types import GGMLType, TYPE_TRAITS
+from ..runtime.kv_cache import KVCache
+from ..utils.device import resolve
+
+ARCH = "llama"
+
+_PER_BLOCK = (
+    ("attn_norm", "attn_norm.weight"),
+    ("wq", "attn_q.weight"), ("wk", "attn_k.weight"),
+    ("wv", "attn_v.weight"), ("wo", "attn_output.weight"),
+    ("ffn_norm", "ffn_norm.weight"),
+    ("w_gate", "ffn_gate.weight"), ("w_up", "ffn_up.weight"),
+    ("w_down", "ffn_down.weight"),
+)
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    n_vocab: int
+    n_ctx: int
+    n_embd: int
+    n_head: int
+    n_kv_head: int
+    n_layer: int
+    n_ff: int
+    rms_eps: float = 1e-5
+    rope_base: float = 10000.0
+    rope_dims: int | None = None  # defaults to head_dim
+    rope_freq_scale: float = 1.0
+    compute_dtype: torch.dtype = torch.float32
+
+    @property
+    def head_dim(self) -> int:
+        return self.n_embd // self.n_head
+
+    @property
+    def n_rot(self) -> int:
+        return self.rope_dims or self.head_dim
+
+
+def params_device(params: dict) -> torch.device:
+    return params["out_norm"].device
+
+
+def _to_param(reader: GGUFReader, name: str, device):
+    ti = reader.tensors[name]
+    if TYPE_TRAITS[ti.type].is_quantized:
+        if len(ti.shape) != 2:
+            raise ValueError(f"{name}: quantized tensors must be 2-D")
+        return QuantTensor.from_wire(ti.type, reader.tensor_bytes(name),
+                                     tuple(ti.shape), device)
+    return torch.from_numpy(reader.tensor_float(name)).to(device)
+
+
+def load(path, device=None) -> tuple[LlamaConfig, dict]:
+    """Read a llama GGUF: mmap → torch → device, one tensor at a time. Q4_K
+    tensors go to the device as wire bytes and are split into the port's
+    fields there (ops/quantized.py). compute_dtype is f32; pass the config
+    through dataclasses.replace for bf16 compute."""
+    device = resolve(device)
+    r = GGUFReader(path)
+    arch = r.kv.get("general.architecture")
+    if arch != ARCH:
+        raise ValueError(f"not a llama GGUF (architecture={arch!r})")
+    kv = r.kv
+    n_head = int(kv[f"{ARCH}.attention.head_count"])
+    cfg = LlamaConfig(
+        n_vocab=int(kv.get(f"{ARCH}.vocab_size",
+                           r.tensors["token_embd.weight"].shape[0])),
+        n_ctx=int(kv[f"{ARCH}.context_length"]),
+        n_embd=int(kv[f"{ARCH}.embedding_length"]),
+        n_head=n_head,
+        n_kv_head=int(kv.get(f"{ARCH}.attention.head_count_kv", n_head)),
+        n_layer=int(kv[f"{ARCH}.block_count"]),
+        n_ff=int(kv[f"{ARCH}.feed_forward_length"]),
+        rms_eps=float(kv.get(f"{ARCH}.attention.layer_norm_rms_epsilon", 1e-5)),
+        rope_base=float(kv.get(f"{ARCH}.rope.freq_base", 10000.0)),
+        rope_dims=int(kv[f"{ARCH}.rope.dimension_count"])
+        if f"{ARCH}.rope.dimension_count" in kv else None,
+        rope_freq_scale=float(kv.get(f"{ARCH}.rope.freq_scale", 1.0)),
+    )
+    p = {"wte": _to_param(r, "token_embd.weight", device),
+         "out_norm": _to_param(r, "output_norm.weight", device),
+         "blocks": []}
+    if "output.weight" in r.tensors:
+        p["lm_head"] = _to_param(r, "output.weight", device)
+    for i in range(cfg.n_layer):
+        p["blocks"].append({short: _to_param(r, f"blk.{i}.{gname}", device)
+                            for short, gname in _PER_BLOCK})
+    return cfg, p
+
+
+def params_from_numpy(tree: dict, device=None) -> dict:
+    """Carry the JAX package's llama params across. `tree` mirrors its
+    params pytree with numpy leaves; each QuantTensor arrives as
+    {"qtype", "shape", "layout", "fields": {name: ndarray}} in the JAX
+    "kernel" layout (qmm.py:139-155). Returns the port's params, which
+    compute the same function."""
+    device = resolve(device)
+
+    def conv(leaf):
+        if isinstance(leaf, dict) and "fields" in leaf:
+            if leaf["layout"] != "kernel":
+                raise NotImplementedError(
+                    f"{leaf['layout']!r} layout weights are not ported yet")
+            return QuantTensor.from_reference_kernel_layout(
+                GGMLType(leaf["qtype"]), tuple(leaf["shape"]), leaf["fields"],
+                device)
+        return torch.from_numpy(np.array(leaf, copy=True)).to(device)
+
+    out = {k: conv(v) for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = [{k: conv(v) for k, v in blk.items()}
+                     for blk in tree["blocks"]]
+    return out
+
+
+def _rms(x, g, eps):
+    return ops.rms_norm(x, eps) * g
+
+
+def _rope(cfg: LlamaConfig, x, pos):
+    return ops.rope_ext(x, pos, cfg.n_rot, mode=ops.ROPE_TYPE_NEOX,
+                        freq_base=cfg.rope_base,
+                        freq_scale=cfg.rope_freq_scale)
+
+
+def _block_ffn(blk, x, eps):
+    h2 = _rms(x, blk["ffn_norm"], eps)
+    gate = ops.silu(qmatmul(h2, blk["w_gate"]))
+    up = qmatmul(h2, blk["w_up"])
+    return x + qmatmul(gate * up, blk["w_down"])
+
+
+def forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
+            kv: KVCache, start: int) -> tuple[torch.Tensor, KVCache]:
+    """tokens (S,) at absolute positions [start, start+S) → (logits (S, V)
+    f32, kv). The cache is updated in place."""
+    S = tokens.shape[0]
+    HD = cfg.head_dim
+    dev = tokens.device
+    pos = start + torch.arange(S, dtype=torch.int32, device=dev)
+    pos_b = torch.tensor([start], dtype=torch.int32, device=dev)
+    x = embed_rows(params["wte"], tokens).to(cfg.compute_dtype)
+    for li, blk in enumerate(params["blocks"]):
+        H = blk["wq"].shape[0] // HD
+        KVH = blk["wk"].shape[0] // HD
+        h = _rms(x, blk["attn_norm"], cfg.rms_eps)
+        q = qmatmul(h, blk["wq"]).reshape(S, H, HD)
+        k = qmatmul(h, blk["wk"]).reshape(S, KVH, HD)
+        v = qmatmul(h, blk["wv"]).reshape(S, KVH, HD)
+        q = _rope(cfg, q, pos)
+        k = _rope(cfg, k, pos)
+        kv = kv.update_layer(li, k, v, start)
+        kc, vc, _, _ = kv.layer_kv(li)
+        att = ops.causal_flash_attn(q.transpose(0, 1)[None], kc[None], vc[None],
+                                    pos_b, scale=1.0 / (HD ** 0.5))
+        att = att[0].transpose(0, 1).reshape(S, H * HD)
+        x = x + qmatmul(att, blk["wo"])
+        x = _block_ffn(blk, x, cfg.rms_eps)
+    x = _rms(x, params["out_norm"], cfg.rms_eps)
+    head = params.get("lm_head", params["wte"])
+    return qmatmul(x, head).float(), kv.advance(S)
+
+
+def forward_batch(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
+                  kv, start: torch.Tensor, attn_window: int | None = None):
+    """Batched serving forward: tokens (B, S) at per-slot positions
+    start (B,) against a BatchedKVCache → (logits (B, S, V) f32, kv).
+
+    attn_window: attend only over cache positions [0, window) — the engine
+    passes the smallest bucket covering the longest active slot; callers
+    guarantee every valid position is < attn_window. K/V writes still go to
+    the full cache."""
+    B, S = tokens.shape
+    HD = cfg.head_dim
+    dev = tokens.device
+    pos = start[:, None] + torch.arange(S, dtype=torch.int32, device=dev)[None, :]
+    x = embed_rows(params["wte"], tokens).to(cfg.compute_dtype)
+    for li, blk in enumerate(params["blocks"]):
+        H = blk["wq"].shape[0] // HD
+        KVH = blk["wk"].shape[0] // HD
+        h = _rms(x, blk["attn_norm"], cfg.rms_eps)
+        q = qmatmul(h, blk["wq"]).reshape(B, S, H, HD)
+        k = qmatmul(h, blk["wk"]).reshape(B, S, KVH, HD)
+        v = qmatmul(h, blk["wv"]).reshape(B, S, KVH, HD)
+        q = _rope(cfg, q, pos)
+        k = _rope(cfg, k, pos)
+        kv = kv.update_layer(li, k, v, start)
+        kc, vc, _, _ = kv.layer_kv(li, attn_window)
+        att = ops.causal_flash_attn(q.transpose(1, 2), kc, vc, start,
+                                    scale=1.0 / (HD ** 0.5))
+        att = att.transpose(1, 2).reshape(B, S, H * HD)
+        x = x + qmatmul(att, blk["wo"])
+        x = _block_ffn(blk, x, cfg.rms_eps)
+    x = _rms(x, params["out_norm"], cfg.rms_eps)
+    head = params.get("lm_head", params["wte"])
+    return qmatmul(x, head).float(), kv
+
+
+def make_cache(cfg: LlamaConfig, max_seq: int | None = None, dtype=None,
+               device=None) -> KVCache:
+    return KVCache.create(cfg.n_layer, max_seq or cfg.n_ctx, cfg.n_kv_head,
+                          cfg.head_dim, dtype or cfg.compute_dtype,
+                          device=resolve(device))
+
+
+def _check_device(params, device) -> torch.device:
+    device = resolve(device)
+    if params_device(params).type != device.type:
+        raise ValueError(f"params live on {params_device(params)}, asked for {device}")
+    return device
+
+
+@torch.inference_mode()
+def generate(cfg: LlamaConfig, params: dict, prompt_tokens, n_predict: int,
+             sampler=None, max_seq: int | None = None, device=None) -> list[int]:
+    """Prompt + n_predict greedy (or `sampler`) tokens, single sequence."""
+    from ..runtime.sampling import greedy
+
+    device = _check_device(params, device)
+    kv = make_cache(cfg, max_seq, device=device)
+    toks = torch.as_tensor(np.asarray(prompt_tokens, np.int64), device=device)
+    logits, kv = forward(cfg, params, toks, kv, 0)
+    out = list(map(int, prompt_tokens))
+    sampler = sampler or greedy
+    out.append(int(sampler(logits[-1])))
+    pos = len(prompt_tokens)
+    for _ in range(n_predict - 1):
+        logits, kv = forward(cfg, params,
+                             torch.tensor([out[-1]], dtype=torch.int64, device=device),
+                             kv, pos)
+        pos += 1
+        out.append(int(sampler(logits[-1])))
+    return out
+
+
+@torch.inference_mode()
+def prefill_kv(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
+               max_seq: int):
+    """Single-sequence prefill → (logits (S, V), k, v) with per-layer
+    (n_kv_head, max_seq, head_dim) caches, for slot installation."""
+    kv = make_cache(cfg, max_seq, device=tokens.device)
+    logits, kv = forward(cfg, params, tokens, kv, 0)
+    return logits, kv.k, kv.v

@@ -1,0 +1,34 @@
+"""Hand-written Hopper kernels and their wrappers (the counterpart of the
+JAX package's ops/pallas/).
+
+Each kernel has a `Kernel` record here: its name, its CUDA source, the TPU
+kernel it replaces, and a plain-integer launch count that its wrapper
+raises by one at every launch (and nowhere else). A wrapper given a CPU
+tensor runs the kernel's plain PyTorch version instead; given a CUDA tensor
+it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass
+class Kernel:
+    name: str
+    source: str          # path in the repo
+    replaces: str        # file:line of the TPU kernel
+    launches: int = 0
+
+
+K1 = Kernel("qmm_q4_K", "ggml_gfx906_tpu_torch/csrc/qmm_q4k.cu",
+            "ggml_gfx906_tpu/ops/pallas/qmm.py:183")
+K2 = Kernel("causal_flash_attention", "ggml_gfx906_tpu_torch/csrc/flash_attn.cu",
+            "ggml_gfx906_tpu/ops/pallas/flash_attn.py:130")
+K3 = Kernel("qmm_q4_K_i8", "ggml_gfx906_tpu_torch/csrc/qmm_q4k.cu",
+            "ggml_gfx906_tpu/ops/pallas/qmm.py:674")
+KERNELS = (K1, K2, K3)
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0

@@ -1,0 +1,110 @@
+"""Build the port's CUDA sources with nvcc and bind them with ctypes.
+
+Each `csrc/<name>.cu` becomes `build/torch_kernels/lib<name>-<hash>.so` at
+the root of the checkout, compiled for Hopper (`sm_90a`) with a plain C
+interface. The hash covers the source and the flags, so an edited source
+builds anew and an unchanged one is reused. Builds happen at first use,
+never at import: `build_all()` starts one nvcc per source, all at once, and
+waits for them; `library(name)` builds one source if it is missing.
+
+Every exported function takes pointers and the stream as `c_void_p`, ints
+as `c_int` / `c_longlong`, floats as `c_float`, and returns a cudaError_t
+(0 = success) that the wrapper turns into an exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# C signatures: name → (source, argtypes)
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+SIGNATURES = {
+    "qmm_q4k_f32": ("qmm_q4k", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "qmm_q4k_i8": ("qmm_q4k", [_P] * 12 + [_I, _I, _I, _P]),
+    "flash_attn_fwd": ("flash_attn", [_P] * 7 + [_I] * 6 + [_L, _L]
+                       + [_F, _F, _F, _I, _P]),
+}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+BUILD_LOG: dict[str, dict] = {}     # source → {"seconds", "ptxas"}
+
+
+def sources() -> list[str]:
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(found).exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256()
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names: list[str] | None = None) -> dict[str, Path]:
+    """Compile every missing library, one nvcc process per source, all
+    started together. Raises with nvcc's output if any build fails."""
+    names = names or sources()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    out = {}
+    for name in names:
+        target = _target(name)
+        out[name] = target
+        if target.exists():
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, target, time.perf_counter())
+    errors = []
+    for name, (proc, tmp, target, t0) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
+        if proc.returncode != 0:
+            errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, target)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return out
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = build_all([name])[name]
+        lib = ctypes.CDLL(str(path))
+        for fn, (src, argtypes) in SIGNATURES.items():
+            if src == name:
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def call(fn: str, *args) -> None:
+    """Call an exported kernel launcher; raise on a non-zero cudaError_t."""
+    err = getattr(library(SIGNATURES[fn][0]), fn)(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn}: CUDA error {err} at launch")

@@ -1,0 +1,234 @@
+"""Q4_K matmul kernels K1 (f32, M < int8_min_m) and K3 (int8, M >= it).
+
+Kernel source: csrc/qmm_q4k.cu (fuller notes there).
+
+- K1 `qmm_q4_K` replaces ggml_gfx906_tpu/ops/pallas/qmm.py::qmm_q4_K.
+  Bound on the H100: bytes — the packed weights (~0.59 B per weight) are
+  read once. Design: each lane reads 16 packed bytes at a time, forms f32
+  weights in registers and FMAs them against up to 8 activation rows; a
+  fixed xor-shuffle reduction per output (no TF32, no atomics).
+- K3 `qmm_q4_K_i8` replaces ggml_gfx906_tpu/ops/pallas/qmm.py::qmm_q4_K_i8.
+  Bound on the H100: operations at large M (int8), bytes at M≈128. Design:
+  64×64 output tiles; each block expands its packed weight tile to int8 in
+  shared memory (the TPU reused it through its sequential grid), dp4a
+  integer dots, the reference's f32 epilogue order. Its operand preparation — the activation split and per-tile int8
+  quantization (`quantize_x_tiles`) and the folding of block scales by the
+  per-tile bound (`tile_fold`) — runs as plain torch ops around the kernel,
+  as it ran as XLA ops around the Pallas kernel.
+
+Weight layout (ggml wire order, struct of arrays; see ops/quantized.py):
+qs (N, K/2) u8, scm (N, K/16) u8 = unpacked [sc0..7 | m0..7] per
+superblock, dd (N, K/128) f32 = [d, dmin] per superblock.
+
+The int8 tiles group the same elements as the reference's kernel element
+order: tile (lo, t) is the 128 low-nibble elements of superblock t, tile
+(hi, t) its 128 high-nibble elements (qmm.py:529-542 on q4k_split_x). Here
+each tile is laid out in qs byte order.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...quant.dequant_math import dequant_q4_K_unpacked
+from . import K1, K3, build
+
+
+def _check_weights(qs, scm, dd, k):
+    n = qs.shape[0]
+    nb = k // 256
+    if k % 256:
+        raise ValueError(f"K={k} is not a multiple of 256")
+    want = {"qs": (qs, (n, nb * 128), torch.uint8),
+            "scm": (scm, (n, nb * 16), torch.uint8),
+            "dd": (dd, (n, nb * 2), torch.float32)}
+    for name, (t, shape, dt) in want.items():
+        if tuple(t.shape) != shape or t.dtype != dt:
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, want {shape} {dt}")
+        if t.device != qs.device:
+            raise ValueError(f"{name} on {t.device}, qs on {qs.device}")
+
+
+def _check_cuda(*ts):
+    for t in ts:
+        if not t.is_cuda:
+            raise ValueError("mixed devices: every operand must be on the card")
+        if not t.is_contiguous():
+            raise ValueError("kernel operands must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError("kernel operands must be 16-byte aligned")
+
+
+def scale_arrays(scm, dd):
+    """Packed scale fields → the four premultiplied f32 (N, nb*4) arrays
+    (dsclo, dschi, dmlo, dmhi) of the even (lo) and odd (hi) sub-blocks —
+    the counterpart of qmm.py::q4k_scale_arrays."""
+    n = scm.shape[0]
+    s = scm.reshape(n, -1, 16).float()
+    d = dd.reshape(n, -1, 2)
+    dsc = s[:, :, 0:8] * d[:, :, 0:1]
+    dm = s[:, :, 8:16] * d[:, :, 1:2]
+    r = lambda a: a.reshape(n, -1).contiguous()   # noqa: E731
+    return r(dsc[:, :, 0::2]), r(dsc[:, :, 1::2]), r(dm[:, :, 0::2]), r(dm[:, :, 1::2])
+
+
+def dequant(qs, scm, dd):
+    """Dense (N, K) f32 weights, bit-identical to ggml's dequantization."""
+    n = qs.shape[0]
+    s = scm.reshape(n, -1, 16)
+    d = dd.reshape(n, -1, 2)
+    return dequant_q4_K_unpacked(d[..., 0], d[..., 1], s[..., 0:8], s[..., 8:16],
+                                 qs.reshape(n, -1, 128)).reshape(n, -1)
+
+
+# ------------------------------------------------------------------ K1
+
+def qmm_q4_K_plain(x, qs, scm, dd):
+    """Plain PyTorch K1: dequantize, then one f32 product (TF32 off)."""
+    return x.float() @ dequant(qs, scm, dd).T
+
+
+def qmm_q4_K(x, qs, scm, dd):
+    """x (M, K) @ W(N, K).T → (M, N) f32, W in the port's Q4_K layout."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be 2-D, got {tuple(x.shape)}")
+    m, k = x.shape
+    _check_weights(qs, scm, dd, k)
+    x = x.float()
+    if not qs.is_cuda:
+        return qmm_q4_K_plain(x, qs, scm, dd)
+    x = x.contiguous()
+    if x.data_ptr() % 16:           # the kernel reads x with 16-byte loads
+        x = x.clone()
+    n = qs.shape[0]
+    y = torch.empty((m, n), dtype=torch.float32, device=qs.device)
+    _check_cuda(x, qs, scm, dd)
+    build.call("qmm_q4k_f32", x.data_ptr(), qs.data_ptr(), scm.data_ptr(),
+               dd.data_ptr(), y.data_ptr(), m, n, k,
+               torch.cuda.current_stream(qs.device).cuda_stream)
+    K1.launches += 1
+    return y
+
+
+# ------------------------------------------------------------------ K3
+
+def split_x(x):
+    """x (M, K) → x_lo, x_hi (M, K/2): per superblock, the elements under
+    the low / high nibbles, in qs byte order (32*g + j ↔ 64*g + j)."""
+    m, k = x.shape
+    xr = x.reshape(m, k // 256, 4, 2, 32)
+    return (xr[:, :, :, 0, :].reshape(m, k // 2),
+            xr[:, :, :, 1, :].reshape(m, k // 2))
+
+
+def _scale_and_inverse(amax):
+    """(amax/127, 127/amax or 0) as true f32 divisions. Spelled as
+    tensor/tensor on purpose: `127.0 / t` is t.reciprocal() * 127 in torch,
+    and a CUDA tensor divided by a Python scalar is multiplied by its
+    reciprocal — both round differently from the reference's division."""
+    c = torch.full_like(amax, 127.0)
+    pos = amax > 0
+    inv = torch.where(pos, c / torch.where(pos, amax, torch.ones_like(amax)),
+                      torch.zeros_like(amax))
+    return amax / c, inv
+
+
+def quantize_x_tiles(x):
+    """Per-(row, 128-element tile) symmetric int8 quantization → qx (M, K)
+    int8, ex (M, K/128) f32 — qmm.py::quantize_x_tiles, same roundings
+    (round half to even, clip to ±127)."""
+    m, k = x.shape
+    xt = x.reshape(m, k // 128, 128).float()
+    amax = xt.abs().amax(-1)
+    ex, inv = _scale_and_inverse(amax)
+    qx = torch.clamp(torch.round(xt * inv[..., None]), -127.0, 127.0)
+    return qx.to(torch.int8).reshape(m, k), ex
+
+
+def tile_fold(dsc, dm, blk_per_tile: int, qmax: float):
+    """Fold per-block scales by the analytic per-tile bound (qmm.py::
+    _tile_fold): dw = max|w|/127 per (row, tile) with |w| ≤ max(|qmax·dsc −
+    dm|, |dm|); returns (dsc/dw, dm/dw, dw (N, tiles))."""
+    n, nblk = dsc.shape
+    kt = nblk // blk_per_tile
+    d3 = dsc.reshape(n, kt, blk_per_tile)
+    m3 = dm.reshape(n, kt, blk_per_tile)
+    bound = torch.maximum(torch.abs(qmax * d3 - m3), torch.abs(m3))
+    dw, inv = _scale_and_inverse(bound.amax(-1))
+    return ((d3 * inv[..., None]).reshape(n, nblk).contiguous(),
+            (m3 * inv[..., None]).reshape(n, nblk).contiguous(), dw.contiguous())
+
+
+def prepare_i8(x, scm, dd):
+    """The operands K3 takes besides qs: (qxlo, exlo, qxhi, exhi, dsclo_f,
+    dschi_f, dmlo_f, dmhi_f, dwlo, dwhi)."""
+    xlo, xhi = split_x(x.float())
+    qxlo, exlo = quantize_x_tiles(xlo)
+    qxhi, exhi = quantize_x_tiles(xhi)
+    dsclo, dschi, dmlo, dmhi = scale_arrays(scm, dd)
+    dsclo_f, dmlo_f, dwlo = tile_fold(dsclo, dmlo, 4, 15.0)
+    dschi_f, dmhi_f, dwhi = tile_fold(dschi, dmhi, 4, 15.0)
+    return (qxlo, exlo, qxhi, exhi, dsclo_f, dschi_f, dmlo_f, dmhi_f, dwlo, dwhi)
+
+
+def expand_w8(qs, dsc_f, dm_f, high: bool):
+    """Packed nibbles → int8 weights (N, nb*128) in qs byte order, with the
+    folded scales: round_half_even(q·dsc' − dm') clipped to ±127 (qmm.py::
+    _round_i8). The product and the difference round separately."""
+    n = qs.shape[0]
+    q = (qs >> 4) if high else (qs & 0xF)
+    q = q.reshape(n, -1, 4, 32).float()
+    w = q * dsc_f.reshape(n, -1, 4, 1) - dm_f.reshape(n, -1, 4, 1)
+    return torch.clamp(torch.round(w), -127.0, 127.0).to(torch.int8).reshape(n, -1)
+
+
+def qmm_q4_K_i8_plain(qs, qxlo, exlo, qxhi, exhi, dsclo_f, dschi_f, dmlo_f,
+                      dmhi_f, dwlo, dwhi):
+    """Plain PyTorch K3 on prepared operands. Each tile's integer dot runs
+    as an f32 product of int8 values: every partial sum is an integer below
+    2^24, so it is exact in f32 whatever the summation order."""
+    m = qxlo.shape[0]
+    n = qs.shape[0]
+    nb = exlo.shape[1]
+    wlo = expand_w8(qs, dsclo_f, dmlo_f, False).reshape(n, nb, 128).float()
+    whi = expand_w8(qs, dschi_f, dmhi_f, True).reshape(n, nb, 128).float()
+    xlo = qxlo.reshape(m, nb, 128).float()
+    xhi = qxhi.reshape(m, nb, 128).float()
+    acc = torch.zeros((m, n), dtype=torch.float32, device=qs.device)
+    for t in range(nb):
+        plo = xlo[:, t] @ wlo[:, t].T
+        phi = xhi[:, t] @ whi[:, t].T
+        acc = acc + plo * exlo[:, t:t + 1] * dwlo[None, :, t]
+        acc = acc + phi * exhi[:, t:t + 1] * dwhi[None, :, t]
+    return acc
+
+
+def qmm_q4_K_i8(x, qs, scm, dd):
+    """Integer Q4_K matmul (prefill route): x (M, K) → (M, N) f32."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be 2-D, got {tuple(x.shape)}")
+    m, k = x.shape
+    _check_weights(qs, scm, dd, k)
+    ops = prepare_i8(x, scm, dd)
+    if not qs.is_cuda:
+        return qmm_q4_K_i8_plain(qs, *ops)
+    return launch_i8(qs, *ops)
+
+
+def launch_i8(qs, qxlo, exlo, qxhi, exhi, dsclo_f, dschi_f, dmlo_f, dmhi_f,
+              dwlo, dwhi):
+    """Launch K3 on prepared operands (CUDA tensors)."""
+    ops = [t.contiguous() for t in (qxlo, exlo, qxhi, exhi, dsclo_f, dschi_f,
+                                    dmlo_f, dmhi_f, dwlo, dwhi)]
+    _check_cuda(qs, *ops)
+    m = ops[0].shape[0]
+    n = qs.shape[0]
+    k = qs.shape[1] * 2
+    y = torch.empty((m, n), dtype=torch.float32, device=qs.device)
+    qxlo, exlo, qxhi, exhi, dsclo_f, dschi_f, dmlo_f, dmhi_f, dwlo, dwhi = ops
+    build.call("qmm_q4k_i8", qxlo.data_ptr(), exlo.data_ptr(), qxhi.data_ptr(),
+               exhi.data_ptr(), qs.data_ptr(), dsclo_f.data_ptr(),
+               dschi_f.data_ptr(), dmlo_f.data_ptr(), dmhi_f.data_ptr(),
+               dwlo.data_ptr(), dwhi.data_ptr(), y.data_ptr(), m, n, k,
+               torch.cuda.current_stream(qs.device).cuda_stream)
+    K3.launches += 1
+    return y

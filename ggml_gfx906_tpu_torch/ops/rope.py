@@ -1,0 +1,91 @@
+"""Rotary position embedding with ggml's parameter surface (the
+counterpart of ggml_gfx906_tpu/ops/rope.py::rope_ext, :81-127).
+
+ref: ggml_rope_ext (include/ggml.h:1645-1740), CPU kernel
+src/ggml-cpu/ops.cpp:6049-6330, YaRN correction dims src/ggml.c:4083-4098.
+
+Modes: NORMAL rotates adjacent pairs (x[2i], x[2i+1]); NEOX rotates
+half-split pairs (x[i], x[i + n_dims/2]). Dims beyond n_dims pass through.
+The per-pair frequencies freq_base^(-2i/n_dims) are an f32 power, computed
+as the reference computes them (numpy f32 on the host, not float64).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+ROPE_TYPE_NORMAL = 0
+ROPE_TYPE_NEOX = 2
+
+
+def yarn_corr_dims(n_dims: int, n_ctx_orig: int, freq_base: float,
+                   beta_fast: float, beta_slow: float) -> tuple[float, float]:
+    """ref: ggml_rope_yarn_corr_dims src/ggml.c:4088-4098."""
+
+    def corr_dim(n_rot):
+        return n_dims * math.log(n_ctx_orig / (n_rot * 2 * math.pi)) / (
+            2 * math.log(freq_base))
+
+    start = math.floor(corr_dim(beta_fast))
+    end = math.ceil(corr_dim(beta_slow))
+    return max(0.0, start), min(n_dims - 1.0, end)
+
+
+def _rope_cos_sin(pos, n_dims, freq_base, freq_scale, ext_factor, attn_factor,
+                  beta_fast, beta_slow, n_ctx_orig):
+    half = n_dims // 2
+    pair_idx = np.arange(half)
+    theta_pow = np.float32(freq_base) ** (
+        -2.0 * pair_idx.astype(np.float32) / n_dims)
+    dev = pos.device
+    theta_extrap = pos.float()[..., None] * torch.from_numpy(
+        np.ascontiguousarray(theta_pow, np.float32)).to(dev)
+    theta_interp = float(freq_scale) * theta_extrap
+    mscale = np.float32(attn_factor)
+    if ext_factor != 0.0:
+        low, high = yarn_corr_dims(n_dims, n_ctx_orig, freq_base, beta_fast,
+                                   beta_slow)
+        ramp_y = (pair_idx.astype(np.float32) - low) / max(0.001, high - low)
+        ramp = torch.from_numpy(np.ascontiguousarray(
+            (1.0 - np.clip(ramp_y.astype(np.float32), 0.0, 1.0)) * ext_factor,
+            np.float32)).to(dev)
+        theta = theta_interp * (1 - ramp) + theta_extrap * ramp
+        mscale = np.float32(mscale * np.float32(1.0 + 0.1 * math.log(1.0 / freq_scale)))
+    else:
+        theta = theta_interp
+    return torch.cos(theta) * float(mscale), torch.sin(theta) * float(mscale)
+
+
+def rope_ext(x, pos, n_dims: int, mode: int = ROPE_TYPE_NORMAL,
+             freq_base: float = 10000.0, freq_scale: float = 1.0,
+             ext_factor: float = 0.0, attn_factor: float = 1.0,
+             beta_fast: float = 32.0, beta_slow: float = 1.0,
+             n_ctx_orig: int = 0):
+    """x: (..., n_seq, n_head, head_dim) — pos (int tensor) indexes the
+    n_seq axis (-3). Returns x with the first n_dims of head_dim rotated.
+    The reference's freq_factors and rope_back (forward=False) are not
+    ported."""
+    head_dim = x.shape[-1]
+    if n_dims % 2 or n_dims > head_dim:
+        raise ValueError(f"n_dims {n_dims} must be even and <= {head_dim}")
+    n_ctx_orig = n_ctx_orig or 0
+    if ext_factor != 0.0 and n_ctx_orig <= 0:
+        raise ValueError("YaRN needs n_ctx_orig")
+    cos, sin = _rope_cos_sin(pos, n_dims, freq_base, freq_scale, ext_factor,
+                             attn_factor, beta_fast, beta_slow,
+                             max(n_ctx_orig, 1))
+    cos = cos[..., None, :]
+    sin = sin[..., None, :]
+    xf = x.float()
+    rot, rest = xf[..., :n_dims], xf[..., n_dims:]
+    if mode & ROPE_TYPE_NEOX:
+        h = n_dims // 2
+        x0, x1 = rot[..., :h], rot[..., h:]
+        out = torch.cat([x0 * cos - x1 * sin, x0 * sin + x1 * cos], dim=-1)
+    else:
+        x0, x1 = rot[..., 0::2], rot[..., 1::2]
+        out = torch.stack([x0 * cos - x1 * sin, x0 * sin + x1 * cos],
+                          dim=-1).reshape(rot.shape)
+    return torch.cat([out, rest], dim=-1).to(x.dtype)

@@ -1,0 +1,10 @@
+"""Quant types and the Q4_K dequantization math (numpy types, torch math)."""
+from .types import (  # noqa: F401
+    GGMLType,
+    TYPE_TRAITS,
+    TypeTraits,
+    QK_K,
+    K_SCALE_SIZE,
+    BLOCK_Q4_K,
+    row_size,
+)

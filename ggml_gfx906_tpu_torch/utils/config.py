@@ -1,0 +1,101 @@
+"""Runtime configuration registry of the port.
+
+The counterpart of ggml_gfx906_tpu/utils/config.py, holding only the knobs
+the ported path reads. Precedence is the reference's: built-in default <
+GGML_TORCH_<NAME> env var < programmatic `set()`.
+
+Some reference knobs select behaviour the port does not have yet (int8 KV
+cache, window-delta decode, pipelined harvest windows). They are registered
+with the one value the port implements, and asking for any other value
+raises NotImplementedError — it is never silently ignored.
+
+    from ggml_gfx906_tpu_torch.utils import config
+    config.get("int8_min_m")          # 64
+    config.set("int8_min_m", 128)     # highest precedence
+"""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Any, Callable
+
+
+@dataclass
+class _Entry:
+    default: Any
+    parse: Callable[[str], Any]
+    help: str
+    only: bool = False      # True: `default` is the only implemented value
+
+
+_REGISTRY: dict[str, _Entry] = {}
+_OVERRIDES: dict[str, Any] = {}
+
+
+def _bool(s: str) -> bool:
+    return s.strip().lower() in ("1", "true", "yes", "on")
+
+
+def register(name: str, default, help: str, parse=None, only: bool = False):
+    """Declare a knob. parse defaults to the type of `default`; only=True
+    marks a knob whose other values are later slices of the port."""
+    if parse is None:
+        parse = _bool if isinstance(default, bool) else type(default)
+    _REGISTRY[name] = _Entry(default, parse, help, only)
+    return name
+
+
+def _env_key(name: str) -> str:
+    return "GGML_TORCH_" + name.upper()
+
+
+def _check(name: str, value):
+    e = _REGISTRY[name]
+    if e.only and value != e.default:
+        raise NotImplementedError(
+            f"config {name}={value!r} is not ported yet; the port runs "
+            f"{name}={e.default!r} ({e.help})")
+    return value
+
+
+def get(name: str):
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown config {name!r}; have {sorted(_REGISTRY)}")
+    if name in _OVERRIDES:
+        return _OVERRIDES[name]
+    raw = os.environ.get(_env_key(name))
+    if raw is not None:
+        return _check(name, _REGISTRY[name].parse(raw))
+    return _REGISTRY[name].default
+
+
+def set(name: str, value) -> None:   # noqa: A001 - mirrors the reference
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown config {name!r}; have {sorted(_REGISTRY)}")
+    _OVERRIDES[name] = _check(name, value)
+
+
+def unset(name: str) -> None:
+    _OVERRIDES.pop(name, None)
+
+
+# ---------------------------------------------------------------- knobs
+
+register("int8_min_m", 64,
+         "batch-size threshold at which Q4_K matmuls switch from the f32 "
+         "kernel (K1) to the int8 kernel (K3); 0 disables the int8 path")
+register("engine_chunk_size", 128,
+         "prompt tokens prefilled per engine step during admission")
+register("engine_min_window", 32,
+         "smallest attention-window bucket the engine's decode step uses")
+register("engine_harvest_depth", 1,
+         "decode steps per harvest in Engine.run; the port runs the "
+         "depth-1 loop (the reference defaults to 8 with identical streams)",
+         only=True)
+register("kv_quant", False,
+         "store serving KV caches as int8 with per-(head,pos) scales",
+         only=True)
+register("engine_window_delta", False,
+         "window-delta decode; the port runs the strict per-step "
+         "formulation (the reference's engine_window_delta=False)",
+         only=True)

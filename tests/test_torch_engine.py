@@ -1,0 +1,147 @@
+"""Port parity: the continuous-batching Engine.
+
+The port's Engine (per-request chunked admission, one batched decode per
+step, depth-1 harvest) must give token streams equal to the port's own
+single-sequence generate, and to the JAX Engine in its strict per-step
+formulation (engine_window_delta=False)."""
+import numpy as np
+import pytest
+
+from ggml_gfx906_tpu.models import llama as jllama
+from ggml_gfx906_tpu.quant.types import GGMLType
+from ggml_gfx906_tpu.runtime.engine import Engine as JEngine
+from ggml_gfx906_tpu.utils import config as jconfig
+from ggml_gfx906_tpu_torch.models import llama as tllama
+from ggml_gfx906_tpu_torch.ops.cuda import dispatch
+from ggml_gfx906_tpu_torch.runtime.engine import Engine
+from ggml_gfx906_tpu_torch.utils import config as tconfig
+
+from _torch_port import tiny_models
+
+MAX_SEQ = 128
+CHUNK = 32
+
+
+@pytest.fixture(scope="module")
+def models():
+    return tiny_models(GGMLType.Q4_K, seed=2)
+
+
+def _prompts(lengths, seed=0):
+    rng = np.random.default_rng(seed)
+    return [[int(t) for t in rng.integers(1, 256, n)] for n in lengths]
+
+
+def _run(eng, prompts, n_new):
+    rids = [eng.submit(p, n_new) for p in prompts]
+    done = {r.rid: r for r in eng.run()}
+    assert set(done) == set(rids)
+    return [done[r].out for r in rids]
+
+
+def test_engine_matches_generate(models):
+    """Lengths ≤ 32 or in [64, 128] keep engine prefill chunks (padded to a
+    bucket) on the same matmul route as generate's unpadded prefill; 70 is
+    longer than the chunk size, so it is admitted in three chunks."""
+    _, _, tcfg, tp = models
+    prompts = _prompts([5, 20, 70, 3])
+    eng = Engine(tllama, tcfg, tp, max_batch=3, max_seq=MAX_SEQ,
+                 chunk_size=CHUNK, device="cpu")
+    outs = _run(eng, prompts, 6)
+    for prompt, out in zip(prompts, outs):
+        assert prompt + out == tllama.generate(tcfg, tp, prompt, 6,
+                                               max_seq=MAX_SEQ, device="cpu")
+
+
+def test_engine_matches_reference_engine(models):
+    """Same requests through the JAX Engine (window delta off). The JAX
+    engine admits short prompts as one batched prefill whose padded M can
+    cross int8_min_m where the port's per-request chunks do not, so both
+    sides run the f32 route here (int8_min_m=0)."""
+    jcfg, jp, tcfg, tp = models
+    prompts = _prompts([9, 40, 2, 17], seed=1)
+    jconfig.set("engine_window_delta", False)
+    jconfig.set("int8_min_m", 0)
+    tconfig.set("int8_min_m", 0)
+    try:
+        ref = _run(JEngine(jllama, jcfg, jp, max_batch=4, max_seq=MAX_SEQ,
+                           chunk_size=CHUNK), prompts, 5)
+        got = _run(Engine(tllama, tcfg, tp, max_batch=4, max_seq=MAX_SEQ,
+                          chunk_size=CHUNK, device="cpu"), prompts, 5)
+    finally:
+        jconfig.unset("engine_window_delta")
+        jconfig.unset("int8_min_m")
+        tconfig.unset("int8_min_m")
+    assert got == ref
+
+
+def test_engine_eos_and_cadence(models):
+    _, _, tcfg, tp = models
+    base = tllama.generate(tcfg, tp, [5, 6], 3, max_seq=MAX_SEQ, device="cpu")
+    eng = Engine(tllama, tcfg, tp, max_batch=2, max_seq=MAX_SEQ, chunk_size=16,
+                 device="cpu")
+    rid = eng.submit([5, 6], 8, eos_id=base[2])
+    assert {r.rid: r for r in eng.run()}[rid].out == [base[2]]
+    # a 48-token admission takes three 16-token chunks; the active slot
+    # gains exactly one token per step meanwhile
+    eng.submit([1, 2, 3], 40)
+    eng.step()
+    eng.submit(list(range(1, 49)), 2)
+    for _ in range(3):
+        before = len(eng.slots[0].out)
+        eng.step()
+        assert len(eng.slots[0].out) == before + 1
+
+
+def test_engine_sampling_batch_invariant(models):
+    """Seeded sampling gives a request the same tokens alone or batched."""
+    _, _, tcfg, tp = models
+    kw = dict(temp=0.9, top_k=20, top_p=0.85)
+
+    def run(reqs):
+        eng = Engine(tllama, tcfg, tp, max_batch=2, max_seq=64, device="cpu")
+        rids = [eng.submit(p, 6, seed=s, **kw) for s, p in reqs]
+        done = {r.rid: r.out for r in eng.run()}
+        return [done[r] for r in rids]
+
+    solo = [run([(11, [1, 2, 3])])[0], run([(22, [9, 8])])[0]]
+    assert run([(11, [1, 2, 3]), (22, [9, 8])]) == solo
+    assert all(len(o) == 6 for o in solo)
+
+
+def test_engine_matches_reference_engine_int8_route(models, monkeypatch):
+    """Prefill chunks of 64 tokens and ragged tails padded to 64 run the
+    int8 route (K3) at the default int8_min_m on both sides. Every prompt is
+    longer than the chunk size, so the JAX engine's batched flood admission
+    stays off and both engines prefill the same per-request chunks; the
+    70-token prompt's 6-token tail runs the f32 route."""
+    jcfg, jp, tcfg, tp = models
+    prompts = _prompts([100, 120, 70], seed=3)
+    chunk = 64
+    jconfig.set("engine_window_delta", False)
+    try:
+        ref = _run(JEngine(jllama, jcfg, jp, max_batch=3, max_seq=MAX_SEQ,
+                           chunk_size=chunk), prompts, 4)
+    finally:
+        jconfig.unset("engine_window_delta")
+    routes = []
+    real_route = dispatch.route
+    monkeypatch.setattr(dispatch, "route",
+                        lambda m, qtype: routes.append((m, real_route(m, qtype)))
+                        or routes[-1][1])
+    got = _run(Engine(tllama, tcfg, tp, max_batch=3, max_seq=MAX_SEQ,
+                      chunk_size=chunk, device="cpu"), prompts, 4)
+    assert (64, "i8") in routes and (16, "f32") in routes
+    assert got == ref
+
+
+def test_engine_unported_options_raise(models, monkeypatch):
+    """Unported knobs raise, set in code or through the environment."""
+    _, _, tcfg, tp = models
+    for name, value in (("kv_quant", True), ("engine_window_delta", True),
+                        ("engine_harvest_depth", 8)):
+        with pytest.raises(NotImplementedError):
+            tconfig.set(name, value)
+    monkeypatch.setenv("GGML_TORCH_KV_QUANT", "1")
+    with pytest.raises(NotImplementedError):
+        Engine(tllama, tcfg, tp, device="cpu")

@@ -1,0 +1,93 @@
+"""The port stands alone: it imports neither jax nor the JAX package, and
+its entry points run on the card unless device="cpu" is asked for."""
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_BLOCKED = textwrap.dedent("""
+    import importlib.abc, sys
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib") or top == "ggml_gfx906_tpu":
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+""")
+
+
+def _run(body: str) -> str:
+    code = _BLOCKED + textwrap.dedent(body)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stdout + res.stderr
+    return res.stdout
+
+
+def test_port_imports_no_jax_and_runs_a_cpu_forward():
+    out = _run("""
+        import importlib, pkgutil
+        import numpy as np, torch
+        import ggml_gfx906_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+        for n in names:
+            importlib.import_module(n)
+        import chip_smoke   # the smoke script imports nothing of JAX either
+        assert not any(m.split(".")[0] in ("jax", "jaxlib", "ggml_gfx906_tpu")
+                       for m in sys.modules)
+        from ggml_gfx906_tpu_torch.models import llama
+        from ggml_gfx906_tpu_torch.ops.quantized import QuantTensor
+        from ggml_gfx906_tpu_torch.quant.types import BLOCK_Q4_K, GGMLType
+        from ggml_gfx906_tpu_torch.quant.kquants import pack_scale_min_k4
+        rng = np.random.default_rng(0)
+        def q4k(n, k):
+            b = np.zeros((n, k // 256), BLOCK_Q4_K)
+            b["d"] = np.float16(0.001); b["dmin"] = np.float16(0.004)
+            b["scales"] = pack_scale_min_k4(rng.integers(0, 64, (1, 8)),
+                                            rng.integers(0, 64, (1, 8)))[0]
+            b["qs"] = rng.integers(0, 256, (n, k // 256, 128), dtype=np.uint8)
+            return QuantTensor.from_blocks(GGMLType.Q4_K, b, "cpu")
+        cfg = llama.LlamaConfig(n_vocab=256, n_ctx=64, n_embd=256, n_head=4,
+                                n_kv_head=2, n_layer=1, n_ff=512)
+        one = torch.ones(256)
+        p = {"wte": q4k(256, 256), "out_norm": one, "blocks": [dict(
+            attn_norm=one, ffn_norm=one, wq=q4k(256, 256), wk=q4k(128, 256),
+            wv=q4k(128, 256), wo=q4k(256, 256), w_gate=q4k(512, 256),
+            w_up=q4k(512, 256), w_down=q4k(256, 512))]}
+        logits, kv = llama.forward(cfg, p, torch.tensor([1, 2, 3]),
+                                   llama.make_cache(cfg, 64, device="cpu"), 0)
+        assert logits.shape == (3, 256) and torch.isfinite(logits).all()
+        print("modules", len(names))
+    """)
+    assert "modules" in out
+
+
+def test_entry_points_want_the_card(tmp_path):
+    """Without device=, load/Engine/generate run on cuda — and raise here,
+    where there is none, instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry points would use it")
+    from ggml_gfx906_tpu_torch.models import llama
+    from ggml_gfx906_tpu_torch.runtime.engine import Engine
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        llama.load(tmp_path / "absent.gguf")
+    cfg = llama.LlamaConfig(n_vocab=8, n_ctx=8, n_embd=8, n_head=1,
+                            n_kv_head=1, n_layer=1, n_ff=8)
+    params = {"out_norm": torch.ones(8), "blocks": []}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(llama, cfg, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        llama.generate(cfg, params, [1], 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        llama.params_from_numpy({"out_norm": [1.0], "blocks": []})
