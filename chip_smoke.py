@@ -7,18 +7,24 @@ Phases (each failure raises, so the script exits non-zero):
      off for the plain versions;
   2. build: compiles ggml_gfx906_tpu_torch/csrc/*.cu with nvcc (one process
      per source, all at once) into build/torch_kernels/;
-  3. kernels: K1 (Q4_K f32 matmul), K3 (Q4_K int8 matmul) and K2 (causal
-     flash attention) against their plain PyTorch versions at the main
-     path's shapes, each timed with CUDA events beside its plain version,
+  3. kernels: K1 (Q4_K f32 matmul), K3 (Q4_K int8 matmul), K2 (causal
+     flash attention), K4 (Q6_K f32 matmul), K5 (Q8_0 f32 matmul) and K5-i8
+     (Q8_0 int8 matmul) against their plain PyTorch versions at the main
+     paths' shapes, each timed with CUDA events beside its plain version,
      its library yardstick and its bound;
-  4. main path at full llama-7B width: writes a 7B-shape Q4_K GGUF (random
-     but valid blocks, constructed scales; cached under build/), loads it
-     to the card, runs `generate`, then serves 8+1 requests through
-     `Engine`, asserts engine streams == single-sequence `generate`
-     streams, and that K1, K2 and K3 all launched; traces one decode step
-     and one 8-slot engine decode step with torch.profiler for the
-     device-busy share;
-  5. a small-model check of the card's forward against the CPU's.
+  4. a small-model check of the card's forward against the CPU's, for a
+     tiny Q4_K, Q4_K_M-mixture and Q8_0 model;
+  5. three main paths at full llama-7B width, one GGUF each (random but
+     valid blocks, constructed scales; cached under build/): pure Q4_K with
+     the head tied to token_embd; llama.cpp's Q4_K_M mixture (Q4_K, with
+     Q6_K in output.weight and in attn_v/ffn_down of 16 of 32 layers); and
+     Q8_0 throughout. Each loads its file to the card, runs `generate`,
+     serves 8+1 requests through `Engine`, asserts engine streams ==
+     single-sequence `generate` streams, that its kernels launched as many
+     times per decode step and per 128-token prefill chunk as its tensor
+     types predict, and traces one decode step and one 8-slot engine decode
+     step with torch.profiler for the device-busy share. The launch counts
+     are set to 0 just before each path and read just after it.
 Detailed results go to DIR/chip_smoke.json (default build/). The second-to-last
 stdout line is {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -28,6 +34,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -39,10 +46,10 @@ import torch
 from ggml_gfx906_tpu_torch.gguf import GGUFWriter
 from ggml_gfx906_tpu_torch.models import llama
 from ggml_gfx906_tpu_torch.ops import cuda as kernels
-from ggml_gfx906_tpu_torch.ops.cuda import build, flash_attn, qmm
+from ggml_gfx906_tpu_torch.ops.cuda import build, dispatch, flash_attn, qmm, qmm_q6k, qmm_q8_0
 from ggml_gfx906_tpu_torch.ops.quantized import QuantTensor
 from ggml_gfx906_tpu_torch.quant.kquants import pack_scale_min_k4
-from ggml_gfx906_tpu_torch.quant.types import BLOCK_Q4_K, GGMLType
+from ggml_gfx906_tpu_torch.quant.types import BLOCK_Q4_K, BLOCK_Q6_K, BLOCK_Q8_0, GGMLType
 from ggml_gfx906_tpu_torch.runtime.engine import Engine
 
 ROOT = Path(__file__).resolve().parent
@@ -191,6 +198,90 @@ def check_qmm(device, timer, results):
         del w_dense
 
 
+def check_q6k(device, timer, results):
+    """K4 at the Q4_K_M file's Q6_K shapes: attn_v, ffn_down (43
+    superblocks per row, an odd count) and the head, from decode to a
+    128-row prefill chunk (Q6_K has no int8 twin)."""
+    gen = torch.Generator(device=device).manual_seed(4)
+    for n, k in ((4096, 4096), (4096, 11008), (32000, 4096)):
+        nb = k // 256
+        w = (torch.randint(0, 256, (n, nb * 128), dtype=torch.uint8, device=device, generator=gen),
+             torch.randint(0, 256, (n, nb * 64), dtype=torch.uint8, device=device, generator=gen),
+             torch.randint(-128, 128, (n, nb * 16), dtype=torch.int8, device=device, generator=gen),
+             torch.rand((n, nb), device=device, generator=gen) * 1e-3)
+        w_dense = qmm_q6k.dequant(*w)
+        wbytes = n * k * 6.625 / 8
+        for m in (1, 8, 16, 63, 128):
+            x = torch.randn((m, k), device=device, generator=gen)
+            got = qmm_q6k.qmm_q6_K(x, *w)
+            ref = qmm_q6k.qmm_q6_K_plain(x, *w)
+            torch.cuda.synchronize()
+            e = nmse(got, ref)
+            if not e < 1e-10:
+                raise AssertionError(f"K4 M={m} N={n} K={k}: nmse {e}")
+            b, by = bound(wbytes + m * k * 4 + m * n * 4, 2.0 * m * n * k, "f32")
+            results.append(dict(
+                kernel="qmm_q6_K", shape=f"M={m} N={n} K={k}", nmse=e,
+                max_abs_err=float((got - ref).abs().max()),
+                ms=timer(lambda: qmm_q6k.qmm_q6_K(x, *w)),
+                plain_ms=timer(lambda: qmm_q6k.qmm_q6_K_plain(x, *w)),
+                library_ms=timer(lambda: torch.matmul(x, w_dense.T)),
+                bound_ms=b, bound_by=by))
+            log(f"K4 M={m} N={n} K={k} nmse={e:.3e} ms={results[-1]['ms']:.4f}")
+        del w_dense
+
+
+def check_q8_0(device, timer, results):
+    """K5 at decode and short-chunk M, K5-i8 at prefill M, on the 7B
+    shapes (every matrix of a Q8_0 file)."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    for n, k in QMM_SHAPES:
+        qs = torch.randint(-128, 128, (n, k), dtype=torch.int8, device=device, generator=gen)
+        d = torch.rand((n, k // 32), device=device, generator=gen) * 1e-3
+        w_dense = qmm_q8_0.dequant(qs, d)
+        wbytes = n * k * 9 / 8
+        for m in (1, 8, 16, 63):
+            x = torch.randn((m, k), device=device, generator=gen)
+            got = qmm_q8_0.qmm_q8_0(x, qs, d)
+            ref = qmm_q8_0.qmm_q8_0_plain(x, qs, d)
+            torch.cuda.synchronize()
+            e = nmse(got, ref)
+            if not e < 1e-10:
+                raise AssertionError(f"K5 M={m} N={n} K={k}: nmse {e}")
+            b, by = bound(wbytes + m * k * 4 + m * n * 4, 2.0 * m * n * k, "f32")
+            results.append(dict(
+                kernel="qmm_q8_0", shape=f"M={m} N={n} K={k}", nmse=e,
+                max_abs_err=float((got - ref).abs().max()),
+                ms=timer(lambda: qmm_q8_0.qmm_q8_0(x, qs, d)),
+                plain_ms=timer(lambda: qmm_q8_0.qmm_q8_0_plain(x, qs, d)),
+                library_ms=timer(lambda: torch.matmul(x, w_dense.T)),
+                bound_ms=b, bound_by=by))
+            log(f"K5 M={m} N={n} K={k} nmse={e:.3e} ms={results[-1]['ms']:.4f}")
+        for m in (64, 100, 128, 512):
+            x = torch.randn((m, k), device=device, generator=gen)
+            ops = qmm_q8_0.prepare_i8(x, d)
+            got = qmm_q8_0.launch_i8(qs, *ops)
+            ref = qmm_q8_0.qmm_q8_0_i8_plain(qs, *ops)
+            torch.cuda.synchronize()
+            err = (got - ref).abs()
+            scale = ref.abs().max()
+            if not bool((err <= 1e-5 * ref.abs() + 1e-6 * scale).all()):
+                raise AssertionError(f"K5-i8 M={m} N={n} K={k}: rel err "
+                                     f"{float((err / ref.abs().clamp_min(1e-30)).max())}")
+            b, by = bound(wbytes + m * k * 4 + m * n * 4, 2.0 * m * n * k, "int8")
+            results.append(dict(
+                kernel="qmm_q8_0_i8", shape=f"M={m} N={n} K={k}", nmse=nmse(got, ref),
+                max_abs_err=float(err.max()),
+                ms=timer(lambda: qmm_q8_0.qmm_q8_0_i8(x, qs, d)),
+                kernel_only_ms=timer(lambda: qmm_q8_0.launch_i8(qs, *ops)),
+                plain_ms=timer(lambda: qmm_q8_0.qmm_q8_0_i8_plain(qs, *qmm_q8_0.prepare_i8(x, d))),
+                library_ms=timer(lambda: torch.matmul(x, w_dense.T)),
+                bound_ms=b, bound_by=by))
+            log(f"K5-i8 M={m} N={n} K={k} nmse={results[-1]['nmse']:.3e} "
+                f"ms={results[-1]['ms']:.4f}")
+        del w_dense
+
+
 def _sdpa(q, k, v, pos, scale, softcap):
     """The one PyTorch call for the same function (yardstick only)."""
     if softcap or k.dtype == torch.int8:
@@ -273,10 +364,92 @@ def check_attention(device, timer, results):
 
 # ------------------------------------------------------------- main path
 
-def write_gguf(path: Path, cfg: dict, n_layer: int):
-    """The 7B-shape Q4_K GGUF of bench.py:88-152 with the port's writer:
-    valid blocks, constructed scales (sc=32, m=60, d=e, dmin=4e, e =
-    1.356e-4: weights ~N(0, 0.02)-scale and centred), random nibbles."""
+def _matrices(cfg: dict, n_layer: int):
+    """(tensor, layer or None, rows, cols) of every matrix of a llama GGUF."""
+    D, V, FF = cfg["n_embd"], cfg["n_vocab"], cfg["n_ff"]
+    KVD = cfg["n_kv_head"] * (D // cfg["n_head"])
+    yield "token_embd", None, V, D
+    yield "output", None, V, D
+    for i in range(n_layer):
+        for name, r, c in (("attn_q", D, D), ("attn_k", KVD, D), ("attn_v", KVD, D),
+                           ("attn_output", D, D), ("ffn_gate", FF, D),
+                           ("ffn_up", FF, D), ("ffn_down", D, FF)):
+            yield name, i, r, c
+
+
+def q4_k_m_type(name: str, layer: int | None, n_layer: int) -> GGMLType:
+    """llama.cpp's tensor type for LLAMA_FTYPE_MOSTLY_Q4_K_M
+    (src/llama-quant.cpp, llama_tensor_get_type with use_more_bits):
+    output.weight is Q6_K; attn_v and ffn_down are Q6_K in the first and
+    last eighth of the layers and in every third layer between (16 of 32),
+    Q4_K elsewhere; every other matrix is Q4_K."""
+    if name == "output":
+        return GGMLType.Q6_K
+    if name in ("attn_v", "ffn_down"):
+        e = n_layer // 8
+        if layer < e or layer >= 7 * n_layer // 8 or (layer - e) % 3 == 2:
+            return GGMLType.Q6_K
+    return GGMLType.Q4_K
+
+
+# file recipe → the type of each matrix; None: no output.weight, the head
+# is tied to token_embd
+RECIPES = {
+    "q4_k": lambda name, layer, n_layer: None if name == "output" else GGMLType.Q4_K,
+    "q4_k_m": q4_k_m_type,
+    "q8_0": lambda name, layer, n_layer: GGMLType.Q8_0,
+}
+# the kernel each (type, route) takes (ops/cuda/dispatch.py)
+KERNEL_OF = {(GGMLType.Q4_K, "f32"): kernels.K1, (GGMLType.Q4_K, "i8"): kernels.K3,
+             (GGMLType.Q6_K, "f32"): kernels.K4, (GGMLType.Q8_0, "f32"): kernels.K5,
+             (GGMLType.Q8_0, "i8"): kernels.K5_I8}
+
+
+def _rand_u8(rng, shape):
+    return np.frombuffer(rng.bytes(int(np.prod(shape))), np.uint8).reshape(shape)
+
+
+def make_blocks(qtype: GGMLType, rng, n: int, k: int, random_scales: bool):
+    """Valid wire blocks (n, k/blck) of qtype with random quants. The
+    constructed scales give weights ~N(0, 0.02) in scale (bench.py:88-152's
+    recipe for Q4_K: sc=32, m=60, d=e, dmin=4e, e = 1.356e-4, centred; Q6_K
+    sc=16, d=6.77e-5; Q8_0 d=2.706e-4); random_scales draws them instead."""
+    if qtype == GGMLType.Q4_K:
+        b = np.zeros((n, k // 256), BLOCK_Q4_K)
+        if random_scales:
+            b["d"], b["dmin"] = np.float16(0.002), np.float16(0.008)
+            b["scales"] = pack_scale_min_k4(rng.integers(0, 64, (n * (k // 256), 8)),
+                                            rng.integers(0, 64, (n * (k // 256), 8))
+                                            ).reshape(n, k // 256, 12)
+        else:
+            e = np.float16(1.356e-4)
+            b["d"], b["dmin"] = e, np.float16(4 * float(e))
+            b["scales"] = pack_scale_min_k4(np.full((1, 8), 32, np.uint8),
+                                            np.full((1, 8), 60, np.uint8))[0]
+        b["qs"] = _rand_u8(rng, (n, k // 256, 128))
+    elif qtype == GGMLType.Q6_K:
+        b = np.zeros((n, k // 256), BLOCK_Q6_K)
+        b["d"] = np.float16(0.0005) if random_scales else np.float16(6.77e-5)
+        b["scales"] = rng.integers(-64, 64, (n, k // 256, 16)) if random_scales else 16
+        b["ql"] = _rand_u8(rng, (n, k // 256, 128))
+        b["qh"] = _rand_u8(rng, (n, k // 256, 64))
+    else:
+        b = np.zeros((n, k // 32), BLOCK_Q8_0)
+        b["d"] = (rng.uniform(0.5, 1.5, (n, k // 32)) * 2e-3).astype(np.float16) \
+            if random_scales else np.float16(2.706e-4)
+        b["qs"] = _rand_u8(rng, (n, k // 32, 32)).view(np.int8)
+    return b
+
+
+def write_gguf(path: Path, cfg: dict, n_layer: int, recipe: str,
+               random_scales: bool = False):
+    """A llama GGUF of `cfg`'s width with each matrix in the recipe's type
+    (make_blocks, seed 0) and f32 norm weights, written with the port's
+    writer; an existing file is kept. The norm weights are ones, or with
+    random_scales 1 + N(0, 0.1): a Q8_0 embedding row is an exact grid of
+    q·d, and under norms of ones the first layer's per-tile int8
+    activations sit on rounding ties that any last-bit difference flips,
+    which makes a tiny model's int8 route chaotic."""
     if path.exists():
         return
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -292,48 +465,53 @@ def write_gguf(path: Path, cfg: dict, n_layer: int):
     w.set(f"{A}.feed_forward_length", cfg["n_ff"])
     w.set(f"{A}.vocab_size", cfg["n_vocab"])
     w.set(f"{A}.attention.layer_norm_rms_epsilon", 1e-5)
-    scales12 = pack_scale_min_k4(np.full((1, 8), 32, np.uint8),
-                                 np.full((1, 8), 60, np.uint8))[0]
-    e = np.float16(1.356e-4)
+    for name, layer, r, c in _matrices(cfg, n_layer):
+        qtype = RECIPES[recipe](name, layer, n_layer)
+        if qtype is not None:
+            gname = f"{name}.weight" if layer is None else f"blk.{layer}.{name}.weight"
+            w.add_tensor(gname, (c, r), qtype, make_blocks(
+                qtype, rng, r, c, random_scales).reshape(-1).view(np.uint8))
+    def norm():
+        g = 1 + 0.1 * rng.standard_normal(cfg["n_embd"]) if random_scales else 1
+        return np.full(cfg["n_embd"], g, np.float32)
 
-    def q4k(name, n, k):
-        sb = n * (k // 256)
-        blocks = np.zeros(sb, BLOCK_Q4_K)
-        blocks["d"] = e
-        blocks["dmin"] = np.float16(4 * float(e))
-        blocks["scales"] = scales12
-        blocks["qs"] = np.frombuffer(rng.bytes(sb * 128), np.uint8).reshape(sb, 128)
-        w.add_tensor(name, (k, n), GGMLType.Q4_K, blocks.view(np.uint8))
-
-    D, V, FF = cfg["n_embd"], cfg["n_vocab"], cfg["n_ff"]
-    KVD = cfg["n_kv_head"] * (D // cfg["n_head"])
-    ones = np.ones(D, np.float32)
-    q4k("token_embd.weight", V, D)
-    w.add_array_tensor("output_norm.weight", ones)
+    w.add_array_tensor("output_norm.weight", norm())
     for i in range(n_layer):
-        q4k(f"blk.{i}.attn_q.weight", D, D)
-        q4k(f"blk.{i}.attn_k.weight", KVD, D)
-        q4k(f"blk.{i}.attn_v.weight", KVD, D)
-        q4k(f"blk.{i}.attn_output.weight", D, D)
-        q4k(f"blk.{i}.ffn_gate.weight", FF, D)
-        q4k(f"blk.{i}.ffn_up.weight", FF, D)
-        q4k(f"blk.{i}.ffn_down.weight", D, FF)
-        w.add_array_tensor(f"blk.{i}.attn_norm.weight", ones)
-        w.add_array_tensor(f"blk.{i}.ffn_norm.weight", ones)
+        w.add_array_tensor(f"blk.{i}.attn_norm.weight", norm())
+        w.add_array_tensor(f"blk.{i}.ffn_norm.weight", norm())
     tmp = path.with_suffix(".tmp")
     w.write(tmp)
     tmp.rename(path)
+
+
+def expected_launches(recipe: str, n_layer: int, m: int) -> dict:
+    """Kernel launches of one forward over m tokens of the recipe's file:
+    one per matrix product (the head's type is token_embd's when tied; the
+    embedding is a row gather) and one K2 per layer."""
+    out = {kernels.K2.name: n_layer}
+    types = RECIPES[recipe]
+    for name, layer, _, _ in _matrices(CFG_7B, n_layer):
+        if name == "token_embd":
+            continue
+        qtype = types(name, layer, n_layer) or types("token_embd", None, n_layer)
+        kern = KERNEL_OF[(qtype, dispatch.route(m, qtype))].name
+        out[kern] = out.get(kern, 0) + 1
+    return out
 
 
 def launches():
     return {k.name: k.launches for k in kernels.KERNELS}
 
 
-def main_path(device, n_layer: int, label: str) -> dict:
-    out = {"layers": n_layer}
-    path = ROOT / "build" / f"smoke_llama7b_q4k_L{n_layer}.gguf"
+def _delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in launches().items() if v - before[k]}
+
+
+def main_path(device, n_layer: int, recipe: str) -> dict:
+    out = {"layers": n_layer, "recipe": recipe}
+    path = ROOT / "build" / f"smoke_llama7b_{recipe}_L{n_layer}.gguf"
     t0 = time.perf_counter()
-    write_gguf(path, CFG_7B, n_layer)
+    write_gguf(path, CFG_7B, n_layer, recipe)
     out["gguf_write_s"] = time.perf_counter() - t0
     out["gguf_gb"] = path.stat().st_size / 1e9
 
@@ -343,14 +521,23 @@ def main_path(device, n_layer: int, label: str) -> dict:
     torch.cuda.synchronize()
     out["load_s"] = time.perf_counter() - t0
     cfg = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
-    leaves = [params["wte"], params["out_norm"]] + [t for b in params["blocks"] for t in b.values()]
+    leaves = ([params["wte"], params["out_norm"]] + [params[k] for k in ("lm_head",) if k in params]
+              + [t for b in params["blocks"] for t in b.values()])
     for t in leaves:
         fields = t.fields.values() if isinstance(t, QuantTensor) else [t]
         assert all(f.device.type == device.type for f in fields), \
             f"a weight is not on {device}"
+    out["tensor_types"] = {}
+    for t in leaves:
+        if isinstance(t, QuantTensor):
+            out["tensor_types"][t.qtype.name] = out["tensor_types"].get(t.qtype.name, 0) + 1
+    assert ("lm_head" in params) == (RECIPES[recipe]("output", None, n_layer) is not None)
     out["weights_gb"] = sum(t.nbytes if isinstance(t, QuantTensor)
                             else t.numel() * t.element_size() for t in leaves) / 1e9
-    log(f"loaded {n_layer}-layer 7B-width Q4_K GGUF in {out['load_s']:.2f} s ({label})")
+    log(f"loaded {n_layer}-layer 7B-width {recipe} GGUF in {out['load_s']:.2f} s "
+        f"(matrices by type {out['tensor_types']})")
+    want_step = expected_launches(recipe, n_layer, 1)
+    want_chunk = expected_launches(recipe, n_layer, 128)
 
     rng = np.random.default_rng(5)
     kernels.reset_launches()
@@ -374,7 +561,7 @@ def main_path(device, n_layer: int, label: str) -> dict:
                                    kv, len(stream) - 1)
             stream.append(int(lg[-1].argmax()))
             if i == 0:
-                per_step = {k: v - before[k] for k, v in launches().items()}
+                per_step = _delta(before)
         torch.cuda.synchronize()
         out["decode_s"] = time.perf_counter() - t0
         out["launches_per_decode_step"] = per_step
@@ -386,7 +573,12 @@ def main_path(device, n_layer: int, label: str) -> dict:
         before = launches()
         llama.forward(cfg, params, torch.tensor(prompt + prompt[:28], device=device),
                       llama.make_cache(cfg, 1024, device=device), 0)
-        out["launches_per_prefill_chunk_128"] = {k: v - before[k] for k, v in launches().items()}
+        out["launches_per_prefill_chunk_128"] = _delta(before)
+        for key, want in (("launches_per_decode_step", want_step),
+                          ("launches_per_prefill_chunk_128", want_chunk)):
+            if out[key] != want:
+                raise AssertionError(f"{recipe}: {key} {out[key]}, its tensor types "
+                                     f"predict {want}")
 
         # the engine: 8 parity requests + one 300-token prompt
         prompts = [[int(t) for t in rng.integers(1, cfg.n_vocab, n)] for n in PARITY_LENS]
@@ -407,8 +599,8 @@ def main_path(device, n_layer: int, label: str) -> dict:
             if p + done[rid].out != ref:
                 mismatches.append(len(p))
         if mismatches:
-            raise AssertionError(f"engine streams differ from generate for prompt "
-                                 f"lengths {mismatches}")
+            raise AssertionError(f"{recipe}: engine streams differ from generate for "
+                                 f"prompt lengths {mismatches}")
 
         # engine decode steps at steady state: 8 active slots, no admission
         del eng                          # one engine's KV cache at a time
@@ -429,9 +621,9 @@ def main_path(device, n_layer: int, label: str) -> dict:
         busy = out[key]["busy_ms"]
         out[key]["busy_share"] = None if busy is None else busy / step_ms
     out["launches"] = launches()
-    missing = [k for k, v in out["launches"].items() if v == 0]
+    missing = [k for k in {**want_step, **want_chunk} if out["launches"][k] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+        raise AssertionError(f"{recipe}: kernels never launched on its path: {missing}")
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["prefill_tok_s"] = 100 / out["prefill_100_s"]
     out["decode_tok_s"] = (N_NEW - 1) / out["decode_s"]
@@ -443,45 +635,27 @@ def main_path(device, n_layer: int, label: str) -> dict:
 
 def small_model_check(device) -> dict:
     """The card's forward against the CPU's (plain versions) on a tiny
-    Q4_K model: f32 route nmse < 1e-9, int8 route within its error class."""
-    rng = np.random.default_rng(3)
-
-    def q4k(n, k):
-        b = np.zeros((n, k // 256), BLOCK_Q4_K)
-        b["d"] = np.float16(0.002)
-        b["dmin"] = np.float16(0.008)
-        b["scales"] = pack_scale_min_k4(rng.integers(0, 64, (n * (k // 256), 8)),
-                                        rng.integers(0, 64, (n * (k // 256), 8))).reshape(n, k // 256, 12)
-        b["qs"] = rng.integers(0, 256, (n, k // 256, 128), dtype=np.uint8)
-        return b
-
-    cfg = llama.LlamaConfig(n_vocab=512, n_ctx=256, n_embd=256, n_head=4,
-                            n_kv_head=2, n_layer=2, n_ff=512)
-    blocks = {"wte": q4k(512, 256), "blocks": [
-        {"wq": q4k(256, 256), "wk": q4k(128, 256), "wv": q4k(128, 256),
-         "wo": q4k(256, 256), "w_gate": q4k(512, 256), "w_up": q4k(512, 256),
-         "w_down": q4k(256, 512)} for _ in range(2)]}
-
-    def params(dev):
-        one = torch.ones(256, device=dev)
-        return {"wte": QuantTensor.from_blocks(GGMLType.Q4_K, blocks["wte"], dev),
-                "out_norm": one,
-                "blocks": [dict({k: QuantTensor.from_blocks(GGMLType.Q4_K, v, dev)
-                                 for k, v in b.items()}, attn_norm=one, ffn_norm=one)
-                           for b in blocks["blocks"]]}
-
+    model of each recipe, loaded from a GGUF with random scales and norm
+    weights: f32 route
+    nmse < 1e-9, int8 route within its error class. The mixture's n_ff of
+    768 gives its Q6_K ffn_down an odd superblock count."""
     res = {}
-    pc, pg = params("cpu"), params(device)
-    for n_tok, tol in ((7, 1e-9), (70, 2e-4)):
-        toks = torch.from_numpy(rng.integers(0, 512, n_tok))
-        with torch.inference_mode():
-            lc, _ = llama.forward(cfg, pc, toks, llama.make_cache(cfg, 128, device="cpu"), 0)
-            lg, _ = llama.forward(cfg, pg, toks.to(device),
-                                  llama.make_cache(cfg, 128, device=device), 0)
-        e = nmse(lg.cpu(), lc)
-        if not e < tol:
-            raise AssertionError(f"small model {n_tok} tokens: card vs CPU nmse {e}")
-        res[f"nmse_{n_tok}_tokens"] = e
+    for recipe, n_ff in (("q4_k", 512), ("q4_k_m", 768), ("q8_0", 512)):
+        small = dict(n_vocab=512, n_ctx=256, n_embd=256, n_head=4, n_kv_head=2, n_ff=n_ff)
+        path = ROOT / "build" / f"smoke_small_{recipe}.gguf"
+        write_gguf(path, small, 2, recipe, random_scales=True)
+        (cfg, pc), (_, pg) = llama.load(path, device="cpu"), llama.load(path, device=device)
+        rng = np.random.default_rng(3)
+        for n_tok, tol in ((7, 1e-9), (70, 2e-4)):
+            toks = torch.from_numpy(rng.integers(0, 512, n_tok))
+            with torch.inference_mode():
+                lc, _ = llama.forward(cfg, pc, toks, llama.make_cache(cfg, 128, device="cpu"), 0)
+                lg, _ = llama.forward(cfg, pg, toks.to(device),
+                                      llama.make_cache(cfg, 128, device=device), 0)
+            e = nmse(lg.cpu(), lc)
+            if not e < tol:
+                raise AssertionError(f"small {recipe} model {n_tok} tokens: card vs CPU nmse {e}")
+            res[f"{recipe}_nmse_{n_tok}_tokens"] = e
     return res
 
 
@@ -520,44 +694,56 @@ def main(argv=None) -> int:
     results = []
     check_qmm(device, timer, results)
     check_attention(device, timer, results)
+    check_q6k(device, timer, results)
+    check_q8_0(device, timer, results)
 
     small = small_model_check(device)
-    log(f"small model card vs CPU: {small}")
+    log(f"small models card vs CPU: {small}")
 
-    mp = main_path(device, args.layers, label)
+    log(f"free disk under build/: {shutil.disk_usage(ROOT / 'build').free / 1e9:.1f} GB")
     cut = "" if args.layers == 32 else f" (depth cut to {args.layers} of 32 layers)"
-    log(f"main path{cut} [{label}]: load {mp['load_s']:.2f} s, "
-        f"prefill {mp['prefill_tok_s']:.1f} tok/s (100-token prompt), "
-        f"decode {mp['decode_tok_s']:.2f} tok/s (single stream), "
-        f"engine {mp['engine_tok_s']:.1f} tok/s aggregate "
-        f"({mp['engine_tokens']} tokens, {mp['engine_steps']} steps), "
-        f"peak device memory {mp['peak_mem_gb']:.2f} GB")
-    log(f"launches per decode step {mp['launches_per_decode_step']}, "
-        f"per 128-token prefill chunk {mp['launches_per_prefill_chunk_128']}")
-    for key, step in (("decode_step_trace", "decode_step_ms"),
-                      ("engine_step_trace", "engine_decode_step_ms")):
-        t = mp[key]
-        log(f"{key} [{label}]: step {mp[step]:.3f} ms unprofiled, device busy "
-            f"{t['busy_ms']} ms ({t['device_activities']} activities; "
-            f"profiled wall {t['profiled_wall_ms']:.3f} ms), busy share "
-            f"{t['busy_share']}; busiest {t['top_ms'][:5]}")
+    paths = {}
+    for recipe in RECIPES:
+        mp = paths[recipe] = main_path(device, args.layers, recipe)
+        log(f"main path {recipe}{cut} [{label}]: load {mp['load_s']:.2f} s "
+            f"({mp['gguf_gb']:.2f} GB file, written in {mp['gguf_write_s']:.1f} s; "
+            f"{mp['weights_gb']:.2f} GB of weights on the card), "
+            f"prefill {mp['prefill_tok_s']:.1f} tok/s (100-token prompt), "
+            f"decode {mp['decode_tok_s']:.2f} tok/s (single stream), "
+            f"engine {mp['engine_tok_s']:.1f} tok/s aggregate "
+            f"({mp['engine_tokens']} tokens, {mp['engine_steps']} steps), "
+            f"peak device memory {mp['peak_mem_gb']:.2f} GB")
+        log(f"  launches per decode step {mp['launches_per_decode_step']}, "
+            f"per 128-token prefill chunk {mp['launches_per_prefill_chunk_128']}, "
+            f"in the whole path {mp['launches']}")
+        for key, step in (("decode_step_trace", "decode_step_ms"),
+                          ("engine_step_trace", "engine_decode_step_ms")):
+            t = mp[key]
+            log(f"  {key} [{label}]: step {mp[step]:.3f} ms unprofiled, device busy "
+                f"{t['busy_ms']} ms ({t['device_activities']} activities; "
+                f"profiled wall {t['profiled_wall_ms']:.3f} ms), busy share "
+                f"{t['busy_share']}; busiest {t['top_ms'][:5]}")
 
     rep = {"qmm_q4_K": "M=8 N=11008 K=4096",
            "qmm_q4_K_i8": "M=128 N=11008 K=4096",
-           "causal_flash_attention": "decode B=8 H=32 window=1024 f32q_bf16kv"}
+           "causal_flash_attention": "decode B=8 H=32 window=1024 f32q_bf16kv",
+           "qmm_q6_K": "M=8 N=4096 K=11008",
+           "qmm_q8_0": "M=8 N=11008 K=4096",
+           "qmm_q8_0_i8": "M=128 N=11008 K=4096"}
     line = []
     for kern in kernels.KERNELS:
         rows = [r for r in results if r["kernel"] == kern.name]
         r = next(r for r in rows if r["shape"] == rep[kern.name])
         line.append({
             "name": kern.name, "route": "cuda", "source": kern.source,
-            "replaces": kern.replaces, "launches": mp["launches"][kern.name],
+            "replaces": kern.replaces,
+            "launches": sum(mp["launches"][kern.name] for mp in paths.values()),
             "max_abs_err": max(x["max_abs_err"] for x in rows),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"]})
     detail = {"device": smi, "build_s": build_s, "build": build.BUILD_LOG,
-              "kernels": results, "main_path": mp, "small_model": small}
+              "kernels": results, "main_paths": paths, "small_model": small}
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke.json").write_text(json.dumps(detail, indent=1, default=str))
     log(json.dumps({"kernels": line}))

@@ -3,9 +3,10 @@
 The same op sequence as the reference (RMS_NORM + MUL_MAT + ROPE(NeoX) +
 causal FLASH_ATTN + SWIGLU), in eager PyTorch over a params dict:
 {"wte", "out_norm", ["lm_head"], "blocks": [{attn_norm, wq, wk, wv, wo,
-ffn_norm, w_gate, w_up, w_down}, ...]}, where each matrix is a Q4_K
-QuantTensor or a dense tensor. Q4_K matmuls run on kernels K1/K3 and
-attention on K2 (ops/cuda/).
+ffn_norm, w_gate, w_up, w_down}, ...]}, where each matrix is a Q4_K, Q6_K
+or Q8_0 QuantTensor (any mixture of them, as in llama.cpp's Q4_K_M files)
+or a dense tensor. Quantized matmuls run on kernels K1/K3 (Q4_K), K4
+(Q6_K) and K5/K5-i8 (Q8_0), attention on K2 (ops/cuda/).
 
 GGUF schema: llama.cpp conventions (kv `llama.*`; tensors blk.N.attn_q|
 attn_k|attn_v|attn_output|ffn_gate|ffn_up|ffn_down|attn_norm|ffn_norm).
@@ -78,10 +79,12 @@ def _to_param(reader: GGUFReader, name: str, device):
 
 
 def load(path, device=None) -> tuple[LlamaConfig, dict]:
-    """Read a llama GGUF: mmap → torch → device, one tensor at a time. Q4_K
-    tensors go to the device as wire bytes and are split into the port's
-    fields there (ops/quantized.py). compute_dtype is f32; pass the config
-    through dataclasses.replace for bf16 compute."""
+    """Read a llama GGUF: mmap → torch → device, one tensor at a time. Each
+    quantized tensor goes by its own type: it goes to the device as wire
+    bytes and is split into the port's fields there (ops/quantized.py). An
+    `output.weight` becomes `lm_head`; without one the head is tied to
+    `token_embd`. compute_dtype is f32; pass the config through
+    dataclasses.replace for bf16 compute."""
     device = resolve(device)
     r = GGUFReader(path)
     arch = r.kv.get("general.architecture")
@@ -119,8 +122,8 @@ def params_from_numpy(tree: dict, device=None) -> dict:
     """Carry the JAX package's llama params across. `tree` mirrors its
     params pytree with numpy leaves; each QuantTensor arrives as
     {"qtype", "shape", "layout", "fields": {name: ndarray}} in the JAX
-    "kernel" layout (qmm.py:139-155). Returns the port's params, which
-    compute the same function."""
+    "kernel" layout (Q4_K, Q6_K or Q8_0; ops/quantized.py). Returns the
+    port's params, which compute the same function."""
     device = resolve(device)
 
     def conv(leaf):

@@ -26,7 +26,13 @@ K2 = Kernel("causal_flash_attention", "ggml_gfx906_tpu_torch/csrc/flash_attn.cu"
             "ggml_gfx906_tpu/ops/pallas/flash_attn.py:130")
 K3 = Kernel("qmm_q4_K_i8", "ggml_gfx906_tpu_torch/csrc/qmm_q4k.cu",
             "ggml_gfx906_tpu/ops/pallas/qmm.py:674")
-KERNELS = (K1, K2, K3)
+K4 = Kernel("qmm_q6_K", "ggml_gfx906_tpu_torch/csrc/qmm_q6k.cu",
+            "ggml_gfx906_tpu/ops/pallas/qmm.py:814")
+K5 = Kernel("qmm_q8_0", "ggml_gfx906_tpu_torch/csrc/qmm_q8_0.cu",
+            "ggml_gfx906_tpu/ops/pallas/qmm.py:443")
+K5_I8 = Kernel("qmm_q8_0_i8", "ggml_gfx906_tpu_torch/csrc/qmm_q8_0.cu",
+               "ggml_gfx906_tpu/ops/pallas/qmm.py:692")
+KERNELS = (K1, K2, K3, K4, K5, K5_I8)
 
 
 def reset_launches() -> None:

@@ -31,6 +31,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES = {
     "qmm_q4k_f32": ("qmm_q4k", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "qmm_q4k_i8": ("qmm_q4k", [_P] * 12 + [_I, _I, _I, _P]),
+    "qmm_q6k_f32": ("qmm_q6k", [_P] * 6 + [_I, _I, _I, _P]),
+    "qmm_q8_0_f32": ("qmm_q8_0", [_P] * 4 + [_I, _I, _I, _P]),
+    "qmm_q8_0_i8": ("qmm_q8_0", [_P] * 6 + [_I, _I, _I, _P]),
     "flash_attn_fwd": ("flash_attn", [_P] * 7 + [_I] * 6 + [_L, _L]
                        + [_F, _F, _F, _I, _P]),
 }

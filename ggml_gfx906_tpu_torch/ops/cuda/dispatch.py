@@ -1,13 +1,26 @@
-"""Route Q4_K matmuls to K1 or K3 by M (ggml_gfx906_tpu/ops/pallas/
-dispatch.py:42-63, Q4_K branch): M >= int8_min_m (> 0) takes the int8
-kernel, every smaller M the f32 kernel."""
+"""Route quantized matmuls to their kernels by type and M, as
+ggml_gfx906_tpu/ops/pallas/dispatch.py:54-69 does: a type with an int8
+twin (Q4_K → K3, Q8_0 → K5-i8) takes it at M >= int8_min_m (> 0); every
+other M, and every M of a type without one (Q6_K → K4), takes the f32
+kernel (Q4_K → K1, Q8_0 → K5)."""
 from __future__ import annotations
 
 from ...quant.types import GGMLType
 from ...utils import config
-from . import qmm
+from . import qmm, qmm_q6k, qmm_q8_0
 
-KERNEL_TYPES = {GGMLType.Q4_K}
+# the QuantTensor fields of each ported type, in the order its kernels take them
+FIELDS = {GGMLType.Q4_K: ("qs", "scm", "dd"), GGMLType.Q6_K: ("ql", "qh", "sc", "d"),
+          GGMLType.Q8_0: ("qs", "d")}
+_KERNELS = {
+    (GGMLType.Q4_K, "f32"): qmm.qmm_q4_K,
+    (GGMLType.Q4_K, "i8"): qmm.qmm_q4_K_i8,
+    (GGMLType.Q6_K, "f32"): qmm_q6k.qmm_q6_K,
+    (GGMLType.Q8_0, "f32"): qmm_q8_0.qmm_q8_0,
+    (GGMLType.Q8_0, "i8"): qmm_q8_0.qmm_q8_0_i8,
+}
+KERNEL_TYPES = set(FIELDS)
+INT8_TYPES = {t for t, r in _KERNELS if r == "i8"}
 
 
 def route(m: int, qtype: GGMLType) -> str:
@@ -15,16 +28,13 @@ def route(m: int, qtype: GGMLType) -> str:
     if qtype not in KERNEL_TYPES:
         raise NotImplementedError(f"{qtype.name} matmul kernel is not ported yet")
     min_m = int(config.get("int8_min_m"))
-    return "i8" if min_m > 0 and m >= min_m else "f32"
+    return "i8" if qtype in INT8_TYPES and min_m > 0 and m >= min_m else "f32"
 
 
 def matmul(x, qt):
-    """x (..., K) @ qt(N, K).T → (..., N) f32 through K1 or K3."""
+    """x (..., K) @ qt(N, K).T → (..., N) f32 through qt's kernel."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    f = qt.fields
-    if route(x2.shape[0], qt.qtype) == "i8":
-        out = qmm.qmm_q4_K_i8(x2, f["qs"], f["scm"], f["dd"])
-    else:
-        out = qmm.qmm_q4_K(x2, f["qs"], f["scm"], f["dd"])
+    fn = _KERNELS[(qt.qtype, route(x2.shape[0], qt.qtype))]
+    out = fn(x2, *(qt.fields[f] for f in FIELDS[qt.qtype]))
     return out.reshape(*lead, qt.shape[0])

@@ -1,4 +1,6 @@
-"""Q4_K matmul kernels K1 (f32, M < int8_min_m) and K3 (int8, M >= it).
+"""Q4_K matmul kernels K1 (f32, M < int8_min_m) and K3 (int8, M >= it),
+and the operand checks and int8 operand preparation that the other
+formats' kernels (qmm_q6k.py, qmm_q8_0.py) share with them.
 
 Kernel source: csrc/qmm_q4k.cu (fuller notes there).
 
@@ -33,22 +35,42 @@ from ...quant.dequant_math import dequant_q4_K_unpacked
 from . import K1, K3, build
 
 
-def _check_weights(qs, scm, dd, k):
-    n = qs.shape[0]
-    nb = k // 256
-    if k % 256:
-        raise ValueError(f"K={k} is not a multiple of 256")
-    want = {"qs": (qs, (n, nb * 128), torch.uint8),
-            "scm": (scm, (n, nb * 16), torch.uint8),
-            "dd": (dd, (n, nb * 2), torch.float32)}
+def check_shapes(want: dict) -> None:
+    """want: name → (tensor, shape, dtype); every tensor on the first one's
+    device. Raises ValueError naming the first operand that differs."""
+    dev = next(iter(want.values()))[0].device
     for name, (t, shape, dt) in want.items():
-        if tuple(t.shape) != shape or t.dtype != dt:
-            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, want {shape} {dt}")
-        if t.device != qs.device:
-            raise ValueError(f"{name} on {t.device}, qs on {qs.device}")
+        if tuple(t.shape) != tuple(shape) or t.dtype != dt:
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, want {tuple(shape)} {dt}")
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, the weights on {dev}")
 
 
-def _check_cuda(*ts):
+def check_x(x, k_mult: int) -> tuple[int, int]:
+    """(M, K) of a 2-D activation whose K is a multiple of k_mult."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be 2-D, got {tuple(x.shape)}")
+    m, k = x.shape
+    if k % k_mult:
+        raise ValueError(f"K={k} is not a multiple of {k_mult}")
+    return m, k
+
+
+def _check_weights(qs, scm, dd, k):
+    n, nb = qs.shape[0], k // 256
+    check_shapes({"qs": (qs, (n, nb * 128), torch.uint8),
+                  "scm": (scm, (n, nb * 16), torch.uint8),
+                  "dd": (dd, (n, nb * 2), torch.float32)})
+
+
+def aligned_x(x):
+    """x as a contiguous f32 tensor at a 16-byte aligned address (the f32
+    kernels read it with 16-byte loads)."""
+    x = x.float().contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
+def check_cuda(*ts):
     for t in ts:
         if not t.is_cuda:
             raise ValueError("mixed devices: every operand must be on the card")
@@ -89,19 +111,14 @@ def qmm_q4_K_plain(x, qs, scm, dd):
 
 def qmm_q4_K(x, qs, scm, dd):
     """x (M, K) @ W(N, K).T → (M, N) f32, W in the port's Q4_K layout."""
-    if x.dim() != 2:
-        raise ValueError(f"x must be 2-D, got {tuple(x.shape)}")
-    m, k = x.shape
+    m, k = check_x(x, 256)
     _check_weights(qs, scm, dd, k)
-    x = x.float()
     if not qs.is_cuda:
         return qmm_q4_K_plain(x, qs, scm, dd)
-    x = x.contiguous()
-    if x.data_ptr() % 16:           # the kernel reads x with 16-byte loads
-        x = x.clone()
+    x = aligned_x(x)
     n = qs.shape[0]
     y = torch.empty((m, n), dtype=torch.float32, device=qs.device)
-    _check_cuda(x, qs, scm, dd)
+    check_cuda(x, qs, scm, dd)
     build.call("qmm_q4k_f32", x.data_ptr(), qs.data_ptr(), scm.data_ptr(),
                dd.data_ptr(), y.data_ptr(), m, n, k,
                torch.cuda.current_stream(qs.device).cuda_stream)
@@ -147,15 +164,19 @@ def quantize_x_tiles(x):
 def tile_fold(dsc, dm, blk_per_tile: int, qmax: float):
     """Fold per-block scales by the analytic per-tile bound (qmm.py::
     _tile_fold): dw = max|w|/127 per (row, tile) with |w| ≤ max(|qmax·dsc −
-    dm|, |dm|); returns (dsc/dw, dm/dw, dw (N, tiles))."""
+    dm|, |dm|), or ≤ qmax·|dsc| for a symmetric format (dm None); returns
+    (dsc/dw, dm/dw or None, dw (N, tiles))."""
     n, nblk = dsc.shape
     kt = nblk // blk_per_tile
     d3 = dsc.reshape(n, kt, blk_per_tile)
-    m3 = dm.reshape(n, kt, blk_per_tile)
-    bound = torch.maximum(torch.abs(qmax * d3 - m3), torch.abs(m3))
+    if dm is None:
+        bound = qmax * torch.abs(d3)
+    else:
+        m3 = dm.reshape(n, kt, blk_per_tile)
+        bound = torch.maximum(torch.abs(qmax * d3 - m3), torch.abs(m3))
     dw, inv = _scale_and_inverse(bound.amax(-1))
-    return ((d3 * inv[..., None]).reshape(n, nblk).contiguous(),
-            (m3 * inv[..., None]).reshape(n, nblk).contiguous(), dw.contiguous())
+    dm_f = None if dm is None else (m3 * inv[..., None]).reshape(n, nblk).contiguous()
+    return (d3 * inv[..., None]).reshape(n, nblk).contiguous(), dm_f, dw.contiguous()
 
 
 def prepare_i8(x, scm, dd):
@@ -204,9 +225,7 @@ def qmm_q4_K_i8_plain(qs, qxlo, exlo, qxhi, exhi, dsclo_f, dschi_f, dmlo_f,
 
 def qmm_q4_K_i8(x, qs, scm, dd):
     """Integer Q4_K matmul (prefill route): x (M, K) → (M, N) f32."""
-    if x.dim() != 2:
-        raise ValueError(f"x must be 2-D, got {tuple(x.shape)}")
-    m, k = x.shape
+    _, k = check_x(x, 256)
     _check_weights(qs, scm, dd, k)
     ops = prepare_i8(x, scm, dd)
     if not qs.is_cuda:
@@ -219,7 +238,7 @@ def launch_i8(qs, qxlo, exlo, qxhi, exhi, dsclo_f, dschi_f, dmlo_f, dmhi_f,
     """Launch K3 on prepared operands (CUDA tensors)."""
     ops = [t.contiguous() for t in (qxlo, exlo, qxhi, exhi, dsclo_f, dschi_f,
                                     dmlo_f, dmhi_f, dwlo, dwhi)]
-    _check_cuda(qs, *ops)
+    check_cuda(qs, *ops)
     m = ops[0].shape[0]
     n = qs.shape[0]
     k = qs.shape[1] * 2

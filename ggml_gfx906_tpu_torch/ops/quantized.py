@@ -1,18 +1,25 @@
 """Quantized weights on the device and the matmuls over them.
 
 The counterpart of ggml_gfx906_tpu/ops/quantized.py for the types the port
-has kernels for (Q4_K). A QuantTensor keeps ggml's block fields as separate
-tensors (struct of arrays). The port keeps ggml's wire byte order for the
-nibbles — the reference's lane-interleaved "kernel" layout (qmm.py:9-22,
-139-155) exists for the TPU's 128-lane tiles — and stores the scales
-unpacked, as the reference's kernel layout does:
+has kernels for: Q4_K, Q6_K and Q8_0 — the types of llama.cpp's Q4_K_M
+mixture and of its Q8_0 files. A QuantTensor keeps ggml's block fields as
+separate tensors (struct of arrays), one row of blocks per weight row. The
+port keeps ggml's wire byte order for the quants — the reference's
+lane-interleaved "kernel" layouts (qmm.py:9-22, 139-155, 428-434, 781-801)
+exist for the TPU's 128-lane tiles — with f32 block scales:
 
-    qs  (N, K/2)   u8   packed nibbles, wire order
-    scm (N, K/16)  u8   per superblock [sc0..sc7 | m0..m7] (6-bit values)
-    dd  (N, K/128) f32  per superblock [d, dmin]
+    Q4_K  qs  (N, K/2)   u8   packed nibbles, wire order
+          scm (N, K/16)  u8   per superblock [sc0..sc7 | m0..m7] (6-bit)
+          dd  (N, K/128) f32  per superblock [d, dmin]      4.75 bits/weight
+    Q6_K  ql  (N, K/2)   u8   low nibbles, wire order
+          qh  (N, K/4)   u8   high 2-bit pairs, wire order
+          sc  (N, K/16)  i8   one scale per 16 elements
+          d   (N, K/256) f32                                6.625 bits/weight
+    Q8_0  qs  (N, K)     i8
+          d   (N, K/32)  f32                                9 bits/weight
 
-That streams 4.75 bits per weight. Dequantization from it is bit-identical
-to ggml's (and the JAX package's) for every layout they hold.
+Dequantization from it is bit-identical to ggml's (and the JAX package's)
+for every layout they hold.
 
 ref: ggml's mul_mat convention — weights are (n_out, n_in) rows and
 `mul_mat(W, x)` dots rows of x with rows of W, i.e. x @ W.T here.
@@ -25,9 +32,64 @@ import numpy as np
 import torch
 
 from ..quant.dequant_math import unpack_scale_min_k4
-from ..quant.types import BLOCK_Q4_K, GGMLType, TYPE_TRAITS
+from ..quant.types import GGMLType, TYPE_TRAITS
 from .cuda import dispatch
 from .cuda import qmm as _qmm
+from .cuda import qmm_q6k as _qmm_q6k
+from .cuda import qmm_q8_0 as _qmm_q8_0
+
+# the K multiple each ported type's layout and kernels take
+_K_MULT = {GGMLType.Q4_K: 256, GGMLType.Q6_K: 256, GGMLType.Q8_0: 128}
+_DEQUANT = {GGMLType.Q4_K: _qmm.dequant, GGMLType.Q6_K: _qmm_q6k.dequant,
+            GGMLType.Q8_0: _qmm_q8_0.dequant}
+
+
+def _wire_fields(qtype: GGMLType, raw: torch.Tensor) -> dict:
+    """(N, nb, block bytes) u8 wire blocks → the port's fields."""
+    n = raw.shape[0]
+    off = {nm: f[1] for nm, f in TYPE_TRAITS[qtype].block_dtype.fields.items()}
+    take = lambda nm, size: raw[..., off[nm]:off[nm] + size].reshape(n, -1).contiguous()  # noqa: E731
+    f16 = lambda nm: take(nm, 2).view(torch.float16).float()                              # noqa: E731
+    if qtype == GGMLType.Q4_K:
+        sc, m = unpack_scale_min_k4(raw[..., off["scales"]:off["scales"] + 12])
+        return {"qs": take("qs", 128),
+                "scm": torch.cat([sc, m], dim=-1).reshape(n, -1).contiguous(),
+                "dd": torch.stack([f16("d"), f16("dmin")], dim=-1).reshape(n, -1).contiguous()}
+    if qtype == GGMLType.Q6_K:
+        return {"ql": take("ql", 128), "qh": take("qh", 64),
+                "sc": take("scales", 16).view(torch.int8), "d": f16("d")}
+    return {"qs": take("qs", 32).view(torch.int8), "d": f16("d")}     # Q8_0
+
+
+def _from_reference_fields(qtype: GGMLType, n: int, k: int, f: dict) -> dict:
+    """The JAX package's kernel-layout fields (numpy) → the port's fields
+    (numpy), undoing its lane interleaves, scale splits and padding."""
+    if qtype == GGMLType.Q4_K:
+        # byte lane 4*j + g ↔ wire byte 32*g + j; scm = [sc even | sc odd |
+        # m even | m odd] per superblock (qmm.py:139-155)
+        nb = k // 256
+        qs = f["qs"].reshape(n, nb, 32, 4).transpose(0, 1, 3, 2)
+        scm = f["scm"].reshape(n, nb, 4, 4)
+        sc = np.stack([scm[:, :, 0], scm[:, :, 1]], axis=-1).reshape(n, nb, 8)
+        mm = np.stack([scm[:, :, 2], scm[:, :, 3]], axis=-1).reshape(n, nb, 8)
+        return {"qs": qs.astype(np.uint8),
+                "scm": np.concatenate([sc, mm], -1).astype(np.uint8),
+                "dd": f["dd"].astype(np.float32)}
+    if qtype == GGMLType.Q6_K:
+        # chunks of two superblocks, the superblock axis zero-padded to even
+        # (qmm.py:734-801; the same inverse as ops/quantized.py:246-270)
+        nb = k // 256
+        ch = f["ql"].shape[1] // 256
+        ql = f["ql"].reshape(n, ch, 2, 16, 2, 2, 2).transpose(0, 1, 4, 5, 2, 6, 3)
+        qh = f["qh"].reshape(n, ch, 16, 2, 2, 2).transpose(0, 1, 3, 4, 5, 2)
+        sc = f["sc"].reshape(n, ch, 4, 2, 2, 2).transpose(0, 1, 3, 4, 2, 5)
+        cut = lambda a: a.reshape(n, 2 * ch, -1)[:, :nb]  # noqa: E731
+        return {"ql": cut(ql).astype(np.uint8), "qh": cut(qh).astype(np.uint8),
+                "sc": cut(sc).astype(np.int8),
+                "d": f["dq"][:, ::4][:, :nb].astype(np.float32)}
+    # Q8_0: byte lane 4*j + b of a 128-tile ↔ element 32*b + j (qmm.py:428-434)
+    qs = f["qs"].reshape(n, k // 128, 32, 4).transpose(0, 1, 3, 2)
+    return {"qs": qs.astype(np.int8), "d": f["d"].astype(np.float32)}
 
 
 @dataclass
@@ -43,32 +105,28 @@ class QuantTensor:
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self.fields.values())
 
+    @staticmethod
+    def _check(qtype: GGMLType, shape) -> tuple[int, int]:
+        if qtype not in _K_MULT:
+            raise NotImplementedError(f"{qtype.name} weights are not ported yet")
+        n, k = shape
+        if k % _K_MULT[qtype]:
+            raise ValueError(f"{qtype.name} row length {k} is not a multiple "
+                             f"of {_K_MULT[qtype]}")
+        return n, k
+
     @classmethod
     def from_wire(cls, qtype: GGMLType, raw, shape: tuple[int, int],
                   device) -> "QuantTensor":
-        """From packed wire bytes (a uint8 numpy array or tensor of
-        N * K/256 blocks, e.g. GGUFReader.tensor_bytes). The bytes go to the
+        """From packed wire bytes (a uint8 numpy array or tensor of N rows
+        of blocks, e.g. GGUFReader.tensor_bytes). The bytes go to the
         device as they are and are split into fields there."""
-        if qtype != GGMLType.Q4_K:
-            raise NotImplementedError(f"{qtype.name} weights are not ported yet")
-        n, k = shape
-        if k % 256:
-            raise ValueError(f"Q4_K row length {k} is not a multiple of 256")
-        nb = k // 256
-        bs = BLOCK_Q4_K.itemsize
+        n, k = cls._check(qtype, shape)
+        tt = TYPE_TRAITS[qtype]
         if not isinstance(raw, torch.Tensor):
             raw = torch.from_numpy(np.array(raw, dtype=np.uint8, copy=True))
-        raw = raw.to(device).reshape(n, nb, bs)
-        off = {nm: BLOCK_Q4_K.fields[nm][1] for nm in ("d", "dmin", "scales", "qs")}
-        f16 = lambda o: raw[..., o:o + 2].contiguous().view(torch.float16)[..., 0]  # noqa: E731
-        sc, m = unpack_scale_min_k4(raw[..., off["scales"]:off["scales"] + 12])
-        fields = {
-            "qs": raw[..., off["qs"]:off["qs"] + 128].reshape(n, nb * 128).contiguous(),
-            "scm": torch.cat([sc, m], dim=-1).reshape(n, nb * 16).contiguous(),
-            "dd": torch.stack([f16(off["d"]).float(), f16(off["dmin"]).float()],
-                              dim=-1).reshape(n, nb * 2).contiguous(),
-        }
-        return cls(qtype, (n, k), fields)
+        raw = raw.to(device).reshape(n, k // tt.blck_size, tt.type_size)
+        return cls(qtype, (n, k), _wire_fields(qtype, raw))
 
     @classmethod
     def from_blocks(cls, qtype: GGMLType, blocks: np.ndarray, device) -> "QuantTensor":
@@ -83,29 +141,20 @@ class QuantTensor:
     @classmethod
     def from_reference_kernel_layout(cls, qtype: GGMLType, shape, fields: dict,
                                      device) -> "QuantTensor":
-        """From the JAX package's Q4_K "kernel" layout (qmm.py:139-155) as
-        numpy: undo its lane interleave (byte lane 4*j + g ↔ wire byte
-        32*g + j) and its even/odd scale split."""
-        if qtype != GGMLType.Q4_K:
-            raise NotImplementedError(f"{qtype.name} weights are not ported yet")
-        n, k = shape
-        nb = k // 256
-        qs = np.asarray(fields["qs"]).reshape(n, nb, 32, 4).transpose(0, 1, 3, 2)
-        scm = np.asarray(fields["scm"]).reshape(n, nb, 4, 4)
-        sc = np.stack([scm[:, :, 0], scm[:, :, 1]], axis=-1).reshape(n, nb, 8)
-        mm = np.stack([scm[:, :, 2], scm[:, :, 3]], axis=-1).reshape(n, nb, 8)
-        t = lambda a, dt: torch.from_numpy(np.array(a, dt, copy=True)).to(device)  # noqa: E731
+        """From the JAX package's "kernel" layout (Q4_K qmm.py:139-155, Q6_K
+        :781-801, Q8_0 :428-434) as numpy."""
+        n, k = cls._check(qtype, shape)
+        port = _from_reference_fields(qtype, n, k,
+                                      {f: np.asarray(a) for f, a in fields.items()})
         return cls(qtype, (n, k), {
-            "qs": t(qs.reshape(n, nb * 128), np.uint8),
-            "scm": t(np.concatenate([sc, mm], -1).reshape(n, nb * 16), np.uint8),
-            "dd": t(np.asarray(fields["dd"]).reshape(n, nb * 2), np.float32),
-        })
+            f: torch.from_numpy(np.ascontiguousarray(a).reshape(n, -1)).to(device)
+            for f, a in port.items()})
 
 
 def dequant(qt: QuantTensor, dtype=torch.float32) -> torch.Tensor:
     """Dense tensor of qt.shape (bit-exact f32 w.r.t. ggml)."""
-    f = qt.fields
-    return _qmm.dequant(f["qs"], f["scm"], f["dd"]).reshape(qt.shape).to(dtype)
+    w = _DEQUANT[qt.qtype](*(qt.fields[f] for f in dispatch.FIELDS[qt.qtype]))
+    return w.reshape(qt.shape).to(dtype)
 
 
 def embed_rows(table, ids: torch.Tensor) -> torch.Tensor:
@@ -121,7 +170,7 @@ def embed_rows(table, ids: torch.Tensor) -> torch.Tensor:
 def qmatmul(x: torch.Tensor, w, compute_dtype=None) -> torch.Tensor:
     """x (..., K) @ w(N, K).T → (..., N) in x.dtype (ggml mul_mat).
 
-    A QuantTensor goes through the Q4_K kernels (ops/cuda/dispatch.py); a
+    A QuantTensor goes through its type's kernels (ops/cuda/dispatch.py); a
     dense f32/bf16 weight goes to torch.matmul, as the JAX package gives it
     to XLA (quantized.py:628-639). f32 products run in full f32: the card's
     TF32 switch for matmuls is off by default and must stay off."""

@@ -1,10 +1,15 @@
-"""Q4_K unpack and dequantization as torch functions.
+"""Q4_K, Q6_K and Q8_0 unpack and dequantization as torch functions.
 
-The counterpart of ggml_gfx906_tpu/quant/dequant_math.py:85-110, which is
-written against an `xp` array module that torch does not satisfy. The
-arithmetic is the same, step for step, so the f32 results are bit-identical
-to the JAX package's and to ggml's dequantize_row_q4_K: w = q·(d·sc) − dmin·m,
-with each product and the difference rounded separately (never fused).
+The counterpart of ggml_gfx906_tpu/quant/dequant_math.py:71-73, 85-110 and
+127-141, which is written against an `xp` array module that torch does not
+satisfy. The arithmetic is the same, step for step, so the f32 results are
+bit-identical to the JAX package's and to ggml's dequantize_row_*:
+
+- Q4_K: w = q·(d·sc) − dmin·m, each product and the difference rounded
+  separately (never fused);
+- Q6_K: w = (q − 32)·(d·sc); d (f16) times the int8 sc is exact in f32, so
+  the one product rounds once whatever the order;
+- Q8_0: w = q·d, exact in f32.
 """
 from __future__ import annotations
 
@@ -39,3 +44,28 @@ def dequant_q4_K_unpacked(d, dmin, sc, m, qs) -> torch.Tensor:
     y = (qf * d_j.reshape(*d_j.shape[:-1], 4, 2, 1)
          - m_j.reshape(*m_j.shape[:-1], 4, 2, 1))
     return y.reshape(*y.shape[:-4], -1)
+
+
+def dequant_q6_K(d, ql, qh, scales) -> torch.Tensor:
+    """d: (..., nb) f16/f32, ql: (..., nb, 128) u8, qh: (..., nb, 64) u8,
+    scales: (..., nb, 16) i8 → (..., nb*256) f32. Element h*128 + 32*i + l
+    of a superblock (half h, quarter i) takes the low (i = 0, 1) or high
+    (i = 2, 3) nibble of ql byte h*64 + 32*(i % 2) + l and bits 2i..2i+1 of
+    qh byte h*32 + l; its scale is scales[element // 16]."""
+    qlr = ql.reshape(*ql.shape[:-1], 2, 2, 32)      # [half][byte-half][l]
+    qhr = qh.reshape(*qh.shape[:-1], 2, 32)
+    nib = torch.stack([qlr[..., 0, :] & 0xF, qlr[..., 1, :] & 0xF,
+                       qlr[..., 0, :] >> 4, qlr[..., 1, :] >> 4], dim=-2)
+    shift = torch.tensor([0, 2, 4, 6], dtype=torch.uint8, device=ql.device)[:, None]
+    bits = (qhr[..., None, :] >> shift) & 3            # (..., nb, 2, 4, 32)
+    q = (nib | (bits << 4)).to(torch.int32) - 32
+    dsc = d.float()[..., None] * scales.float()        # (..., nb, 16)
+    y = (q.float().reshape(*q.shape[:-1], 2, 16)
+         * dsc.reshape(*dsc.shape[:-1], 2, 4, 2, 1))   # [half][quarter][16-group]
+    return y.reshape(*y.shape[:-5], -1)
+
+
+def dequant_q8_0(d, qs) -> torch.Tensor:
+    """d: (..., nb) f16/f32, qs: (..., nb, 32) i8 → (..., nb*32) f32."""
+    y = qs.float() * d.float()[..., None]
+    return y.reshape(*y.shape[:-2], -1)
