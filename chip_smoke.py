@@ -8,17 +8,20 @@ Phases (each failure raises, so the script exits non-zero):
   2. build: compiles ggml_gfx906_tpu_torch/csrc/*.cu with nvcc (one process
      per source, all at once) into build/torch_kernels/;
   3. kernels: K1 (Q4_K f32 matmul), K3 (Q4_K int8 matmul), K2 (causal
-     flash attention), K4 (Q6_K f32 matmul), K5 (Q8_0 f32 matmul) and K5-i8
-     (Q8_0 int8 matmul) against their plain PyTorch versions at the main
-     paths' shapes, each timed with CUDA events beside its plain version,
-     its library yardstick and its bound;
+     flash attention), K4 (Q6_K f32 matmul), K5 (Q8_0 f32 matmul), K5-i8
+     (Q8_0 int8 matmul), K6 (Q4_0 f32 matmul), K6-i8 (Q4_0 int8 matmul)
+     and K7 (Q5_K f32 matmul) against their plain PyTorch versions at the
+     main paths' shapes, each timed with CUDA events beside its plain
+     version, its library yardstick and its bound;
   4. a small-model check of the card's forward against the CPU's, for a
-     tiny Q4_K, Q4_K_M-mixture and Q8_0 model;
-  5. three main paths at full llama-7B width, one GGUF each (random but
-     valid blocks, constructed scales; cached under build/): pure Q4_K with
-     the head tied to token_embd; llama.cpp's Q4_K_M mixture (Q4_K, with
-     Q6_K in output.weight and in attn_v/ffn_down of 16 of 32 layers); and
-     Q8_0 throughout. Each loads its file to the card, runs `generate`,
+     tiny Q4_K, Q4_K_M-mixture, Q8_0, Q5_K_M-mixture and Q4_0 model;
+  5. five main paths at full llama-7B width, one GGUF each (random but
+     valid blocks, constructed scales; written under build/ and removed
+     after its path): pure Q4_K with the head tied to token_embd;
+     llama.cpp's Q4_K_M and Q5_K_M mixtures (Q4_K or Q5_K, with Q6_K in
+     output.weight and in attn_v/ffn_down of 16 of 32 layers); Q8_0
+     throughout; and Q4_0 with a Q6_K head. Each loads its file to the
+     card, runs `generate`,
      serves 8+1 requests through `Engine`, asserts engine streams ==
      single-sequence `generate` streams, that its kernels launched as many
      times per decode step and per 128-token prefill chunk as its tensor
@@ -33,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import shutil
 import subprocess
@@ -46,10 +50,12 @@ import torch
 from ggml_gfx906_tpu_torch.gguf import GGUFWriter
 from ggml_gfx906_tpu_torch.models import llama
 from ggml_gfx906_tpu_torch.ops import cuda as kernels
-from ggml_gfx906_tpu_torch.ops.cuda import build, dispatch, flash_attn, qmm, qmm_q6k, qmm_q8_0
+from ggml_gfx906_tpu_torch.ops.cuda import (build, dispatch, flash_attn, qmm, qmm_q4_0,
+                                            qmm_q5k, qmm_q6k, qmm_q8_0)
 from ggml_gfx906_tpu_torch.ops.quantized import QuantTensor
 from ggml_gfx906_tpu_torch.quant.kquants import pack_scale_min_k4
-from ggml_gfx906_tpu_torch.quant.types import BLOCK_Q4_K, BLOCK_Q6_K, BLOCK_Q8_0, GGMLType
+from ggml_gfx906_tpu_torch.quant.types import (BLOCK_Q4_0, BLOCK_Q4_K, BLOCK_Q5_K, BLOCK_Q6_K,
+                                               BLOCK_Q8_0, GGMLType)
 from ggml_gfx906_tpu_torch.runtime.engine import Engine
 
 ROOT = Path(__file__).resolve().parent
@@ -139,6 +145,61 @@ def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
 
 # ------------------------------------------------------------- kernels
 
+def check_f32(timer, results, label, kernel, fn, plain, x, w_dense, wbytes):
+    """Hold an f32 matmul kernel fn(x) against its plain version plain(x)
+    (nmse < 1e-10) and time both beside torch.matmul on the dense weight
+    and the bound (weight bytes `wbytes` in the port's layout)."""
+    m, k = x.shape
+    n = w_dense.shape[0]
+    got, ref = fn(x), plain(x)
+    torch.cuda.synchronize()
+    e = nmse(got, ref)
+    if not e < 1e-10:
+        raise AssertionError(f"{label} M={m} N={n} K={k}: nmse {e}")
+    b, by = bound(wbytes + m * k * 4 + m * n * 4, 2.0 * m * n * k, "f32")
+    results.append(dict(
+        kernel=kernel.name, shape=f"M={m} N={n} K={k}", nmse=e,
+        max_abs_err=float((got - ref).abs().max()),
+        ms=timer(lambda: fn(x)), plain_ms=timer(lambda: plain(x)),
+        library_ms=timer(lambda: torch.matmul(x, w_dense.T)),
+        bound_ms=b, bound_by=by))
+    log(f"{label} M={m} N={n} K={k} nmse={e:.3e} ms={results[-1]['ms']:.4f}")
+
+
+def check_i8(timer, results, label, kernel, full, prepare, launch, plain, x,
+             w_dense, wbytes):
+    """Hold an int8 matmul kernel launch(*prepare(x)) against its plain
+    version on the same prepared operands, element-wise within 1e-5
+    relative plus 1e-6 of the largest output (both sum exact integer dots;
+    only the f32 epilogue may round differently), and time it with the
+    operand preparation (full(x)) and without, beside its plain version,
+    torch.matmul on the dense weight and the bound."""
+    m, k = x.shape
+    n = w_dense.shape[0]
+    ops = prepare(x)
+    got, ref = launch(*ops), plain(*ops)
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    if not bool((err <= 1e-5 * ref.abs() + 1e-6 * ref.abs().max()).all()):
+        raise AssertionError(f"{label} M={m} N={n} K={k}: rel err "
+                             f"{float((err / ref.abs().clamp_min(1e-30)).max())}")
+    b, by = bound(wbytes + m * k * 4 + m * n * 4, 2.0 * m * n * k, "int8")
+    results.append(dict(
+        kernel=kernel.name, shape=f"M={m} N={n} K={k}", nmse=nmse(got, ref),
+        max_abs_err=float(err.max()),
+        ms=timer(lambda: full(x)), kernel_only_ms=timer(lambda: launch(*ops)),
+        plain_ms=timer(lambda: plain(*prepare(x))),
+        library_ms=timer(lambda: torch.matmul(x, w_dense.T)),
+        bound_ms=b, bound_by=by))
+    log(f"{label} M={m} N={n} K={k} nmse={results[-1]['nmse']:.3e} "
+        f"ms={results[-1]['ms']:.4f}")
+
+
+# decode (1, 8 slots) and the engine's short prefill chunks (16, 32): M > 8
+# runs a kernel's second and later 8-row M tiles, 63 a ragged one
+F32_MS = (1, 8, 16, 32, 63)
+
+
 def random_q4k(n, k, device, gen):
     """Q4_K weights with random nibbles and 6-bit scales, plausible d."""
     nb = k // 256
@@ -154,47 +215,18 @@ def check_qmm(device, timer, results):
         qs, scm, dd = random_q4k(n, k, device, gen)
         w_dense = qmm.dequant(qs, scm, dd)
         wbytes = n * k / 2 + n * k / 16 + n * k / 32
-        # decode (1, 8 slots) and the engine's short prefill chunks (16, 32):
-        # M > 8 runs the kernel's second and later M tiles, 63 a ragged one
-        for m in (1, 8, 16, 32, 63):
-            x = torch.randn((m, k), device=device, generator=gen)
-            got = qmm.qmm_q4_K(x, qs, scm, dd)
-            ref = qmm.qmm_q4_K_plain(x, qs, scm, dd)
-            torch.cuda.synchronize()
-            e = nmse(got, ref)
-            if not e < 1e-10:
-                raise AssertionError(f"K1 M={m} N={n} K={k}: nmse {e}")
-            b, by = bound(wbytes + m * k * 4 + m * n * 4, 2.0 * m * n * k, "f32")
-            results.append(dict(
-                kernel="qmm_q4_K", shape=f"M={m} N={n} K={k}", nmse=e,
-                max_abs_err=float((got - ref).abs().max()),
-                ms=timer(lambda: qmm.qmm_q4_K(x, qs, scm, dd)),
-                plain_ms=timer(lambda: qmm.qmm_q4_K_plain(x, qs, scm, dd)),
-                library_ms=timer(lambda: torch.matmul(x, w_dense.T)),
-                bound_ms=b, bound_by=by))
-            log(f"K1 M={m} N={n} K={k} nmse={e:.3e} ms={results[-1]['ms']:.4f}")
+        for m in F32_MS:
+            check_f32(timer, results, "K1", kernels.K1,
+                      lambda x: qmm.qmm_q4_K(x, qs, scm, dd),
+                      lambda x: qmm.qmm_q4_K_plain(x, qs, scm, dd),
+                      torch.randn((m, k), device=device, generator=gen), w_dense, wbytes)
         for m in (100, 128, 512):        # 100: the ragged single-stream prefill
-            x = torch.randn((m, k), device=device, generator=gen)
-            ops = qmm.prepare_i8(x, scm, dd)
-            got = qmm.launch_i8(qs, *ops)
-            ref = qmm.qmm_q4_K_i8_plain(qs, *ops)
-            torch.cuda.synchronize()
-            err = (got - ref).abs()
-            scale = ref.abs().max()
-            if not bool((err <= 1e-5 * ref.abs() + 1e-6 * scale).all()):
-                raise AssertionError(f"K3 M={m} N={n} K={k}: rel err "
-                                     f"{float((err / ref.abs().clamp_min(1e-30)).max())}")
-            b, by = bound(wbytes + m * k * 4 + m * n * 4, 2.0 * m * n * k, "int8")
-            results.append(dict(
-                kernel="qmm_q4_K_i8", shape=f"M={m} N={n} K={k}", nmse=nmse(got, ref),
-                max_abs_err=float(err.max()),
-                ms=timer(lambda: qmm.qmm_q4_K_i8(x, qs, scm, dd)),
-                kernel_only_ms=timer(lambda: qmm.launch_i8(qs, *ops)),
-                plain_ms=timer(lambda: qmm.qmm_q4_K_i8_plain(qs, *qmm.prepare_i8(x, scm, dd))),
-                library_ms=timer(lambda: torch.matmul(x, w_dense.T)),
-                bound_ms=b, bound_by=by))
-            log(f"K3 M={m} N={n} K={k} nmse={results[-1]['nmse']:.3e} "
-                f"ms={results[-1]['ms']:.4f}")
+            check_i8(timer, results, "K3", kernels.K3,
+                     lambda x: qmm.qmm_q4_K_i8(x, qs, scm, dd),
+                     lambda x: qmm.prepare_i8(x, scm, dd),
+                     lambda *ops: qmm.launch_i8(qs, *ops),
+                     lambda *ops: qmm.qmm_q4_K_i8_plain(qs, *ops),
+                     torch.randn((m, k), device=device, generator=gen), w_dense, wbytes)
         del w_dense
 
 
@@ -210,24 +242,12 @@ def check_q6k(device, timer, results):
              torch.randint(-128, 128, (n, nb * 16), dtype=torch.int8, device=device, generator=gen),
              torch.rand((n, nb), device=device, generator=gen) * 1e-3)
         w_dense = qmm_q6k.dequant(*w)
-        wbytes = n * k * 6.625 / 8
         for m in (1, 8, 16, 63, 128):
-            x = torch.randn((m, k), device=device, generator=gen)
-            got = qmm_q6k.qmm_q6_K(x, *w)
-            ref = qmm_q6k.qmm_q6_K_plain(x, *w)
-            torch.cuda.synchronize()
-            e = nmse(got, ref)
-            if not e < 1e-10:
-                raise AssertionError(f"K4 M={m} N={n} K={k}: nmse {e}")
-            b, by = bound(wbytes + m * k * 4 + m * n * 4, 2.0 * m * n * k, "f32")
-            results.append(dict(
-                kernel="qmm_q6_K", shape=f"M={m} N={n} K={k}", nmse=e,
-                max_abs_err=float((got - ref).abs().max()),
-                ms=timer(lambda: qmm_q6k.qmm_q6_K(x, *w)),
-                plain_ms=timer(lambda: qmm_q6k.qmm_q6_K_plain(x, *w)),
-                library_ms=timer(lambda: torch.matmul(x, w_dense.T)),
-                bound_ms=b, bound_by=by))
-            log(f"K4 M={m} N={n} K={k} nmse={e:.3e} ms={results[-1]['ms']:.4f}")
+            check_f32(timer, results, "K4", kernels.K4,
+                      lambda x: qmm_q6k.qmm_q6_K(x, *w),
+                      lambda x: qmm_q6k.qmm_q6_K_plain(x, *w),
+                      torch.randn((m, k), device=device, generator=gen), w_dense,
+                      n * k * 6.625 / 8)
         del w_dense
 
 
@@ -241,44 +261,63 @@ def check_q8_0(device, timer, results):
         w_dense = qmm_q8_0.dequant(qs, d)
         wbytes = n * k * 9 / 8
         for m in (1, 8, 16, 63):
-            x = torch.randn((m, k), device=device, generator=gen)
-            got = qmm_q8_0.qmm_q8_0(x, qs, d)
-            ref = qmm_q8_0.qmm_q8_0_plain(x, qs, d)
-            torch.cuda.synchronize()
-            e = nmse(got, ref)
-            if not e < 1e-10:
-                raise AssertionError(f"K5 M={m} N={n} K={k}: nmse {e}")
-            b, by = bound(wbytes + m * k * 4 + m * n * 4, 2.0 * m * n * k, "f32")
-            results.append(dict(
-                kernel="qmm_q8_0", shape=f"M={m} N={n} K={k}", nmse=e,
-                max_abs_err=float((got - ref).abs().max()),
-                ms=timer(lambda: qmm_q8_0.qmm_q8_0(x, qs, d)),
-                plain_ms=timer(lambda: qmm_q8_0.qmm_q8_0_plain(x, qs, d)),
-                library_ms=timer(lambda: torch.matmul(x, w_dense.T)),
-                bound_ms=b, bound_by=by))
-            log(f"K5 M={m} N={n} K={k} nmse={e:.3e} ms={results[-1]['ms']:.4f}")
+            check_f32(timer, results, "K5", kernels.K5,
+                      lambda x: qmm_q8_0.qmm_q8_0(x, qs, d),
+                      lambda x: qmm_q8_0.qmm_q8_0_plain(x, qs, d),
+                      torch.randn((m, k), device=device, generator=gen), w_dense, wbytes)
         for m in (64, 100, 128, 512):
-            x = torch.randn((m, k), device=device, generator=gen)
-            ops = qmm_q8_0.prepare_i8(x, d)
-            got = qmm_q8_0.launch_i8(qs, *ops)
-            ref = qmm_q8_0.qmm_q8_0_i8_plain(qs, *ops)
-            torch.cuda.synchronize()
-            err = (got - ref).abs()
-            scale = ref.abs().max()
-            if not bool((err <= 1e-5 * ref.abs() + 1e-6 * scale).all()):
-                raise AssertionError(f"K5-i8 M={m} N={n} K={k}: rel err "
-                                     f"{float((err / ref.abs().clamp_min(1e-30)).max())}")
-            b, by = bound(wbytes + m * k * 4 + m * n * 4, 2.0 * m * n * k, "int8")
-            results.append(dict(
-                kernel="qmm_q8_0_i8", shape=f"M={m} N={n} K={k}", nmse=nmse(got, ref),
-                max_abs_err=float(err.max()),
-                ms=timer(lambda: qmm_q8_0.qmm_q8_0_i8(x, qs, d)),
-                kernel_only_ms=timer(lambda: qmm_q8_0.launch_i8(qs, *ops)),
-                plain_ms=timer(lambda: qmm_q8_0.qmm_q8_0_i8_plain(qs, *qmm_q8_0.prepare_i8(x, d))),
-                library_ms=timer(lambda: torch.matmul(x, w_dense.T)),
-                bound_ms=b, bound_by=by))
-            log(f"K5-i8 M={m} N={n} K={k} nmse={results[-1]['nmse']:.3e} "
-                f"ms={results[-1]['ms']:.4f}")
+            check_i8(timer, results, "K5-i8", kernels.K5_I8,
+                     lambda x: qmm_q8_0.qmm_q8_0_i8(x, qs, d),
+                     lambda x: qmm_q8_0.prepare_i8(x, d),
+                     lambda *ops: qmm_q8_0.launch_i8(qs, *ops),
+                     lambda *ops: qmm_q8_0.qmm_q8_0_i8_plain(qs, *ops),
+                     torch.randn((m, k), device=device, generator=gen), w_dense, wbytes)
+        del w_dense
+
+
+def check_q4_0(device, timer, results):
+    """K6 at decode and short-chunk M, K6-i8 at prefill M, on the 7B
+    shapes (every matrix of a Q4_0 file but its Q6_K head; the 11008-wide
+    ffn_down has 43 spans of 256)."""
+    gen = torch.Generator(device=device).manual_seed(6)
+    for n, k in QMM_SHAPES:
+        qs = torch.randint(0, 256, (n, k // 2), dtype=torch.uint8, device=device, generator=gen)
+        d = torch.rand((n, k // 32), device=device, generator=gen) * 1e-2
+        w_dense = qmm_q4_0.dequant(qs, d)
+        wbytes = n * k * 5 / 8
+        for m in F32_MS:
+            check_f32(timer, results, "K6", kernels.K6,
+                      lambda x: qmm_q4_0.qmm_q4_0(x, qs, d),
+                      lambda x: qmm_q4_0.qmm_q4_0_plain(x, qs, d),
+                      torch.randn((m, k), device=device, generator=gen), w_dense, wbytes)
+        for m in (64, 100, 128, 512):
+            check_i8(timer, results, "K6-i8", kernels.K6_I8,
+                     lambda x: qmm_q4_0.qmm_q4_0_i8(x, qs, d),
+                     lambda x: qmm_q4_0.prepare_i8(x, d),
+                     lambda *ops: qmm_q4_0.launch_i8(qs, *ops),
+                     lambda *ops: qmm_q4_0.qmm_q4_0_i8_plain(qs, *ops),
+                     torch.randn((m, k), device=device, generator=gen), w_dense, wbytes)
+        del w_dense
+
+
+def check_q5k(device, timer, results):
+    """K7 at the Q5_K_M file's Q5_K shapes: attention, ffn_gate/up and
+    ffn_down (43 superblocks per row, an odd count), from decode to a
+    128-row prefill chunk (Q5_K has no int8 twin)."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    for n, k in ((4096, 4096), (11008, 4096), (4096, 11008)):
+        nb = k // 256
+        w = (torch.randint(0, 256, (n, nb * 128), dtype=torch.uint8, device=device, generator=gen),
+             torch.randint(0, 256, (n, nb * 32), dtype=torch.uint8, device=device, generator=gen),
+             torch.randint(0, 64, (n, nb * 16), dtype=torch.uint8, device=device, generator=gen),
+             torch.rand((n, nb * 2), device=device, generator=gen) * 1e-3)
+        w_dense = qmm_q5k.dequant(*w)
+        for m in (1, 8, 16, 63, 128):
+            check_f32(timer, results, "K7", kernels.K7,
+                      lambda x: qmm_q5k.qmm_q5_K(x, *w),
+                      lambda x: qmm_q5k.qmm_q5_K_plain(x, *w),
+                      torch.randn((m, k), device=device, generator=gen), w_dense,
+                      n * k * 5.75 / 8)
         del w_dense
 
 
@@ -377,32 +416,39 @@ def _matrices(cfg: dict, n_layer: int):
             yield name, i, r, c
 
 
-def q4_k_m_type(name: str, layer: int | None, n_layer: int) -> GGMLType:
-    """llama.cpp's tensor type for LLAMA_FTYPE_MOSTLY_Q4_K_M
-    (src/llama-quant.cpp, llama_tensor_get_type with use_more_bits):
-    output.weight is Q6_K; attn_v and ffn_down are Q6_K in the first and
-    last eighth of the layers and in every third layer between (16 of 32),
-    Q4_K elsewhere; every other matrix is Q4_K."""
+def k_m_type(base: GGMLType, name: str, layer: int | None, n_layer: int) -> GGMLType:
+    """llama.cpp's tensor type for the _K_M file types over their base type
+    (LLAMA_FTYPE_MOSTLY_Q4_K_M: Q4_K, _Q5_K_M: Q5_K; src/llama-quant.cpp,
+    llama_tensor_get_type with use_more_bits): output.weight is Q6_K;
+    attn_v and ffn_down are Q6_K in the first and last eighth of the layers
+    and in every third layer between (16 of 32), the base type elsewhere;
+    every other matrix, token_embd included, is the base type."""
     if name == "output":
         return GGMLType.Q6_K
     if name in ("attn_v", "ffn_down"):
         e = n_layer // 8
         if layer < e or layer >= 7 * n_layer // 8 or (layer - e) % 3 == 2:
             return GGMLType.Q6_K
-    return GGMLType.Q4_K
+    return base
 
+
+q4_k_m_type = functools.partial(k_m_type, GGMLType.Q4_K)
 
 # file recipe → the type of each matrix; None: no output.weight, the head
-# is tied to token_embd
+# is tied to token_embd. q4_0 is LLAMA_FTYPE_MOSTLY_Q4_0 without an
+# importance matrix: every matrix Q4_0, output.weight Q6_K.
 RECIPES = {
     "q4_k": lambda name, layer, n_layer: None if name == "output" else GGMLType.Q4_K,
     "q4_k_m": q4_k_m_type,
     "q8_0": lambda name, layer, n_layer: GGMLType.Q8_0,
+    "q5_k_m": functools.partial(k_m_type, GGMLType.Q5_K),
+    "q4_0": lambda name, layer, n_layer: GGMLType.Q6_K if name == "output" else GGMLType.Q4_0,
 }
 # the kernel each (type, route) takes (ops/cuda/dispatch.py)
 KERNEL_OF = {(GGMLType.Q4_K, "f32"): kernels.K1, (GGMLType.Q4_K, "i8"): kernels.K3,
              (GGMLType.Q6_K, "f32"): kernels.K4, (GGMLType.Q8_0, "f32"): kernels.K5,
-             (GGMLType.Q8_0, "i8"): kernels.K5_I8}
+             (GGMLType.Q8_0, "i8"): kernels.K5_I8, (GGMLType.Q4_0, "f32"): kernels.K6,
+             (GGMLType.Q4_0, "i8"): kernels.K6_I8, (GGMLType.Q5_K, "f32"): kernels.K7}
 
 
 def _rand_u8(rng, shape):
@@ -411,10 +457,30 @@ def _rand_u8(rng, shape):
 
 def make_blocks(qtype: GGMLType, rng, n: int, k: int, random_scales: bool):
     """Valid wire blocks (n, k/blck) of qtype with random quants. The
-    constructed scales give weights ~N(0, 0.02) in scale (bench.py:88-152's
-    recipe for Q4_K: sc=32, m=60, d=e, dmin=4e, e = 1.356e-4, centred; Q6_K
-    sc=16, d=6.77e-5; Q8_0 d=2.706e-4); random_scales draws them instead."""
-    if qtype == GGMLType.Q4_K:
+    constructed scales give zero-mean weights ~N(0, 0.02) in scale
+    (bench.py:88-152's recipe for Q4_K: sc=32, m=60, d=e, dmin=4e, e =
+    1.356e-4; Q5_K sc=32, m=60, d=6.77e-5, dmin=5.60e-4, centring the 5-bit
+    q of mean 15.5, std 9.23; Q6_K sc=16, d=6.77e-5; Q8_0 d=2.706e-4; Q4_0
+    d=4.34e-3, q − 8 having std 4.61); random_scales draws them instead."""
+    if qtype == GGMLType.Q5_K:
+        b = np.zeros((n, k // 256), BLOCK_Q5_K)
+        if random_scales:
+            b["d"], b["dmin"] = np.float16(0.001), np.float16(0.015)
+            b["scales"] = pack_scale_min_k4(rng.integers(0, 64, (n * (k // 256), 8)),
+                                            rng.integers(0, 64, (n * (k // 256), 8))
+                                            ).reshape(n, k // 256, 12)
+        else:
+            b["d"], b["dmin"] = np.float16(6.77e-5), np.float16(5.60e-4)
+            b["scales"] = pack_scale_min_k4(np.full((1, 8), 32, np.uint8),
+                                            np.full((1, 8), 60, np.uint8))[0]
+        b["qh"] = _rand_u8(rng, (n, k // 256, 32))
+        b["qs"] = _rand_u8(rng, (n, k // 256, 128))
+    elif qtype == GGMLType.Q4_0:
+        b = np.zeros((n, k // 32), BLOCK_Q4_0)
+        b["d"] = (rng.uniform(0.5, 1.5, (n, k // 32)) * 3e-2).astype(np.float16) \
+            if random_scales else np.float16(4.34e-3)
+        b["qs"] = _rand_u8(rng, (n, k // 32, 16))
+    elif qtype == GGMLType.Q4_K:
         b = np.zeros((n, k // 256), BLOCK_Q4_K)
         if random_scales:
             b["d"], b["dmin"] = np.float16(0.002), np.float16(0.008)
@@ -520,6 +586,7 @@ def main_path(device, n_layer: int, recipe: str) -> dict:
     cfg, params = llama.load(path, device=device)
     torch.cuda.synchronize()
     out["load_s"] = time.perf_counter() - t0
+    path.unlink()                    # the five 7B files together hold ~24 GB
     cfg = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
     leaves = ([params["wte"], params["out_norm"]] + [params[k] for k in ("lm_head",) if k in params]
               + [t for b in params["blocks"] for t in b.values()])
@@ -637,10 +704,12 @@ def small_model_check(device) -> dict:
     """The card's forward against the CPU's (plain versions) on a tiny
     model of each recipe, loaded from a GGUF with random scales and norm
     weights: f32 route
-    nmse < 1e-9, int8 route within its error class. The mixture's n_ff of
-    768 gives its Q6_K ffn_down an odd superblock count."""
+    nmse < 1e-9, int8 route within its error class. The mixtures' n_ff of
+    768 gives layer 0's Q4_K or Q5_K ffn_down and layer 1's Q6_K one an odd
+    superblock count."""
     res = {}
-    for recipe, n_ff in (("q4_k", 512), ("q4_k_m", 768), ("q8_0", 512)):
+    for recipe, n_ff in (("q4_k", 512), ("q4_k_m", 768), ("q8_0", 512), ("q5_k_m", 768),
+                         ("q4_0", 512)):
         small = dict(n_vocab=512, n_ctx=256, n_embd=256, n_head=4, n_kv_head=2, n_ff=n_ff)
         path = ROOT / "build" / f"smoke_small_{recipe}.gguf"
         write_gguf(path, small, 2, recipe, random_scales=True)
@@ -696,6 +765,8 @@ def main(argv=None) -> int:
     check_attention(device, timer, results)
     check_q6k(device, timer, results)
     check_q8_0(device, timer, results)
+    check_q4_0(device, timer, results)
+    check_q5k(device, timer, results)
 
     small = small_model_check(device)
     log(f"small models card vs CPU: {small}")
@@ -729,7 +800,10 @@ def main(argv=None) -> int:
            "causal_flash_attention": "decode B=8 H=32 window=1024 f32q_bf16kv",
            "qmm_q6_K": "M=8 N=4096 K=11008",
            "qmm_q8_0": "M=8 N=11008 K=4096",
-           "qmm_q8_0_i8": "M=128 N=11008 K=4096"}
+           "qmm_q8_0_i8": "M=128 N=11008 K=4096",
+           "qmm_q4_0": "M=8 N=11008 K=4096",
+           "qmm_q4_0_i8": "M=128 N=11008 K=4096",
+           "qmm_q5_K": "M=8 N=11008 K=4096"}
     line = []
     for kern in kernels.KERNELS:
         rows = [r for r in results if r["kernel"] == kern.name]

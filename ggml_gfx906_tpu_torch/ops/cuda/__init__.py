@@ -32,7 +32,13 @@ K5 = Kernel("qmm_q8_0", "ggml_gfx906_tpu_torch/csrc/qmm_q8_0.cu",
             "ggml_gfx906_tpu/ops/pallas/qmm.py:443")
 K5_I8 = Kernel("qmm_q8_0_i8", "ggml_gfx906_tpu_torch/csrc/qmm_q8_0.cu",
                "ggml_gfx906_tpu/ops/pallas/qmm.py:692")
-KERNELS = (K1, K2, K3, K4, K5, K5_I8)
+K6 = Kernel("qmm_q4_0", "ggml_gfx906_tpu_torch/csrc/qmm_q4_0.cu",
+            "ggml_gfx906_tpu/ops/pallas/qmm.py:489")
+K6_I8 = Kernel("qmm_q4_0_i8", "ggml_gfx906_tpu_torch/csrc/qmm_q4_0.cu",
+               "ggml_gfx906_tpu/ops/pallas/qmm.py:704")
+K7 = Kernel("qmm_q5_K", "ggml_gfx906_tpu_torch/csrc/qmm_q5k.cu",
+            "ggml_gfx906_tpu/ops/pallas/qmm.py:889")
+KERNELS = (K1, K2, K3, K4, K5, K5_I8, K6, K6_I8, K7)
 
 
 def reset_launches() -> None:

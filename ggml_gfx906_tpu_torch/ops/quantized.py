@@ -1,16 +1,21 @@
 """Quantized weights on the device and the matmuls over them.
 
 The counterpart of ggml_gfx906_tpu/ops/quantized.py for the types the port
-has kernels for: Q4_K, Q6_K and Q8_0 — the types of llama.cpp's Q4_K_M
-mixture and of its Q8_0 files. A QuantTensor keeps ggml's block fields as
-separate tensors (struct of arrays), one row of blocks per weight row. The
-port keeps ggml's wire byte order for the quants — the reference's
-lane-interleaved "kernel" layouts (qmm.py:9-22, 139-155, 428-434, 781-801)
-exist for the TPU's 128-lane tiles — with f32 block scales:
+has kernels for: Q4_0, Q4_K, Q5_K, Q6_K and Q8_0 — the types of llama.cpp's
+Q4_K_M and Q5_K_M mixtures and of its Q8_0 and Q4_0 files. A QuantTensor
+keeps ggml's block fields as separate tensors (struct of arrays), one row
+of blocks per weight row. The port keeps ggml's wire byte order for the
+quants — the reference's lane-interleaved "kernel" layouts (qmm.py:9-22,
+139-155, 428-434, 471-478, 781-801, 854-878) exist for the TPU's 128-lane
+tiles — with f32 block scales:
 
+    Q4_0  qs  (N, K/2)   u8   packed nibbles, wire order
+          d   (N, K/32)  f32                                5 bits/weight
     Q4_K  qs  (N, K/2)   u8   packed nibbles, wire order
           scm (N, K/16)  u8   per superblock [sc0..sc7 | m0..m7] (6-bit)
           dd  (N, K/128) f32  per superblock [d, dmin]      4.75 bits/weight
+    Q5_K  qs, scm, dd         as Q4_K
+          qh  (N, K/8)   u8   fifth bits, wire order        5.75 bits/weight
     Q6_K  ql  (N, K/2)   u8   low nibbles, wire order
           qh  (N, K/4)   u8   high 2-bit pairs, wire order
           sc  (N, K/16)  i8   one scale per 16 elements
@@ -35,13 +40,18 @@ from ..quant.dequant_math import unpack_scale_min_k4
 from ..quant.types import GGMLType, TYPE_TRAITS
 from .cuda import dispatch
 from .cuda import qmm as _qmm
+from .cuda import qmm_q4_0 as _qmm_q4_0
+from .cuda import qmm_q5k as _qmm_q5k
 from .cuda import qmm_q6k as _qmm_q6k
 from .cuda import qmm_q8_0 as _qmm_q8_0
 
-# the K multiple each ported type's layout and kernels take
-_K_MULT = {GGMLType.Q4_K: 256, GGMLType.Q6_K: 256, GGMLType.Q8_0: 128}
+# the K multiple each ported type's layout and kernels take (Q4_0 and Q5_K
+# at 256, as the reference takes its kernel layout only at K % 256 == 0)
+_K_MULT = {GGMLType.Q4_K: 256, GGMLType.Q6_K: 256, GGMLType.Q8_0: 128,
+           GGMLType.Q4_0: 256, GGMLType.Q5_K: 256}
 _DEQUANT = {GGMLType.Q4_K: _qmm.dequant, GGMLType.Q6_K: _qmm_q6k.dequant,
-            GGMLType.Q8_0: _qmm_q8_0.dequant}
+            GGMLType.Q8_0: _qmm_q8_0.dequant, GGMLType.Q4_0: _qmm_q4_0.dequant,
+            GGMLType.Q5_K: _qmm_q5k.dequant}
 
 
 def _wire_fields(qtype: GGMLType, raw: torch.Tensor) -> dict:
@@ -50,14 +60,19 @@ def _wire_fields(qtype: GGMLType, raw: torch.Tensor) -> dict:
     off = {nm: f[1] for nm, f in TYPE_TRAITS[qtype].block_dtype.fields.items()}
     take = lambda nm, size: raw[..., off[nm]:off[nm] + size].reshape(n, -1).contiguous()  # noqa: E731
     f16 = lambda nm: take(nm, 2).view(torch.float16).float()                              # noqa: E731
-    if qtype == GGMLType.Q4_K:
+    if qtype in (GGMLType.Q4_K, GGMLType.Q5_K):
         sc, m = unpack_scale_min_k4(raw[..., off["scales"]:off["scales"] + 12])
-        return {"qs": take("qs", 128),
-                "scm": torch.cat([sc, m], dim=-1).reshape(n, -1).contiguous(),
-                "dd": torch.stack([f16("d"), f16("dmin")], dim=-1).reshape(n, -1).contiguous()}
+        out = {"qs": take("qs", 128),
+               "scm": torch.cat([sc, m], dim=-1).reshape(n, -1).contiguous(),
+               "dd": torch.stack([f16("d"), f16("dmin")], dim=-1).reshape(n, -1).contiguous()}
+        if qtype == GGMLType.Q5_K:
+            out["qh"] = take("qh", 32)
+        return out
     if qtype == GGMLType.Q6_K:
         return {"ql": take("ql", 128), "qh": take("qh", 64),
                 "sc": take("scales", 16).view(torch.int8), "d": f16("d")}
+    if qtype == GGMLType.Q4_0:
+        return {"qs": take("qs", 16), "d": f16("d")}
     return {"qs": take("qs", 32).view(torch.int8), "d": f16("d")}     # Q8_0
 
 
@@ -87,6 +102,25 @@ def _from_reference_fields(qtype: GGMLType, n: int, k: int, f: dict) -> dict:
         return {"ql": cut(ql).astype(np.uint8), "qh": cut(qh).astype(np.uint8),
                 "sc": cut(sc).astype(np.int8),
                 "d": f["dq"][:, ::4][:, :nb].astype(np.float32)}
+    if qtype == GGMLType.Q5_K:
+        # chunks of four superblocks, the superblock axis zero-padded to a
+        # multiple of 4; per chunk qs lane (g, j, sb), qh lane (j, sb), scm
+        # [sc(t, sb) | m(t, sb)] (qmm.py:854-878; the same inverse as
+        # ops/quantized.py:271-296)
+        nb = k // 256
+        ch = f["ql"].shape[1] // 512
+        qs = f["ql"].reshape(n, ch, 4, 32, 4).transpose(0, 1, 4, 2, 3)
+        qh = f["qh"].reshape(n, ch, 32, 4).transpose(0, 1, 3, 2)
+        scm = f["scm"].reshape(n, ch, 2, 8, 4).transpose(0, 1, 4, 2, 3)
+        dd = np.stack([f["d"], f["dmin"]], axis=-1)
+        cut = lambda a: a.reshape(n, 4 * ch, -1)[:, :nb]  # noqa: E731
+        return {"qs": cut(qs).astype(np.uint8), "qh": cut(qh).astype(np.uint8),
+                "scm": cut(scm).astype(np.uint8), "dd": cut(dd).astype(np.float32)}
+    if qtype == GGMLType.Q4_0:
+        # byte lane 8*j + b of a 256-span ↔ wire byte j of its block b
+        # (qmm.py:471-478)
+        qs = f["qs"].reshape(n, k // 256, 16, 8).transpose(0, 1, 3, 2)
+        return {"qs": qs.astype(np.uint8), "d": f["d"].astype(np.float32)}
     # Q8_0: byte lane 4*j + b of a 128-tile ↔ element 32*b + j (qmm.py:428-434)
     qs = f["qs"].reshape(n, k // 128, 32, 4).transpose(0, 1, 3, 2)
     return {"qs": qs.astype(np.int8), "d": f["d"].astype(np.float32)}
@@ -142,7 +176,7 @@ class QuantTensor:
     def from_reference_kernel_layout(cls, qtype: GGMLType, shape, fields: dict,
                                      device) -> "QuantTensor":
         """From the JAX package's "kernel" layout (Q4_K qmm.py:139-155, Q6_K
-        :781-801, Q8_0 :428-434) as numpy."""
+        :781-801, Q8_0 :428-434, Q4_0 :471-478, Q5_K :854-878) as numpy."""
         n, k = cls._check(qtype, shape)
         port = _from_reference_fields(qtype, n, k,
                                       {f: np.asarray(a) for f, a in fields.items()})

@@ -1,12 +1,17 @@
-"""Q4_K, Q6_K and Q8_0 unpack and dequantization as torch functions.
+"""Q4_0, Q4_K, Q5_K, Q6_K and Q8_0 unpack and dequantization as torch
+functions.
 
-The counterpart of ggml_gfx906_tpu/quant/dequant_math.py:71-73, 85-110 and
-127-141, which is written against an `xp` array module that torch does not
+The counterpart of ggml_gfx906_tpu/quant/dequant_math.py:25-31, 71-73,
+85-141, which is written against an `xp` array module that torch does not
 satisfy. The arithmetic is the same, step for step, so the f32 results are
 bit-identical to the JAX package's and to ggml's dequantize_row_*:
 
+- Q4_0: w = (q − 8)·d; q − 8 is exact, so the one product rounds once;
 - Q4_K: w = q·(d·sc) − dmin·m, each product and the difference rounded
   separately (never fused);
+- Q5_K: as Q4_K with a fifth bit; d·sc, q·(d·sc) and dmin·m are all exact
+  in f32 (f16 times 6 bits times 5 bits), so w rounds only at the
+  difference, fused or not;
 - Q6_K: w = (q − 32)·(d·sc); d (f16) times the int8 sc is exact in f32, so
   the one product rounds once whatever the order;
 - Q8_0: w = q·d, exact in f32.
@@ -26,6 +31,16 @@ def unpack_scale_min_k4(scales: torch.Tensor):
     return torch.cat([s03, s47], dim=-1), torch.cat([m03, m47], dim=-1)
 
 
+def dequant_q4_0(d, qs) -> torch.Tensor:
+    """d: (..., nb) f16/f32, qs: (..., nb, 16) u8 → (..., nb*32) f32. Byte j
+    of a block holds element j in its low nibble, element j + 16 in its
+    high nibble."""
+    lo = (qs & 0xF).float() - 8.0
+    hi = (qs >> 4).float() - 8.0
+    y = torch.cat([lo, hi], dim=-1) * d.float()[..., None]
+    return y.reshape(*y.shape[:-2], -1)
+
+
 def dequant_q4_K(d, dmin, scales, qs) -> torch.Tensor:
     """d/dmin: (..., nb) f16/f32, scales: (..., nb, 12) u8, qs: (..., nb, 128)
     u8 → (..., nb*256) f32."""
@@ -41,6 +56,31 @@ def dequant_q4_K_unpacked(d, dmin, sc, m, qs) -> torch.Tensor:
     lo = (q & 0xF).float()
     hi = (q >> 4).float()
     qf = torch.stack([lo, hi], dim=-2)  # (..., nb, 4, 2, 32); subblock 2g+half
+    y = (qf * d_j.reshape(*d_j.shape[:-1], 4, 2, 1)
+         - m_j.reshape(*m_j.shape[:-1], 4, 2, 1))
+    return y.reshape(*y.shape[:-4], -1)
+
+
+def dequant_q5_K(d, dmin, scales, qh, qs) -> torch.Tensor:
+    """d/dmin: (..., nb) f16/f32, scales: (..., nb, 12) u8, qh: (..., nb, 32)
+    u8, qs: (..., nb, 128) u8 → (..., nb*256) f32."""
+    sc, m = unpack_scale_min_k4(scales)
+    return dequant_q5_K_unpacked(d, dmin, sc, m, qh, qs)
+
+
+def dequant_q5_K_unpacked(d, dmin, sc, m, qh, qs) -> torch.Tensor:
+    """As dequant_q5_K, from already-unpacked 6-bit sc/m (..., nb, 8). qs
+    byte 32g + l holds element 64g + l (low nibble, sub-block 2g) and 64g +
+    32 + l (high nibble, sub-block 2g + 1); qh byte l holds their fifth bits
+    at bits 2g and 2g + 1."""
+    d_j = d.float()[..., None] * sc.float()          # (..., nb, 8)
+    m_j = dmin.float()[..., None] * m.float()
+    q = qs.reshape(*qs.shape[:-1], 4, 32)
+    qhb = qh.reshape(*qh.shape[:-1], 1, 32)
+    g = torch.arange(4, dtype=torch.uint8, device=qs.device)[:, None]
+    q0 = ((q & 0xF) + ((qhb >> (2 * g)) & 1) * 16).float()
+    q1 = ((q >> 4) + ((qhb >> (2 * g + 1)) & 1) * 16).float()
+    qf = torch.stack([q0, q1], dim=-2)  # (..., nb, 4, 2, 32); subblock 2g+half
     y = (qf * d_j.reshape(*d_j.shape[:-1], 4, 2, 1)
          - m_j.reshape(*m_j.shape[:-1], 4, 2, 1))
     return y.reshape(*y.shape[:-4], -1)

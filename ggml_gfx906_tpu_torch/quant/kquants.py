@@ -1,6 +1,6 @@
 """K-quant scale packing (numpy), copied from ggml_gfx906_tpu/quant/kquants.py.
 
-Only the piece the port needs to build Q4_K wire blocks with constructed
+Only the piece the port needs to build Q4_K and Q5_K wire blocks with constructed
 scales (chip_smoke.py's 7B-shape GGUF recipe); the quantizers themselves are
 a later slice.
 """

@@ -82,9 +82,9 @@ def unset(name: str) -> None:
 # ---------------------------------------------------------------- knobs
 
 register("int8_min_m", 64,
-         "batch-size threshold at which Q4_K and Q8_0 matmuls switch from "
-         "the f32 kernels (K1, K5) to the int8 kernels (K3, K5-i8); 0 "
-         "disables the int8 path")
+         "batch-size threshold at which Q4_K, Q8_0 and Q4_0 matmuls switch "
+         "from the f32 kernels (K1, K5, K6) to the int8 kernels (K3, K5-i8, "
+         "K6-i8); 0 disables the int8 path")
 register("engine_chunk_size", 128,
          "prompt tokens prefilled per engine step during admission")
 register("engine_min_window", 32,

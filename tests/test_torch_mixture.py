@@ -1,17 +1,19 @@
 """Port parity for the slice as a whole: llama models whose matrices mix
-quant types as llama.cpp's files do — the Q4_K_M recipe (Q4_K, with Q6_K in
-output.weight and in attn_v/ffn_down of some layers) and Q8_0 throughout —
-against the JAX package. The mixture's n_ff of 768 gives its Q6_K ffn_down
-three superblocks per row, which the reference pads to four. Logits meet
-tests/test_llama.py's bound (nmse < 1e-9) on the f32 route; greedy streams
-are equal with prompts shorter than int8_min_m and longer (the int8 route
-for Q4_K and Q8_0, K4 for Q6_K at every length)."""
+quant types as llama.cpp's files do — the Q4_K_M and Q5_K_M recipes (Q4_K
+or Q5_K, with Q6_K in output.weight and in attn_v/ffn_down of some layers),
+Q8_0 throughout, and Q4_0 with a Q6_K head — against the JAX package. The
+mixtures' n_ff of 768 gives layer 0's Q4_K or Q5_K ffn_down and layer 1's
+Q6_K one three superblocks per row, which the reference pads to four (Q6_K
+to an even count). Logits meet tests/test_llama.py's bound (nmse < 1e-9)
+on the f32 route; greedy streams are equal with prompts shorter than
+int8_min_m and longer (the int8 route for Q4_K, Q8_0 and Q4_0; K4 for Q6_K
+and K7 for Q5_K at every length)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import q4_k_m_type
+from chip_smoke import RECIPES as SMOKE_RECIPES
 from ggml_gfx906_tpu.models import llama as jllama
 from ggml_gfx906_tpu.ops.quantized import QuantTensor as JQuantTensor
 from ggml_gfx906_tpu.quant import quantize
@@ -25,8 +27,12 @@ from _torch_port import jax_params_to_numpy, nmse, port_cfg
 
 MAX_SEQ = 128
 N_LAYER = 2
-RECIPES = {"q4_k_m": q4_k_m_type,
-           "q8_0": lambda name, layer, n_layer: GGMLType.Q8_0}
+RECIPES = {r: SMOKE_RECIPES[r] for r in ("q4_k_m", "q8_0", "q5_k_m", "q4_0")}
+# the matrices each recipe puts in Q6_K at two layers, and its other type
+Q6K_AT = {"q4_k_m": ({"lm_head", "wv.1", "w_down.1"}, GGMLType.Q4_K),
+          "q8_0": (set(), GGMLType.Q8_0),
+          "q5_k_m": ({"lm_head", "wv.1", "w_down.1"}, GGMLType.Q5_K),
+          "q4_0": ({"lm_head"}, GGMLType.Q4_0)}
 _PER_BLOCK = (("wq", "attn_q"), ("wk", "attn_k"), ("wv", "attn_v"),
               ("wo", "attn_output"), ("w_gate", "ffn_gate"), ("w_up", "ffn_up"),
               ("w_down", "ffn_down"))
@@ -35,7 +41,7 @@ _PER_BLOCK = (("wq", "attn_q"), ("wk", "attn_k"), ("wv", "attn_v"),
 def _cfg(recipe):
     return jllama.LlamaConfig(n_vocab=256, n_ctx=MAX_SEQ, n_embd=256, n_head=4,
                               n_kv_head=2, n_layer=N_LAYER,
-                              n_ff=768 if recipe == "q4_k_m" else 512)
+                              n_ff=768 if recipe.endswith("_k_m") else 512)
 
 
 def _matrices(cfg):
@@ -94,16 +100,15 @@ def _logits(jcfg, jp, tcfg, tp, toks):
 
 
 def test_recipe_types(models):
-    """The carried-across weights keep the recipe's types: Q4_K_M at two
-    layers puts Q6_K in the head and in layer 1's attn_v and ffn_down."""
+    """The carried-across weights keep the recipe's types: the _K_M
+    mixtures at two layers put Q6_K in the head and in layer 1's attn_v and
+    ffn_down, Q4_0 in the head only, Q8_0 nowhere."""
     recipe, _, jp, _, tp = models
     types = _types(tp)
     assert types == _types(jp)
-    if recipe == "q4_k_m":
-        assert {k for k, t in types.items() if t == GGMLType.Q6_K} == \
-            {"lm_head", "wv.1", "w_down.1"}
-    else:
-        assert set(types.values()) == {GGMLType.Q8_0}
+    q6k, other = Q6K_AT[recipe]
+    assert {k for k, t in types.items() if t == GGMLType.Q6_K} == q6k
+    assert {t for k, t in types.items() if k not in q6k} == {other}
 
 
 def test_logits_match_reference(models):

@@ -172,7 +172,7 @@ def test_dispatch_routes_by_m():
 
 def test_unported_types_and_knobs_raise():
     with pytest.raises(NotImplementedError):
-        tdispatch.route(1, GGMLType.Q5_K)
+        tdispatch.route(1, GGMLType.Q3_K)
     for name, value in (("kv_quant", True), ("engine_window_delta", True),
                         ("engine_harvest_depth", 8)):
         with pytest.raises(NotImplementedError):
