@@ -9,19 +9,21 @@ Phases (each failure raises, so the script exits non-zero):
      per source, all at once) into build/torch_kernels/;
   3. kernels: K1 (Q4_K f32 matmul), K3 (Q4_K int8 matmul), K2 (causal
      flash attention), K4 (Q6_K f32 matmul), K5 (Q8_0 f32 matmul), K5-i8
-     (Q8_0 int8 matmul), K6 (Q4_0 f32 matmul), K6-i8 (Q4_0 int8 matmul)
-     and K7 (Q5_K f32 matmul) against their plain PyTorch versions at the
-     main paths' shapes, each timed with CUDA events beside its plain
-     version, its library yardstick and its bound;
+     (Q8_0 int8 matmul), K6 (Q4_0 f32 matmul), K6-i8 (Q4_0 int8 matmul),
+     K7 (Q5_K f32 matmul) and K8 (Q4_1, Q5_0 and Q5_1 f32 matmuls)
+     against their plain PyTorch versions at the main paths' shapes, each
+     timed with CUDA events beside its plain version, its library
+     yardstick and its bound;
   4. a small-model check of the card's forward against the CPU's, for a
-     tiny Q4_K, Q4_K_M-mixture, Q8_0, Q5_K_M-mixture and Q4_0 model;
-  5. five main paths at full llama-7B width, one GGUF each (random but
+     tiny Q4_K, Q4_K_M-mixture, Q8_0, Q5_K_M-mixture, Q4_0, Q4_1, Q5_0 and
+     Q5_1 model;
+  5. eight main paths at full llama-7B width, one GGUF each (random but
      valid blocks, constructed scales; written under build/ and removed
      after its path): pure Q4_K with the head tied to token_embd;
      llama.cpp's Q4_K_M and Q5_K_M mixtures (Q4_K or Q5_K, with Q6_K in
      output.weight and in attn_v/ffn_down of 16 of 32 layers); Q8_0
-     throughout; and Q4_0 with a Q6_K head. Each loads its file to the
-     card, runs `generate`,
+     throughout; and Q4_0, Q4_1, Q5_0 and Q5_1 with a Q6_K head. Each
+     loads its file to the card, runs `generate`,
      serves 8+1 requests through `Engine`, asserts engine streams ==
      single-sequence `generate` streams, that its kernels launched as many
      times per decode step and per 128-token prefill chunk as its tensor
@@ -50,12 +52,13 @@ import torch
 from ggml_gfx906_tpu_torch.gguf import GGUFWriter
 from ggml_gfx906_tpu_torch.models import llama
 from ggml_gfx906_tpu_torch.ops import cuda as kernels
-from ggml_gfx906_tpu_torch.ops.cuda import (build, dispatch, flash_attn, qmm, qmm_q4_0,
-                                            qmm_q5k, qmm_q6k, qmm_q8_0)
+from ggml_gfx906_tpu_torch.ops.cuda import (build, dispatch, flash_attn, qmm, qmm_legacy,
+                                            qmm_q4_0, qmm_q5k, qmm_q6k, qmm_q8_0)
 from ggml_gfx906_tpu_torch.ops.quantized import QuantTensor
 from ggml_gfx906_tpu_torch.quant.kquants import pack_scale_min_k4
-from ggml_gfx906_tpu_torch.quant.types import (BLOCK_Q4_0, BLOCK_Q4_K, BLOCK_Q5_K, BLOCK_Q6_K,
-                                               BLOCK_Q8_0, GGMLType)
+from ggml_gfx906_tpu_torch.quant.types import (BLOCK_Q4_0, BLOCK_Q4_1, BLOCK_Q4_K, BLOCK_Q5_0,
+                                               BLOCK_Q5_1, BLOCK_Q5_K, BLOCK_Q6_K, BLOCK_Q8_0,
+                                               GGMLType)
 from ggml_gfx906_tpu_torch.runtime.engine import Engine
 
 ROOT = Path(__file__).resolve().parent
@@ -321,6 +324,38 @@ def check_q5k(device, timer, results):
         del w_dense
 
 
+# K8's types: (type, kernel, bits per weight in the port's layout)
+LEGACY = ((GGMLType.Q4_1, kernels.K8_Q4_1, 6), (GGMLType.Q5_0, kernels.K8_Q5_0, 6),
+          (GGMLType.Q5_1, kernels.K8_Q5_1, 7))
+
+
+def check_legacy(device, timer, results):
+    """K8's three entry points at every matrix shape of the Q4_1, Q5_0 and
+    Q5_1 files but their Q6_K head, from decode to a 128-row prefill chunk
+    (none has an int8 twin). The 11008-wide ffn_down has 344 blocks per
+    row, which the kernel's groups of 512-element spans do not divide."""
+    gen = torch.Generator(device=device).manual_seed(8)
+    for qtype, kern, bpw in LEGACY:
+        name = qtype.name.lower()
+        fn, plain = getattr(qmm_legacy, f"qmm_{name}"), getattr(qmm_legacy, f"qmm_{name}_plain")
+        for n, k, ms in ((4096, 4096, (1,)), (11008, 4096, (1, 8, 16, 63, 128)),
+                         (4096, 11008, (1, 8, 16, 63, 128))):
+            w = {"qs": torch.randint(0, 256, (n, k // 2), dtype=torch.uint8, device=device,
+                                     generator=gen),
+                 "qh": torch.randint(0, 256, (n, k // 8), dtype=torch.uint8, device=device,
+                                     generator=gen),
+                 "d": torch.rand((n, k // 32), device=device, generator=gen) * 1e-2,
+                 "m": torch.rand((n, k // 32), device=device, generator=gen) * -0.1}
+            fields = [w[f] for f in dispatch.FIELDS[qtype]]
+            w_dense = getattr(qmm_legacy, f"dequant_{name}")(*fields)
+            for m in ms:
+                check_f32(timer, results, f"K8 {qtype.name}", kern,
+                          lambda x: fn(x, *fields), lambda x: plain(x, *fields),
+                          torch.randn((m, k), device=device, generator=gen), w_dense,
+                          n * k * bpw / 8)
+            del w_dense
+
+
 def _sdpa(q, k, v, pos, scale, softcap):
     """The one PyTorch call for the same function (yardstick only)."""
     if softcap or k.dtype == torch.int8:
@@ -434,21 +469,33 @@ def k_m_type(base: GGMLType, name: str, layer: int | None, n_layer: int) -> GGML
 
 q4_k_m_type = functools.partial(k_m_type, GGMLType.Q4_K)
 
+
+def legacy_type(base: GGMLType, name: str, layer: int | None, n_layer: int) -> GGMLType:
+    """llama.cpp's tensor type for its legacy file types without an
+    importance matrix (LLAMA_FTYPE_MOSTLY_Q4_0, _Q4_1, _Q5_0, _Q5_1;
+    llama_tensor_get_type): output.weight is Q6_K, every other matrix,
+    token_embd included, is the base type."""
+    return GGMLType.Q6_K if name == "output" else base
+
+
 # file recipe → the type of each matrix; None: no output.weight, the head
-# is tied to token_embd. q4_0 is LLAMA_FTYPE_MOSTLY_Q4_0 without an
-# importance matrix: every matrix Q4_0, output.weight Q6_K.
+# is tied to token_embd
 RECIPES = {
     "q4_k": lambda name, layer, n_layer: None if name == "output" else GGMLType.Q4_K,
     "q4_k_m": q4_k_m_type,
     "q8_0": lambda name, layer, n_layer: GGMLType.Q8_0,
     "q5_k_m": functools.partial(k_m_type, GGMLType.Q5_K),
-    "q4_0": lambda name, layer, n_layer: GGMLType.Q6_K if name == "output" else GGMLType.Q4_0,
+    "q4_0": functools.partial(legacy_type, GGMLType.Q4_0),
+    "q4_1": functools.partial(legacy_type, GGMLType.Q4_1),
+    "q5_0": functools.partial(legacy_type, GGMLType.Q5_0),
+    "q5_1": functools.partial(legacy_type, GGMLType.Q5_1),
 }
 # the kernel each (type, route) takes (ops/cuda/dispatch.py)
 KERNEL_OF = {(GGMLType.Q4_K, "f32"): kernels.K1, (GGMLType.Q4_K, "i8"): kernels.K3,
              (GGMLType.Q6_K, "f32"): kernels.K4, (GGMLType.Q8_0, "f32"): kernels.K5,
              (GGMLType.Q8_0, "i8"): kernels.K5_I8, (GGMLType.Q4_0, "f32"): kernels.K6,
-             (GGMLType.Q4_0, "i8"): kernels.K6_I8, (GGMLType.Q5_K, "f32"): kernels.K7}
+             (GGMLType.Q4_0, "i8"): kernels.K6_I8, (GGMLType.Q5_K, "f32"): kernels.K7,
+             **{(t, "f32"): kern for t, kern, _ in LEGACY}}
 
 
 def _rand_u8(rng, shape):
@@ -461,7 +508,9 @@ def make_blocks(qtype: GGMLType, rng, n: int, k: int, random_scales: bool):
     (bench.py:88-152's recipe for Q4_K: sc=32, m=60, d=e, dmin=4e, e =
     1.356e-4; Q5_K sc=32, m=60, d=6.77e-5, dmin=5.60e-4, centring the 5-bit
     q of mean 15.5, std 9.23; Q6_K sc=16, d=6.77e-5; Q8_0 d=2.706e-4; Q4_0
-    d=4.34e-3, q − 8 having std 4.61); random_scales draws them instead."""
+    d=4.34e-3, q − 8 having std 4.61; Q4_1 d=4.34e-3, m=−7.5·d; Q5_0
+    d=2.17e-3, q − 16 having std 9.23; Q5_1 d=2.17e-3, m=−15.5·d);
+    random_scales draws them instead."""
     if qtype == GGMLType.Q5_K:
         b = np.zeros((n, k // 256), BLOCK_Q5_K)
         if random_scales:
@@ -479,6 +528,20 @@ def make_blocks(qtype: GGMLType, rng, n: int, k: int, random_scales: bool):
         b = np.zeros((n, k // 32), BLOCK_Q4_0)
         b["d"] = (rng.uniform(0.5, 1.5, (n, k // 32)) * 3e-2).astype(np.float16) \
             if random_scales else np.float16(4.34e-3)
+        b["qs"] = _rand_u8(rng, (n, k // 32, 16))
+    elif qtype in (GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1):
+        b = np.zeros((n, k // 32), {GGMLType.Q4_1: BLOCK_Q4_1, GGMLType.Q5_0: BLOCK_Q5_0,
+                                    GGMLType.Q5_1: BLOCK_Q5_1}[qtype])
+        centre = 7.5 if qtype == GGMLType.Q4_1 else 15.5     # the mean of q
+        d0 = 4.34e-3 if qtype == GGMLType.Q4_1 else 2.17e-3
+        d = (rng.uniform(0.5, 1.5, (n, k // 32)) * 7 * d0 if random_scales
+             else np.full((n, k // 32), d0)).astype(np.float16)
+        b["d"] = d
+        if "m" in b.dtype.names:
+            c = rng.uniform(centre - 1, centre + 1, d.shape) if random_scales else centre
+            b["m"] = (-c * d.astype(np.float32)).astype(np.float16)
+        if "qh" in b.dtype.names:
+            b["qh"] = _rand_u8(rng, (n, k // 32, 4))
         b["qs"] = _rand_u8(rng, (n, k // 32, 16))
     elif qtype == GGMLType.Q4_K:
         b = np.zeros((n, k // 256), BLOCK_Q4_K)
@@ -586,7 +649,7 @@ def main_path(device, n_layer: int, recipe: str) -> dict:
     cfg, params = llama.load(path, device=device)
     torch.cuda.synchronize()
     out["load_s"] = time.perf_counter() - t0
-    path.unlink()                    # the five 7B files together hold ~24 GB
+    path.unlink()                    # the eight 7B files together hold ~38 GB
     cfg = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
     leaves = ([params["wte"], params["out_norm"]] + [params[k] for k in ("lm_head",) if k in params]
               + [t for b in params["blocks"] for t in b.values()])
@@ -704,18 +767,22 @@ def small_model_check(device) -> dict:
     """The card's forward against the CPU's (plain versions) on a tiny
     model of each recipe, loaded from a GGUF with random scales and norm
     weights: f32 route
-    nmse < 1e-9, int8 route within its error class. The mixtures' n_ff of
+    nmse < 1e-9, int8 route within its error class (the 70-token prompts
+    of the recipes whose types have an int8 twin). The mixtures' n_ff of
     768 gives layer 0's Q4_K or Q5_K ffn_down and layer 1's Q6_K one an odd
-    superblock count."""
+    superblock count; the legacy 5-bit files' 768 gives ffn_down 24 blocks
+    per row, which the reference pads to 32."""
     res = {}
-    for recipe, n_ff in (("q4_k", 512), ("q4_k_m", 768), ("q8_0", 512), ("q5_k_m", 768),
-                         ("q4_0", 512)):
+    for recipe, n_ff, tol_70 in (("q4_k", 512, 2e-4), ("q4_k_m", 768, 2e-4),
+                                 ("q8_0", 512, 2e-4), ("q5_k_m", 768, 2e-4),
+                                 ("q4_0", 512, 2e-4), ("q4_1", 768, 1e-9),
+                                 ("q5_0", 768, 1e-9), ("q5_1", 768, 1e-9)):
         small = dict(n_vocab=512, n_ctx=256, n_embd=256, n_head=4, n_kv_head=2, n_ff=n_ff)
         path = ROOT / "build" / f"smoke_small_{recipe}.gguf"
         write_gguf(path, small, 2, recipe, random_scales=True)
         (cfg, pc), (_, pg) = llama.load(path, device="cpu"), llama.load(path, device=device)
         rng = np.random.default_rng(3)
-        for n_tok, tol in ((7, 1e-9), (70, 2e-4)):
+        for n_tok, tol in ((7, 1e-9), (70, tol_70)):
             toks = torch.from_numpy(rng.integers(0, 512, n_tok))
             with torch.inference_mode():
                 lc, _ = llama.forward(cfg, pc, toks, llama.make_cache(cfg, 128, device="cpu"), 0)
@@ -767,6 +834,7 @@ def main(argv=None) -> int:
     check_q8_0(device, timer, results)
     check_q4_0(device, timer, results)
     check_q5k(device, timer, results)
+    check_legacy(device, timer, results)
 
     small = small_model_check(device)
     log(f"small models card vs CPU: {small}")
@@ -803,7 +871,10 @@ def main(argv=None) -> int:
            "qmm_q8_0_i8": "M=128 N=11008 K=4096",
            "qmm_q4_0": "M=8 N=11008 K=4096",
            "qmm_q4_0_i8": "M=128 N=11008 K=4096",
-           "qmm_q5_K": "M=8 N=11008 K=4096"}
+           "qmm_q5_K": "M=8 N=11008 K=4096",
+           "qmm_q4_1": "M=8 N=11008 K=4096",
+           "qmm_q5_0": "M=8 N=11008 K=4096",
+           "qmm_q5_1": "M=8 N=11008 K=4096"}
     line = []
     for kern in kernels.KERNELS:
         rows = [r for r in results if r["kernel"] == kern.name]

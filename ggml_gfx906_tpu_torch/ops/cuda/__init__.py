@@ -38,7 +38,13 @@ K6_I8 = Kernel("qmm_q4_0_i8", "ggml_gfx906_tpu_torch/csrc/qmm_q4_0.cu",
                "ggml_gfx906_tpu/ops/pallas/qmm.py:704")
 K7 = Kernel("qmm_q5_K", "ggml_gfx906_tpu_torch/csrc/qmm_q5k.cu",
             "ggml_gfx906_tpu/ops/pallas/qmm.py:889")
-KERNELS = (K1, K2, K3, K4, K5, K5_I8, K6, K6_I8, K7)
+K8_Q4_1 = Kernel("qmm_q4_1", "ggml_gfx906_tpu_torch/csrc/qmm_legacy.cu",
+                 "ggml_gfx906_tpu/ops/pallas/qmm.py:935")
+K8_Q5_0 = Kernel("qmm_q5_0", "ggml_gfx906_tpu_torch/csrc/qmm_legacy.cu",
+                 "ggml_gfx906_tpu/ops/pallas/qmm.py:1017")
+K8_Q5_1 = Kernel("qmm_q5_1", "ggml_gfx906_tpu_torch/csrc/qmm_legacy.cu",
+                 "ggml_gfx906_tpu/ops/pallas/qmm.py:1028")
+KERNELS = (K1, K2, K3, K4, K5, K5_I8, K6, K6_I8, K7, K8_Q4_1, K8_Q5_0, K8_Q5_1)
 
 
 def reset_launches() -> None:

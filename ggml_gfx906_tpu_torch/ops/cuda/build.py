@@ -37,6 +37,9 @@ SIGNATURES = {
     "qmm_q4_0_f32": ("qmm_q4_0", [_P] * 4 + [_I, _I, _I, _P]),
     "qmm_q4_0_i8": ("qmm_q4_0", [_P] * 8 + [_I, _I, _I, _P]),
     "qmm_q5k_f32": ("qmm_q5k", [_P] * 6 + [_I, _I, _I, _P]),
+    "qmm_q4_1_f32": ("qmm_legacy", [_P] * 5 + [_I, _I, _I, _P]),
+    "qmm_q5_0_f32": ("qmm_legacy", [_P] * 5 + [_I, _I, _I, _P]),
+    "qmm_q5_1_f32": ("qmm_legacy", [_P] * 6 + [_I, _I, _I, _P]),
     "flash_attn_fwd": ("flash_attn", [_P] * 7 + [_I] * 6 + [_L, _L]
                        + [_F, _F, _F, _I, _P]),
 }

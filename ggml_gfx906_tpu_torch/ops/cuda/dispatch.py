@@ -2,17 +2,19 @@
 ggml_gfx906_tpu/ops/pallas/dispatch.py:54-85 does: a type with an int8
 twin (Q4_K → K3, Q8_0 → K5-i8, Q4_0 → K6-i8) takes it at M >= int8_min_m
 (> 0); every other M, and every M of a type without one (Q6_K → K4,
-Q5_K → K7), takes the f32 kernel (Q4_K → K1, Q8_0 → K5, Q4_0 → K6)."""
+Q5_K → K7, Q4_1 / Q5_0 / Q5_1 → K8), takes the f32 kernel (Q4_K → K1,
+Q8_0 → K5, Q4_0 → K6)."""
 from __future__ import annotations
 
 from ...quant.types import GGMLType
 from ...utils import config
-from . import qmm, qmm_q4_0, qmm_q5k, qmm_q6k, qmm_q8_0
+from . import qmm, qmm_legacy, qmm_q4_0, qmm_q5k, qmm_q6k, qmm_q8_0
 
 # the QuantTensor fields of each ported type, in the order its kernels take them
 FIELDS = {GGMLType.Q4_K: ("qs", "scm", "dd"), GGMLType.Q6_K: ("ql", "qh", "sc", "d"),
           GGMLType.Q8_0: ("qs", "d"), GGMLType.Q4_0: ("qs", "d"),
-          GGMLType.Q5_K: ("qs", "qh", "scm", "dd")}
+          GGMLType.Q5_K: ("qs", "qh", "scm", "dd"), GGMLType.Q4_1: ("qs", "d", "m"),
+          GGMLType.Q5_0: ("qs", "qh", "d"), GGMLType.Q5_1: ("qs", "qh", "d", "m")}
 _KERNELS = {
     (GGMLType.Q4_K, "f32"): qmm.qmm_q4_K,
     (GGMLType.Q4_K, "i8"): qmm.qmm_q4_K_i8,
@@ -22,6 +24,9 @@ _KERNELS = {
     (GGMLType.Q4_0, "f32"): qmm_q4_0.qmm_q4_0,
     (GGMLType.Q4_0, "i8"): qmm_q4_0.qmm_q4_0_i8,
     (GGMLType.Q5_K, "f32"): qmm_q5k.qmm_q5_K,
+    (GGMLType.Q4_1, "f32"): qmm_legacy.qmm_q4_1,
+    (GGMLType.Q5_0, "f32"): qmm_legacy.qmm_q5_0,
+    (GGMLType.Q5_1, "f32"): qmm_legacy.qmm_q5_1,
 }
 KERNEL_TYPES = set(FIELDS)
 INT8_TYPES = {t for t, r in _KERNELS if r == "i8"}

@@ -1,0 +1,111 @@
+"""Q4_1, Q5_0 and Q5_1 matmul kernel K8 (f32, every M: none of the three
+has an int8 twin).
+
+Kernel source: csrc/qmm_legacy.cu (fuller notes there). One template over
+the two optional fields, three entry points:
+
+- `qmm_q4_1` replaces ggml_gfx906_tpu/ops/pallas/qmm.py::qmm_q4_1;
+- `qmm_q5_0` replaces ggml_gfx906_tpu/ops/pallas/qmm.py::qmm_q5_0;
+- `qmm_q5_1` replaces ggml_gfx906_tpu/ops/pallas/qmm.py::qmm_q5_1.
+
+Bound on the H100: bytes at decode — the weights (6 bits per weight for
+Q4_1 and Q5_0, 7 for Q5_1) are read once. Design: K6's — each lane reads
+half a 32-element block (8 qs bytes, and for Q5 the block's qh word) of
+every 512-element span, forms f32 weights in registers and FMAs them
+against up to 8 activation rows; a fixed xor-shuffle reduction per output.
+
+Weight layout (ggml wire order, struct of arrays; see ops/quantized.py):
+qs (N, K/2) u8, qh (N, K/8) u8 (Q5 only: four wire bytes per block), d (N,
+K/32) f32, m (N, K/32) f32 (Q4_1 and Q5_1 only). The block axis is not
+padded: the reference's pad to a multiple of 32 blocks (qmm.py:981-1004)
+serves its 32-block chunks, which the port does not have.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...quant import dequant_math as dqm
+from . import K8_Q4_1, K8_Q5_0, K8_Q5_1, build
+from .qmm import aligned_x, check_cuda, check_shapes, check_x
+
+# field → (elements of K per byte or value, dtype)
+_FIELD = {"qs": (2, torch.uint8), "qh": (8, torch.uint8),
+          "d": (32, torch.float32), "m": (32, torch.float32)}
+
+
+def _check(x, **fields) -> None:
+    """x is (M, K) with K % 256 == 0, and every field is at its shape for K."""
+    _, k = check_x(x, 256)
+    n = fields["qs"].shape[0]
+    check_shapes({f: (t, (n, k // _FIELD[f][0]), _FIELD[f][1]) for f, t in fields.items()})
+
+
+def _blocks(t, width):
+    return t.reshape(t.shape[0], -1, width)
+
+
+def dequant_q4_1(qs, d, m):
+    """Dense (N, K) f32 weights, bit-identical to ggml's dequantization."""
+    return dqm.dequant_q4_1(d, m, _blocks(qs, 16)).reshape(qs.shape[0], -1)
+
+
+def dequant_q5_0(qs, qh, d):
+    """Dense (N, K) f32 weights, bit-identical to ggml's dequantization."""
+    return dqm.dequant_q5_0(d, _blocks(qh, 4), _blocks(qs, 16)).reshape(qs.shape[0], -1)
+
+
+def dequant_q5_1(qs, qh, d, m):
+    """Dense (N, K) f32 weights, bit-identical to ggml's dequantization."""
+    return dqm.dequant_q5_1(d, m, _blocks(qh, 4), _blocks(qs, 16)).reshape(qs.shape[0], -1)
+
+
+def qmm_q4_1_plain(x, qs, d, m):
+    """Plain PyTorch K8 (Q4_1): dequantize, then one f32 product (TF32 off)."""
+    return x.float() @ dequant_q4_1(qs, d, m).T
+
+
+def qmm_q5_0_plain(x, qs, qh, d):
+    """Plain PyTorch K8 (Q5_0): dequantize, then one f32 product (TF32 off)."""
+    return x.float() @ dequant_q5_0(qs, qh, d).T
+
+
+def qmm_q5_1_plain(x, qs, qh, d, m):
+    """Plain PyTorch K8 (Q5_1): dequantize, then one f32 product (TF32 off)."""
+    return x.float() @ dequant_q5_1(qs, qh, d, m).T
+
+
+def _launch(fn: str, kernel, x, *fields):
+    """Launch one entry point of K8 on CUDA operands (qs first)."""
+    rows, k = x.shape
+    n = fields[0].shape[0]
+    x = aligned_x(x)
+    y = torch.empty((rows, n), dtype=torch.float32, device=fields[0].device)
+    check_cuda(x, *fields)
+    build.call(fn, x.data_ptr(), *(f.data_ptr() for f in fields), y.data_ptr(),
+               rows, n, k, torch.cuda.current_stream(fields[0].device).cuda_stream)
+    kernel.launches += 1
+    return y
+
+
+def qmm_q4_1(x, qs, d, m):
+    """x (M, K) @ W(N, K).T → (M, N) f32, W in the port's Q4_1 layout."""
+    _check(x, qs=qs, d=d, m=m)
+    if not qs.is_cuda:
+        return qmm_q4_1_plain(x, qs, d, m)
+    return _launch("qmm_q4_1_f32", K8_Q4_1, x, qs, d, m)
+
+
+def qmm_q5_0(x, qs, qh, d):
+    """x (M, K) @ W(N, K).T → (M, N) f32, W in the port's Q5_0 layout."""
+    _check(x, qs=qs, qh=qh, d=d)
+    if not qs.is_cuda:
+        return qmm_q5_0_plain(x, qs, qh, d)
+    return _launch("qmm_q5_0_f32", K8_Q5_0, x, qs, qh, d)
+
+
+def qmm_q5_1(x, qs, qh, d, m):
+    """x (M, K) @ W(N, K).T → (M, N) f32, W in the port's Q5_1 layout."""
+    _check(x, qs=qs, qh=qh, d=d, m=m)
+    if not qs.is_cuda:
+        return qmm_q5_1_plain(x, qs, qh, d, m)
+    return _launch("qmm_q5_1_f32", K8_Q5_1, x, qs, qh, d, m)

@@ -1,16 +1,25 @@
 """Quantized weights on the device and the matmuls over them.
 
 The counterpart of ggml_gfx906_tpu/ops/quantized.py for the types the port
-has kernels for: Q4_0, Q4_K, Q5_K, Q6_K and Q8_0 — the types of llama.cpp's
-Q4_K_M and Q5_K_M mixtures and of its Q8_0 and Q4_0 files. A QuantTensor
+has kernels for: Q4_0, Q4_1, Q5_0, Q5_1, Q4_K, Q5_K, Q6_K and Q8_0 — the
+types of llama.cpp's Q4_K_M and Q5_K_M mixtures and of its Q8_0, Q4_0,
+Q4_1, Q5_0 and Q5_1 files. A QuantTensor
 keeps ggml's block fields as separate tensors (struct of arrays), one row
 of blocks per weight row. The port keeps ggml's wire byte order for the
 quants — the reference's lane-interleaved "kernel" layouts (qmm.py:9-22,
-139-155, 428-434, 471-478, 781-801, 854-878) exist for the TPU's 128-lane
-tiles — with f32 block scales:
+139-155, 428-434, 471-478, 781-801, 854-878, 923-932, 981-1004) exist for
+the TPU's 128-lane tiles — with f32 block scales and mins:
 
     Q4_0  qs  (N, K/2)   u8   packed nibbles, wire order
           d   (N, K/32)  f32                                5 bits/weight
+    Q4_1  qs, d               as Q4_0
+          m   (N, K/32)  f32  one min per block             6 bits/weight
+    Q5_0  qs, d               as Q4_0
+          qh  (N, K/8)   u8   fifth bits: the block's four
+                              wire bytes (a little-endian
+                              word, bit j ↔ element j)      6 bits/weight
+    Q5_1  qs, qh, d           as Q5_0
+          m   (N, K/32)  f32  one min per block             7 bits/weight
     Q4_K  qs  (N, K/2)   u8   packed nibbles, wire order
           scm (N, K/16)  u8   per superblock [sc0..sc7 | m0..m7] (6-bit)
           dd  (N, K/128) f32  per superblock [d, dmin]      4.75 bits/weight
@@ -40,18 +49,23 @@ from ..quant.dequant_math import unpack_scale_min_k4
 from ..quant.types import GGMLType, TYPE_TRAITS
 from .cuda import dispatch
 from .cuda import qmm as _qmm
+from .cuda import qmm_legacy as _qmm_legacy
 from .cuda import qmm_q4_0 as _qmm_q4_0
 from .cuda import qmm_q5k as _qmm_q5k
 from .cuda import qmm_q6k as _qmm_q6k
 from .cuda import qmm_q8_0 as _qmm_q8_0
 
-# the K multiple each ported type's layout and kernels take (Q4_0 and Q5_K
-# at 256, as the reference takes its kernel layout only at K % 256 == 0)
+# the K multiple each ported type's layout and kernels take (Q4_0, Q4_1,
+# Q5_0, Q5_1 and Q5_K at 256, as the reference takes its kernel layout only
+# at K % 256 == 0)
 _K_MULT = {GGMLType.Q4_K: 256, GGMLType.Q6_K: 256, GGMLType.Q8_0: 128,
-           GGMLType.Q4_0: 256, GGMLType.Q5_K: 256}
+           GGMLType.Q4_0: 256, GGMLType.Q5_K: 256, GGMLType.Q4_1: 256,
+           GGMLType.Q5_0: 256, GGMLType.Q5_1: 256}
 _DEQUANT = {GGMLType.Q4_K: _qmm.dequant, GGMLType.Q6_K: _qmm_q6k.dequant,
             GGMLType.Q8_0: _qmm_q8_0.dequant, GGMLType.Q4_0: _qmm_q4_0.dequant,
-            GGMLType.Q5_K: _qmm_q5k.dequant}
+            GGMLType.Q5_K: _qmm_q5k.dequant, GGMLType.Q4_1: _qmm_legacy.dequant_q4_1,
+            GGMLType.Q5_0: _qmm_legacy.dequant_q5_0,
+            GGMLType.Q5_1: _qmm_legacy.dequant_q5_1}
 
 
 def _wire_fields(qtype: GGMLType, raw: torch.Tensor) -> dict:
@@ -71,8 +85,13 @@ def _wire_fields(qtype: GGMLType, raw: torch.Tensor) -> dict:
     if qtype == GGMLType.Q6_K:
         return {"ql": take("ql", 128), "qh": take("qh", 64),
                 "sc": take("scales", 16).view(torch.int8), "d": f16("d")}
-    if qtype == GGMLType.Q4_0:
-        return {"qs": take("qs", 16), "d": f16("d")}
+    if qtype in (GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1):
+        out = {"qs": take("qs", 16), "d": f16("d")}
+        if "qh" in off:
+            out["qh"] = take("qh", 4)
+        if "m" in off:
+            out["m"] = f16("m")
+        return out
     return {"qs": take("qs", 32).view(torch.int8), "d": f16("d")}     # Q8_0
 
 
@@ -121,6 +140,26 @@ def _from_reference_fields(qtype: GGMLType, n: int, k: int, f: dict) -> dict:
         # (qmm.py:471-478)
         qs = f["qs"].reshape(n, k // 256, 16, 8).transpose(0, 1, 3, 2)
         return {"qs": qs.astype(np.uint8), "d": f["d"].astype(np.float32)}
+    if qtype == GGMLType.Q4_1:
+        # Q4_0's byte lanes, plus the per-block min (qmm.py:923-932)
+        qs = f["qs"].reshape(n, k // 256, 16, 8).transpose(0, 1, 3, 2)
+        return {"qs": qs.astype(np.uint8), "d": f["d"].astype(np.float32),
+                "m": f["m"].astype(np.float32)}
+    if qtype in (GGMLType.Q5_0, GGMLType.Q5_1):
+        # chunks of 32 blocks (b = 8t + b'), the block axis zero-padded to a
+        # multiple of 32; per chunk qs lane (t, jj, kk, b') ↔ wire byte
+        # 8kk + jj, qh lane (t, h, kk, b') ↔ wire byte 2h + kk (qmm.py:
+        # 981-1004; the same inverse as ops/quantized.py:194-212)
+        nb = k // 32
+        ch = f["qs"].shape[1] // 512
+        qs = f["qs"].reshape(n, ch, 4, 8, 2, 8).transpose(0, 1, 2, 5, 4, 3)
+        qh = f["qh"].reshape(n, ch, 4, 2, 2, 8).transpose(0, 1, 2, 5, 3, 4)
+        cut = lambda a: a.reshape(n, 32 * ch, -1)[:, :nb]  # noqa: E731
+        out = {"qs": cut(qs).astype(np.uint8), "qh": cut(qh).astype(np.uint8),
+               "d": f["d"][:, :nb].astype(np.float32)}
+        if qtype == GGMLType.Q5_1:
+            out["m"] = f["m"][:, :nb].astype(np.float32)
+        return out
     # Q8_0: byte lane 4*j + b of a 128-tile ↔ element 32*b + j (qmm.py:428-434)
     qs = f["qs"].reshape(n, k // 128, 32, 4).transpose(0, 1, 3, 2)
     return {"qs": qs.astype(np.int8), "d": f["d"].astype(np.float32)}
@@ -176,7 +215,8 @@ class QuantTensor:
     def from_reference_kernel_layout(cls, qtype: GGMLType, shape, fields: dict,
                                      device) -> "QuantTensor":
         """From the JAX package's "kernel" layout (Q4_K qmm.py:139-155, Q6_K
-        :781-801, Q8_0 :428-434, Q4_0 :471-478, Q5_K :854-878) as numpy."""
+        :781-801, Q8_0 :428-434, Q4_0 :471-478, Q5_K :854-878, Q4_1
+        :923-932, Q5_0 and Q5_1 :981-1004) as numpy."""
         n, k = cls._check(qtype, shape)
         port = _from_reference_fields(qtype, n, k,
                                       {f: np.asarray(a) for f, a in fields.items()})

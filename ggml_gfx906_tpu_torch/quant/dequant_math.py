@@ -1,12 +1,15 @@
-"""Q4_0, Q4_K, Q5_K, Q6_K and Q8_0 unpack and dequantization as torch
-functions.
+"""Q4_0, Q4_1, Q5_0, Q5_1, Q4_K, Q5_K, Q6_K and Q8_0 unpack and
+dequantization as torch functions.
 
-The counterpart of ggml_gfx906_tpu/quant/dequant_math.py:25-31, 71-73,
-85-141, which is written against an `xp` array module that torch does not
+The counterpart of ggml_gfx906_tpu/quant/dequant_math.py:19-73, 85-141,
+which is written against an `xp` array module that torch does not
 satisfy. The arithmetic is the same, step for step, so the f32 results are
 bit-identical to the JAX package's and to ggml's dequantize_row_*:
 
 - Q4_0: w = (q − 8)·d; q − 8 is exact, so the one product rounds once;
+- Q4_1, Q5_1: w = q·d + m; q (at most 5 bits) times d (an f16) is exact in
+  f32, so w rounds once, at the sum, fused or not;
+- Q5_0: w = (q − 16)·d, exact in f32;
 - Q4_K: w = q·(d·sc) − dmin·m, each product and the difference rounded
   separately (never fused);
 - Q5_K: as Q4_K with a fifth bit; d·sc, q·(d·sc) and dmin·m are all exact
@@ -38,6 +41,45 @@ def dequant_q4_0(d, qs) -> torch.Tensor:
     lo = (qs & 0xF).float() - 8.0
     hi = (qs >> 4).float() - 8.0
     y = torch.cat([lo, hi], dim=-1) * d.float()[..., None]
+    return y.reshape(*y.shape[:-2], -1)
+
+
+def dequant_q4_1(d, m, qs) -> torch.Tensor:
+    """d/m: (..., nb) f16/f32, qs: (..., nb, 16) u8 → (..., nb*32) f32, in
+    Q4_0's byte order."""
+    q = torch.cat([(qs & 0xF).float(), (qs >> 4).float()], dim=-1)
+    y = q * d.float()[..., None] + m.float()[..., None]
+    return y.reshape(*y.shape[:-2], -1)
+
+
+def _q5_high_bits(qh) -> torch.Tensor:
+    """(..., nb, 4) u8 → (..., nb, 32) u8: element j's fifth bit at bit 4.
+    The four bytes are one little-endian word whose bit j belongs to element
+    j (the low nibbles of qs[j] for j < 16, the high nibbles of qs[j − 16]
+    above); assembled byte by byte, as u32_from_bytes does, in int64 so that
+    bit 31 does not sign-extend."""
+    b = qh.to(torch.int64)
+    word = b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
+    j = torch.arange(32, dtype=torch.int64, device=qh.device)
+    return (((word[..., None] >> j) & 1) << 4).to(torch.uint8)
+
+
+def dequant_q5_0(d, qh, qs) -> torch.Tensor:
+    """d: (..., nb) f16/f32, qh: (..., nb, 4) u8, qs: (..., nb, 16) u8 →
+    (..., nb*32) f32."""
+    xh = _q5_high_bits(qh)
+    lo = ((qs & 0xF) | xh[..., :16]).to(torch.int32) - 16
+    hi = ((qs >> 4) | xh[..., 16:]).to(torch.int32) - 16
+    y = torch.cat([lo, hi], dim=-1).float() * d.float()[..., None]
+    return y.reshape(*y.shape[:-2], -1)
+
+
+def dequant_q5_1(d, m, qh, qs) -> torch.Tensor:
+    """d/m: (..., nb) f16/f32, qh: (..., nb, 4) u8, qs: (..., nb, 16) u8 →
+    (..., nb*32) f32."""
+    xh = _q5_high_bits(qh)
+    q = torch.cat([(qs & 0xF) | xh[..., :16], (qs >> 4) | xh[..., 16:]], dim=-1)
+    y = q.float() * d.float()[..., None] + m.float()[..., None]
     return y.reshape(*y.shape[:-2], -1)
 
 

@@ -1,10 +1,12 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py): the
 same numpy inputs go through the JAX package and its PyTorch port."""
+import jax.numpy as jnp
 import numpy as np
 import torch
 
 from ggml_gfx906_tpu.models import llama as jllama
 from ggml_gfx906_tpu.ops.quantized import QuantTensor as JQuantTensor
+from ggml_gfx906_tpu.quant import quantize
 from ggml_gfx906_tpu.quant.types import GGMLType
 
 
@@ -54,3 +56,102 @@ def tiny_models(qtype=GGMLType.Q4_K, seed: int = 0, n_ctx: int = 128):
     jp = jllama.random_params(jcfg, seed=seed, qtype=qtype)
     tp = tllama.params_from_numpy(jax_params_to_numpy(jp), device="cpu")
     return jcfg, jp, port_cfg(jcfg), tp
+
+
+# ---------------------------------------------------- llama file recipes
+# A recipe maps (GGUF tensor name, layer or None, n_layer) to the tensor's
+# type, as chip_smoke.RECIPES does for llama.cpp's file types.
+
+PER_BLOCK = (("wq", "attn_q"), ("wk", "attn_k"), ("wv", "attn_v"),
+             ("wo", "attn_output"), ("w_gate", "ffn_gate"), ("w_up", "ffn_up"),
+             ("w_down", "ffn_down"))
+
+
+def recipe_cfg(n_ff: int, n_layer: int = 2, n_ctx: int = 128):
+    """A tiny GQA llama whose matrix widths are multiples of 256."""
+    return jllama.LlamaConfig(n_vocab=256, n_ctx=n_ctx, n_embd=256, n_head=4,
+                              n_kv_head=2, n_layer=n_layer, n_ff=n_ff)
+
+
+def recipe_matrices(cfg):
+    """(port/JAX param key, GGUF name, layer, rows, cols) of every matrix."""
+    D, V, FF = cfg.n_embd, cfg.n_vocab, cfg.n_ff
+    KVD = cfg.n_kv_head * cfg.head_dim
+    shapes = {"attn_q": (D, D), "attn_k": (KVD, D), "attn_v": (KVD, D),
+              "attn_output": (D, D), "ffn_gate": (FF, D), "ffn_up": (FF, D),
+              "ffn_down": (D, FF)}
+    yield "wte", "token_embd", None, V, D
+    yield "lm_head", "output", None, V, D
+    for i in range(cfg.n_layer):
+        for key, name in PER_BLOCK:
+            yield key, name, i, *shapes[name]
+
+
+def recipe_weights(recipe, cfg, seed=0):
+    """{(key, layer): (qtype, f32 matrix)} at ~N(0, 0.02), the recipe's types."""
+    rng = np.random.default_rng(seed)
+    return {(key, layer): (recipe(name, layer, cfg.n_layer),
+                           (rng.standard_normal((r, c)) * 0.02).astype(np.float32))
+            for key, name, layer, r, c in recipe_matrices(cfg)}
+
+
+def recipe_jax_params(cfg, weights):
+    """The JAX package's params of `weights` (quantized by its codecs), with
+    norm weights of ones."""
+    D = cfg.n_embd
+    q = {k: JQuantTensor.quantize(t, w) for k, (t, w) in weights.items()}
+    return {"wte": q[("wte", None)], "lm_head": q[("lm_head", None)],
+            "out_norm": jnp.ones((D,)),
+            "blocks": [dict({key: q[(key, i)] for key, _ in PER_BLOCK},
+                            attn_norm=jnp.ones((D,)), ffn_norm=jnp.ones((D,)))
+                       for i in range(cfg.n_layer)]}
+
+
+def param_types(params):
+    """{"wte" | "lm_head" | "<key>.<layer>": GGMLType} of a params tree of
+    either package."""
+    leaves = {"wte": params["wte"], "lm_head": params["lm_head"]}
+    for i, b in enumerate(params["blocks"]):
+        leaves.update({f"{k}.{i}": v for k, v in b.items() if k in dict(PER_BLOCK)})
+    return {k: GGMLType(int(v.qtype)) for k, v in leaves.items()}
+
+
+def recipe_logits(jcfg, jp, tcfg, tp, toks, max_seq: int = 128):
+    """(port logits, JAX logits) of one prefill of `toks` (numpy int32). The
+    reference runs jitted, as its generate does, which shares the compile
+    with a generate prefill of the same length."""
+    from ggml_gfx906_tpu_torch.models import llama as tllama
+
+    ref, _ = jllama.forward_jit(jcfg, jp, jnp.asarray(toks), jllama.make_cache(jcfg, max_seq),
+                                jnp.int32(0))
+    got, _ = tllama.forward(tcfg, tp, torch.from_numpy(toks.astype(np.int64)),
+                            tllama.make_cache(tcfg, max_seq, device="cpu"), 0)
+    return got.numpy(), np.asarray(ref)
+
+
+def write_recipe_gguf(path, cfg, weights, seed: int = 5):
+    """A llama GGUF of `weights` (blocks from the reference's quantizers),
+    written by the port's writer, with norm weights 1 + N(0, 0.1)."""
+    from ggml_gfx906_tpu_torch.gguf import GGUFWriter
+
+    w = GGUFWriter()
+    A = "llama"
+    w.set("general.architecture", A)
+    for key, val in (("context_length", cfg.n_ctx), ("embedding_length", cfg.n_embd),
+                     ("attention.head_count", cfg.n_head),
+                     ("attention.head_count_kv", cfg.n_kv_head),
+                     ("block_count", cfg.n_layer), ("feed_forward_length", cfg.n_ff)):
+        w.set(f"{A}.{key}", val)
+    w.set(f"{A}.attention.layer_norm_rms_epsilon", 1e-5)
+    for key, name, layer, r, c in recipe_matrices(cfg):
+        qtype, a = weights[(key, layer)]
+        gname = f"{name}.weight" if layer is None else f"blk.{layer}.{name}.weight"
+        w.add_tensor(gname, (c, r), qtype, quantize(qtype, a).reshape(-1).view(np.uint8))
+    rng = np.random.default_rng(seed)
+    w.add_array_tensor("output_norm.weight",
+                       (1 + 0.1 * rng.standard_normal(cfg.n_embd)).astype(np.float32))
+    for i in range(cfg.n_layer):
+        for nm in ("attn_norm", "ffn_norm"):
+            w.add_array_tensor(f"blk.{i}.{nm}.weight",
+                               (1 + 0.1 * rng.standard_normal(cfg.n_embd)).astype(np.float32))
+    w.write(path)
