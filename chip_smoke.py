@@ -10,26 +10,33 @@ Phases (each failure raises, so the script exits non-zero):
   3. kernels: K1 (Q4_K f32 matmul), K3 (Q4_K int8 matmul), K2 (causal
      flash attention), K4 (Q6_K f32 matmul), K5 (Q8_0 f32 matmul), K5-i8
      (Q8_0 int8 matmul), K6 (Q4_0 f32 matmul), K6-i8 (Q4_0 int8 matmul),
-     K7 (Q5_K f32 matmul) and K8 (Q4_1, Q5_0 and Q5_1 f32 matmuls)
+     K7 (Q5_K f32 matmul), K8 (Q4_1, Q5_0 and Q5_1 f32 matmuls), K9 (Q2_K
+     and Q3_K f32 matmuls) and K10 (the pipelined M = 1 Q4_K matvec)
      against their plain PyTorch versions at the main paths' shapes, each
      timed with CUDA events beside its plain version, its library
      yardstick and its bound;
   4. a small-model check of the card's forward against the CPU's, for a
-     tiny Q4_K, Q4_K_M-mixture, Q8_0, Q5_K_M-mixture, Q4_0, Q4_1, Q5_0 and
-     Q5_1 model;
-  5. eight main paths at full llama-7B width, one GGUF each (random but
+     tiny Q4_K, Q4_K_M-mixture, Q8_0, Q5_K_M-mixture, Q4_0, Q4_1, Q5_0,
+     Q5_1, Q2_K-mixture and Q3_K_M-mixture model;
+  5. ten main paths at full llama-7B width, one GGUF each (random but
      valid blocks, constructed scales; written under build/ and removed
      after its path): pure Q4_K with the head tied to token_embd;
      llama.cpp's Q4_K_M and Q5_K_M mixtures (Q4_K or Q5_K, with Q6_K in
-     output.weight and in attn_v/ffn_down of 16 of 32 layers); Q8_0
-     throughout; and Q4_0, Q4_1, Q5_0 and Q5_1 with a Q6_K head. Each
-     loads its file to the card, runs `generate`,
-     serves 8+1 requests through `Engine`, asserts engine streams ==
+     output.weight and in attn_v/ffn_down of half the layers); Q8_0
+     throughout; Q4_0, Q4_1, Q5_0 and Q5_1 with a Q6_K head; and
+     llama.cpp's Q2_K and Q3_K_M mixtures (Q2_K or Q3_K, with Q3_K, Q4_K
+     or Q5_K in attn_v, attn_output and ffn_down and a Q6_K head). The
+     Q4_K, Q2_K and Q3_K_M files run at 32 layers (--layers), the other
+     seven at SHORT_LAYERS = 8. Each loads its file to the card, runs
+     `generate`, serves 8+1 requests through `Engine`, asserts engine streams ==
      single-sequence `generate` streams, that its kernels launched as many
      times per decode step and per 128-token prefill chunk as its tensor
      types predict, and traces one decode step and one 8-slot engine decode
-     step with torch.profiler for the device-busy share. The launch counts
-     are set to 0 just before each path and read just after it.
+     step with torch.profiler for the device-busy share. The Q4_K file
+     then decodes again with qmm_pipeline="on" (K10 in place of K1),
+     traced, with one step's logits held against the flag off within the
+     int8 route's distance from them. The launch counts are set to 0 just
+     before each path (and the K10 phase) and read just after it.
 Detailed results go to DIR/chip_smoke.json (default build/). The second-to-last
 stdout line is {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -53,13 +60,15 @@ from ggml_gfx906_tpu_torch.gguf import GGUFWriter
 from ggml_gfx906_tpu_torch.models import llama
 from ggml_gfx906_tpu_torch.ops import cuda as kernels
 from ggml_gfx906_tpu_torch.ops.cuda import (build, dispatch, flash_attn, qmm, qmm_legacy,
-                                            qmm_q4_0, qmm_q5k, qmm_q6k, qmm_q8_0)
+                                            qmm_pipe, qmm_q4_0, qmm_q5k, qmm_q6k, qmm_q8_0,
+                                            qmm_q23k)
 from ggml_gfx906_tpu_torch.ops.quantized import QuantTensor
-from ggml_gfx906_tpu_torch.quant.kquants import pack_scale_min_k4
-from ggml_gfx906_tpu_torch.quant.types import (BLOCK_Q4_0, BLOCK_Q4_1, BLOCK_Q4_K, BLOCK_Q5_0,
-                                               BLOCK_Q5_1, BLOCK_Q5_K, BLOCK_Q6_K, BLOCK_Q8_0,
-                                               GGMLType)
+from ggml_gfx906_tpu_torch.quant.kquants import pack_q3_scales, pack_scale_min_k4
+from ggml_gfx906_tpu_torch.quant.types import (BLOCK_Q2_K, BLOCK_Q3_K, BLOCK_Q4_0, BLOCK_Q4_1,
+                                               BLOCK_Q4_K, BLOCK_Q5_0, BLOCK_Q5_1, BLOCK_Q5_K,
+                                               BLOCK_Q6_K, BLOCK_Q8_0, GGMLType)
 from ggml_gfx906_tpu_torch.runtime.engine import Engine
+from ggml_gfx906_tpu_torch.utils import config
 
 ROOT = Path(__file__).resolve().parent
 # H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s and op/s
@@ -356,6 +365,52 @@ def check_legacy(device, timer, results):
             del w_dense
 
 
+# K9's types: (type, kernel, bits per weight in the port's layout)
+Q23K = ((GGMLType.Q2_K, kernels.K9_Q2_K, 2.75), (GGMLType.Q3_K, kernels.K9_Q3_K, 3.625))
+
+
+def check_q23k(device, timer, results):
+    """K9's two entry points at every matrix shape of the Q2_K and Q3_K_M
+    files that their types take (the 11008-wide ffn_down has 43
+    superblocks per row, an odd count), at decode, 8-slot and 128-row
+    prefill M (neither type has an int8 twin)."""
+    gen = torch.Generator(device=device).manual_seed(9)
+    for qtype, kern, bpw in Q23K:
+        name = qtype.name[:2].lower() + "_K"
+        fn, plain = getattr(qmm_q23k, f"qmm_{name}"), getattr(qmm_q23k, f"qmm_{name}_plain")
+        for n, k in ((4096, 4096), (11008, 4096), (4096, 11008)):
+            rand_u8 = lambda cols: torch.randint(0, 256, (n, cols), dtype=torch.uint8,  # noqa: E731
+                                                 device=device, generator=gen)
+            w = {"qs": rand_u8(k // 4), "scales": rand_u8(k // 16), "hmask": rand_u8(k // 8),
+                 "sc": torch.randint(-32, 32, (n, k // 16), dtype=torch.int8, device=device,
+                                     generator=gen),
+                 "d": torch.rand((n, k // 256), device=device, generator=gen) * 1e-3,
+                 "dmin": torch.rand((n, k // 256), device=device, generator=gen) * 1e-3}
+            fields = [w[f] for f in dispatch.FIELDS[qtype]]
+            w_dense = getattr(qmm_q23k, f"dequant_{name}")(*fields)
+            for m in (1, 8, 128):
+                check_f32(timer, results, f"K9 {qtype.name}", kern,
+                          lambda x: fn(x, *fields), lambda x: plain(x, *fields),
+                          torch.randn((m, k), device=device, generator=gen), w_dense,
+                          n * k * bpw / 8)
+            del w_dense
+
+
+def check_pipe(device, timer, results):
+    """K10 at M = 1 on every matrix shape of the Q4_K file (the head tied to
+    token_embd included), x in f32 so that its bf16 rounding is exercised."""
+    gen = torch.Generator(device=device).manual_seed(10)
+    for n, k in QMM_SHAPES:
+        qs, scm, dd = random_q4k(n, k, device, gen)
+        w_dense = qmm.dequant(qs, scm, dd)
+        check_f32(timer, results, "K10", kernels.K10,
+                  lambda x: qmm_pipe.qmm_q4_K_pipelined(x, qs, scm, dd),
+                  lambda x: qmm_pipe.qmm_q4_K_pipelined_plain(x, qs, scm, dd),
+                  torch.randn((1, k), device=device, generator=gen), w_dense,
+                  n * k * 4.75 / 8)
+        del w_dense
+
+
 def _sdpa(q, k, v, pos, scale, softcap):
     """The one PyTorch call for the same function (yardstick only)."""
     if softcap or k.dtype == torch.int8:
@@ -478,6 +533,33 @@ def legacy_type(base: GGMLType, name: str, layer: int | None, n_layer: int) -> G
     return GGMLType.Q6_K if name == "output" else base
 
 
+def q2_k_type(name: str, layer: int | None, n_layer: int) -> GGMLType:
+    """llama.cpp's tensor type for LLAMA_FTYPE_MOSTLY_Q2_K without an
+    importance matrix, for a llama with n_gqa = 1 (src/llama-quant.cpp,
+    llama_tensor_get_type): attn_v (Q4_K only from n_gqa >= 4), attn_output
+    and ffn_down are Q3_K; output.weight is Q6_K; every other matrix,
+    token_embd included, is Q2_K."""
+    if name == "output":
+        return GGMLType.Q6_K
+    return GGMLType.Q3_K if name in ("attn_v", "attn_output", "ffn_down") else GGMLType.Q2_K
+
+
+def q3_k_m_type(name: str, layer: int | None, n_layer: int) -> GGMLType:
+    """llama.cpp's tensor type for LLAMA_FTYPE_MOSTLY_Q3_K_M without an
+    importance matrix (llama_tensor_get_type): attn_v is Q5_K in its first
+    two layers (i_attention_wv < 2) and Q4_K after; attn_output is Q4_K;
+    ffn_down is Q5_K in the layers below n_layer / 16 and Q4_K after;
+    output.weight is Q6_K; every other matrix, token_embd included, is
+    Q3_K."""
+    if name == "output":
+        return GGMLType.Q6_K
+    if name == "attn_v":
+        return GGMLType.Q5_K if layer < 2 else GGMLType.Q4_K
+    if name == "ffn_down":
+        return GGMLType.Q5_K if layer < n_layer // 16 else GGMLType.Q4_K
+    return GGMLType.Q4_K if name == "attn_output" else GGMLType.Q3_K
+
+
 # file recipe → the type of each matrix; None: no output.weight, the head
 # is tied to token_embd
 RECIPES = {
@@ -489,13 +571,21 @@ RECIPES = {
     "q4_1": functools.partial(legacy_type, GGMLType.Q4_1),
     "q5_0": functools.partial(legacy_type, GGMLType.Q5_0),
     "q5_1": functools.partial(legacy_type, GGMLType.Q5_1),
+    "q2_k": q2_k_type,
+    "q3_k_m": q3_k_m_type,
 }
+# the recipes whose paths run at full depth (--layers); the others, whose
+# kernels the smoke has held at full depth since the PR that added them, at
+# SHORT_LAYERS, so that ten paths fit the smoke's time
+FULL_DEPTH = ("q4_k", "q2_k", "q3_k_m")
+SHORT_LAYERS = 8
 # the kernel each (type, route) takes (ops/cuda/dispatch.py)
 KERNEL_OF = {(GGMLType.Q4_K, "f32"): kernels.K1, (GGMLType.Q4_K, "i8"): kernels.K3,
              (GGMLType.Q6_K, "f32"): kernels.K4, (GGMLType.Q8_0, "f32"): kernels.K5,
              (GGMLType.Q8_0, "i8"): kernels.K5_I8, (GGMLType.Q4_0, "f32"): kernels.K6,
              (GGMLType.Q4_0, "i8"): kernels.K6_I8, (GGMLType.Q5_K, "f32"): kernels.K7,
-             **{(t, "f32"): kern for t, kern, _ in LEGACY}}
+             (GGMLType.Q4_K, "pipe"): kernels.K10,
+             **{(t, "f32"): kern for t, kern, _ in LEGACY + Q23K}}
 
 
 def _rand_u8(rng, shape):
@@ -509,9 +599,30 @@ def make_blocks(qtype: GGMLType, rng, n: int, k: int, random_scales: bool):
     1.356e-4; Q5_K sc=32, m=60, d=6.77e-5, dmin=5.60e-4, centring the 5-bit
     q of mean 15.5, std 9.23; Q6_K sc=16, d=6.77e-5; Q8_0 d=2.706e-4; Q4_0
     d=4.34e-3, q − 8 having std 4.61; Q4_1 d=4.34e-3, m=−7.5·d; Q5_0
-    d=2.17e-3, q − 16 having std 9.23; Q5_1 d=2.17e-3, m=−15.5·d);
+    d=2.17e-3, q − 16 having std 9.23; Q5_1 d=2.17e-3, m=−15.5·d; Q2_K
+    sc=8, m=12, d=dmin=2.236e-3, centring the 2-bit q of mean 1.5, std
+    1.118; Q3_K sc=8, d=1.091e-3, q − 4 of mean −0.5, std 2.291);
     random_scales draws them instead."""
-    if qtype == GGMLType.Q5_K:
+    if qtype == GGMLType.Q2_K:
+        b = np.zeros((n, k // 256), BLOCK_Q2_K)
+        if random_scales:
+            b["d"], b["dmin"] = np.float16(0.004), np.float16(0.006)
+            b["scales"] = _rand_u8(rng, (n, k // 256, 16))
+        else:
+            b["d"] = b["dmin"] = np.float16(2.236e-3)
+            b["scales"] = 8 | (12 << 4)
+        b["qs"] = _rand_u8(rng, (n, k // 256, 64))
+    elif qtype == GGMLType.Q3_K:
+        b = np.zeros((n, k // 256), BLOCK_Q3_K)
+        if random_scales:
+            b["d"] = np.float16(0.001)
+            b["scales"] = pack_q3_scales(rng.integers(-32, 32, (n, k // 256, 16)))
+        else:
+            b["d"] = np.float16(1.091e-3)
+            b["scales"] = pack_q3_scales(np.full(16, 8))
+        b["hmask"] = _rand_u8(rng, (n, k // 256, 32))
+        b["qs"] = _rand_u8(rng, (n, k // 256, 64))
+    elif qtype == GGMLType.Q5_K:
         b = np.zeros((n, k // 256), BLOCK_Q5_K)
         if random_scales:
             b["d"], b["dmin"] = np.float16(0.001), np.float16(0.015)
@@ -614,16 +725,17 @@ def write_gguf(path: Path, cfg: dict, n_layer: int, recipe: str,
 
 
 def expected_launches(recipe: str, n_layer: int, m: int) -> dict:
-    """Kernel launches of one forward over m tokens of the recipe's file:
-    one per matrix product (the head's type is token_embd's when tied; the
-    embedding is a row gather) and one K2 per layer."""
+    """Kernel launches of one forward over m tokens of the recipe's file on
+    the card, under the current config: one per matrix product (the head's
+    type is token_embd's when tied; the embedding is a row gather) and one
+    K2 per layer."""
     out = {kernels.K2.name: n_layer}
     types = RECIPES[recipe]
-    for name, layer, _, _ in _matrices(CFG_7B, n_layer):
+    for name, layer, r, c in _matrices(CFG_7B, n_layer):
         if name == "token_embd":
             continue
         qtype = types(name, layer, n_layer) or types("token_embd", None, n_layer)
-        kern = KERNEL_OF[(qtype, dispatch.route(m, qtype))].name
+        kern = KERNEL_OF[(qtype, dispatch.route(m, qtype, (r, c), cuda=True))].name
         out[kern] = out.get(kern, 0) + 1
     return out
 
@@ -758,8 +870,80 @@ def main_path(device, n_layer: int, recipe: str) -> dict:
     out["prefill_tok_s"] = 100 / out["prefill_100_s"]
     out["decode_tok_s"] = (N_NEW - 1) / out["decode_s"]
     out["engine_tok_s"] = out["engine_tokens"] / out["engine_s"]
-    del params, eng
+    del eng
+    if recipe == "q4_k":
+        out["pipeline"] = pipeline_phase(device, cfg, params, n_layer)
+    del params
     torch.cuda.empty_cache()
+    return out
+
+
+def pipeline_phase(device, cfg, params, n_layer: int) -> dict:
+    """The Q4_K file's single-stream prefill and decode with qmm_pipeline
+    "on": every single-row Q4_K product takes K10 in place of K1 (the
+    100-token prefill still takes K3). The launch counts are set to 0 just
+    before and read just after; then one decode step's logits with the flag
+    on are held against the flag off at the same position. K10 rounds x to
+    bf16, and x reaches the matmuls in f32 even at bf16 compute (the f32
+    norm weights promote it), so the two differ by the rounding of the
+    activations, compounded over the layers. The bound is measured on the
+    same step: the int8 route (K3 at M = 1, int8_min_m = 1), whose per-tile
+    int8 activations round more coarsely than bf16, must stray further from
+    the flag-off logits than K10 does. Engine
+    streams are not held against generate here: under the flag a step with
+    one active slot takes K10 and one with more takes K1, as in the
+    reference."""
+    out = {"layers": n_layer}
+    rng = np.random.default_rng(6)
+    prompt = [int(t) for t in rng.integers(1, cfg.n_vocab, 100)]
+    config.set("qmm_pipeline", "on")
+    try:
+        want_prefill = expected_launches("q4_k", n_layer, 100)
+        want_step = expected_launches("q4_k", n_layer, 1)
+        kv = llama.make_cache(cfg, 1024, device=device)
+        kernels.reset_launches()
+        with torch.inference_mode():
+            logits, kv = llama.forward(cfg, params, torch.tensor(prompt, device=device), kv, 0)
+            out["launches_prefill_100"] = {k: v for k, v in launches().items() if v}
+            stream = prompt + [int(logits[-1].argmax())]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(N_NEW - 1):
+                before = launches()
+                lg, kv = llama.forward(cfg, params, torch.tensor([stream[-1]], device=device),
+                                       kv, len(stream) - 1)
+                stream.append(int(lg[-1].argmax()))
+                if i == 0:
+                    out["launches_per_decode_step"] = _delta(before)
+            torch.cuda.synchronize()
+            out["decode_s"] = time.perf_counter() - t0
+            tok = torch.tensor([stream[-1]], device=device)
+            out["decode_step_trace"] = trace_device(
+                lambda: llama.forward(cfg, params, tok, kv, len(stream) - 1))
+            out["launches"] = launches()
+            on, _ = llama.forward(cfg, params, tok, kv, len(stream) - 1)
+            config.set("qmm_pipeline", "off")
+            off, _ = llama.forward(cfg, params, tok, kv, len(stream) - 1)
+            config.set("int8_min_m", 1)
+            i8, _ = llama.forward(cfg, params, tok, kv, len(stream) - 1)
+    finally:
+        config.unset("qmm_pipeline")
+        config.unset("int8_min_m")
+    for key, want in (("launches_prefill_100", want_prefill),
+                      ("launches_per_decode_step", want_step)):
+        if out[key] != want:
+            raise AssertionError(f"q4_k with qmm_pipeline=on: {key} {out[key]}, its tensor "
+                                 f"types predict {want}")
+    out["logits_nmse_on_vs_off"] = nmse(on[-1], off[-1])
+    out["logits_nmse_i8_vs_off"] = nmse(i8[-1], off[-1])
+    if not out["logits_nmse_on_vs_off"] < out["logits_nmse_i8_vs_off"]:
+        raise AssertionError(f"qmm_pipeline on vs off: decode logits nmse "
+                             f"{out['logits_nmse_on_vs_off']}, the int8 route's "
+                             f"{out['logits_nmse_i8_vs_off']}")
+    out["decode_step_ms"] = out["decode_s"] / (N_NEW - 1) * 1e3
+    out["decode_tok_s"] = (N_NEW - 1) / out["decode_s"]
+    busy = out["decode_step_trace"]["busy_ms"]
+    out["decode_step_trace"]["busy_share"] = None if busy is None else busy / out["decode_step_ms"]
     return out
 
 
@@ -771,12 +955,14 @@ def small_model_check(device) -> dict:
     of the recipes whose types have an int8 twin). The mixtures' n_ff of
     768 gives layer 0's Q4_K or Q5_K ffn_down and layer 1's Q6_K one an odd
     superblock count; the legacy 5-bit files' 768 gives ffn_down 24 blocks
-    per row, which the reference pads to 32."""
+    per row, which the reference pads to 32; the Q2_K and Q3_K_M files'
+    gives their Q3_K and Q4_K ffn_down three superblocks."""
     res = {}
     for recipe, n_ff, tol_70 in (("q4_k", 512, 2e-4), ("q4_k_m", 768, 2e-4),
                                  ("q8_0", 512, 2e-4), ("q5_k_m", 768, 2e-4),
                                  ("q4_0", 512, 2e-4), ("q4_1", 768, 1e-9),
-                                 ("q5_0", 768, 1e-9), ("q5_1", 768, 1e-9)):
+                                 ("q5_0", 768, 1e-9), ("q5_1", 768, 1e-9),
+                                 ("q2_k", 768, 1e-9), ("q3_k_m", 768, 2e-4)):
         small = dict(n_vocab=512, n_ctx=256, n_embd=256, n_head=4, n_kv_head=2, n_ff=n_ff)
         path = ROOT / "build" / f"smoke_small_{recipe}.gguf"
         write_gguf(path, small, 2, recipe, random_scales=True)
@@ -798,7 +984,8 @@ def small_model_check(device) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
-                    help="depth of the 7B-width model (width is never cut)")
+                    help="depth of the 7B-width Q4_K, Q2_K and Q3_K_M files, and "
+                         f"at most {SHORT_LAYERS} of the other seven (width is never cut)")
     ap.add_argument("--out", type=Path, default=ROOT / "build",
                     help="directory for chip_smoke.json, the detailed results")
     args = ap.parse_args(argv)
@@ -835,15 +1022,18 @@ def main(argv=None) -> int:
     check_q4_0(device, timer, results)
     check_q5k(device, timer, results)
     check_legacy(device, timer, results)
+    check_q23k(device, timer, results)
+    check_pipe(device, timer, results)
 
     small = small_model_check(device)
     log(f"small models card vs CPU: {small}")
 
     log(f"free disk under build/: {shutil.disk_usage(ROOT / 'build').free / 1e9:.1f} GB")
-    cut = "" if args.layers == 32 else f" (depth cut to {args.layers} of 32 layers)"
     paths = {}
     for recipe in RECIPES:
-        mp = paths[recipe] = main_path(device, args.layers, recipe)
+        depth = args.layers if recipe in FULL_DEPTH else min(args.layers, SHORT_LAYERS)
+        cut = "" if depth == 32 else f" (depth cut to {depth} of 32 layers)"
+        mp = paths[recipe] = main_path(device, depth, recipe)
         log(f"main path {recipe}{cut} [{label}]: load {mp['load_s']:.2f} s "
             f"({mp['gguf_gb']:.2f} GB file, written in {mp['gguf_write_s']:.1f} s; "
             f"{mp['weights_gb']:.2f} GB of weights on the card), "
@@ -862,6 +1052,17 @@ def main(argv=None) -> int:
                 f"{t['busy_ms']} ms ({t['device_activities']} activities; "
                 f"profiled wall {t['profiled_wall_ms']:.3f} ms), busy share "
                 f"{t['busy_share']}; busiest {t['top_ms'][:5]}")
+        if "pipeline" in mp:
+            pp = mp["pipeline"]
+            t = pp["decode_step_trace"]
+            log(f"  qmm_pipeline=on [{label}]: decode {pp['decode_tok_s']:.2f} tok/s "
+                f"(single stream; {mp['decode_tok_s']:.2f} with the flag off), launches "
+                f"per decode step {pp['launches_per_decode_step']}, in the 100-token "
+                f"prefill {pp['launches_prefill_100']}; decode step {pp['decode_step_ms']:.3f} "
+                f"ms unprofiled, device busy {t['busy_ms']} ms ({t['device_activities']} "
+                f"activities), busy share {t['busy_share']}; busiest {t['top_ms'][:5]}; "
+                f"decode logits nmse on vs off {pp['logits_nmse_on_vs_off']:.3e} "
+                f"(int8 route vs off {pp['logits_nmse_i8_vs_off']:.3e})")
 
     rep = {"qmm_q4_K": "M=8 N=11008 K=4096",
            "qmm_q4_K_i8": "M=128 N=11008 K=4096",
@@ -874,7 +1075,11 @@ def main(argv=None) -> int:
            "qmm_q5_K": "M=8 N=11008 K=4096",
            "qmm_q4_1": "M=8 N=11008 K=4096",
            "qmm_q5_0": "M=8 N=11008 K=4096",
-           "qmm_q5_1": "M=8 N=11008 K=4096"}
+           "qmm_q5_1": "M=8 N=11008 K=4096",
+           "qmm_q2_K": "M=8 N=11008 K=4096",
+           "qmm_q3_K": "M=8 N=11008 K=4096",
+           "qmm_q4_K_pipelined": "M=1 N=11008 K=4096"}
+    runs = list(paths.values()) + [mp["pipeline"] for mp in paths.values() if "pipeline" in mp]
     line = []
     for kern in kernels.KERNELS:
         rows = [r for r in results if r["kernel"] == kern.name]
@@ -882,7 +1087,7 @@ def main(argv=None) -> int:
         line.append({
             "name": kern.name, "route": "cuda", "source": kern.source,
             "replaces": kern.replaces,
-            "launches": sum(mp["launches"][kern.name] for mp in paths.values()),
+            "launches": sum(run["launches"][kern.name] for run in runs),
             "max_abs_err": max(x["max_abs_err"] for x in rows),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

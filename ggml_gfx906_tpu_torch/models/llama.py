@@ -4,11 +4,12 @@ The same op sequence as the reference (RMS_NORM + MUL_MAT + ROPE(NeoX) +
 causal FLASH_ATTN + SWIGLU), in eager PyTorch over a params dict:
 {"wte", "out_norm", ["lm_head"], "blocks": [{attn_norm, wq, wk, wv, wo,
 ffn_norm, w_gate, w_up, w_down}, ...]}, where each matrix is a Q4_0, Q4_1,
-Q5_0, Q5_1, Q4_K, Q5_K, Q6_K or Q8_0 QuantTensor (any mixture of them, as
-in llama.cpp's Q4_K_M, Q5_K_M, Q4_0, Q4_1, Q5_0 and Q5_1 files) or a dense
-tensor. Quantized matmuls run on kernels K1/K3 (Q4_K), K4 (Q6_K), K5/K5-i8
-(Q8_0), K6/K6-i8 (Q4_0), K7 (Q5_K) and K8 (Q4_1, Q5_0, Q5_1), attention on
-K2 (ops/cuda/).
+Q5_0, Q5_1, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K or Q8_0 QuantTensor (any mixture
+of them, as in llama.cpp's Q2_K, Q3_K_M, Q4_K_M, Q5_K_M, Q4_0, Q4_1, Q5_0
+and Q5_1 files) or a dense tensor. Quantized matmuls run on kernels K1/K3
+(Q4_K, and K10 for single-row products under `qmm_pipeline`), K4 (Q6_K),
+K5/K5-i8 (Q8_0), K6/K6-i8 (Q4_0), K7 (Q5_K), K8 (Q4_1, Q5_0, Q5_1) and K9
+(Q2_K, Q3_K), attention on K2 (ops/cuda/).
 
 GGUF schema: llama.cpp conventions (kv `llama.*`; tensors blk.N.attn_q|
 attn_k|attn_v|attn_output|ffn_gate|ffn_up|ffn_down|attn_norm|ffn_norm).
@@ -124,8 +125,8 @@ def params_from_numpy(tree: dict, device=None) -> dict:
     """Carry the JAX package's llama params across. `tree` mirrors its
     params pytree with numpy leaves; each QuantTensor arrives as
     {"qtype", "shape", "layout", "fields": {name: ndarray}} in the JAX
-    "kernel" layout (Q4_0, Q4_1, Q5_0, Q5_1, Q4_K, Q5_K, Q6_K or Q8_0;
-    ops/quantized.py).
+    "kernel" layout (Q4_0, Q4_1, Q5_0, Q5_1, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K or
+    Q8_0; ops/quantized.py).
     Returns the port's params, which compute the same function."""
     device = resolve(device)
 

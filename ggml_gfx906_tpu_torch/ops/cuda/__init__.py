@@ -44,7 +44,14 @@ K8_Q5_0 = Kernel("qmm_q5_0", "ggml_gfx906_tpu_torch/csrc/qmm_legacy.cu",
                  "ggml_gfx906_tpu/ops/pallas/qmm.py:1017")
 K8_Q5_1 = Kernel("qmm_q5_1", "ggml_gfx906_tpu_torch/csrc/qmm_legacy.cu",
                  "ggml_gfx906_tpu/ops/pallas/qmm.py:1028")
-KERNELS = (K1, K2, K3, K4, K5, K5_I8, K6, K6_I8, K7, K8_Q4_1, K8_Q5_0, K8_Q5_1)
+K9_Q2_K = Kernel("qmm_q2_K", "ggml_gfx906_tpu_torch/csrc/qmm_q23k.cu",
+                 "ggml_gfx906_tpu/ops/pallas/qmm.py:1146")
+K9_Q3_K = Kernel("qmm_q3_K", "ggml_gfx906_tpu_torch/csrc/qmm_q23k.cu",
+                 "ggml_gfx906_tpu/ops/pallas/qmm.py:1158")
+K10 = Kernel("qmm_q4_K_pipelined", "ggml_gfx906_tpu_torch/csrc/qmm_q4k_pipe.cu",
+             "ggml_gfx906_tpu/ops/pallas/qmm.py:349")
+KERNELS = (K1, K2, K3, K4, K5, K5_I8, K6, K6_I8, K7, K8_Q4_1, K8_Q5_0, K8_Q5_1,
+           K9_Q2_K, K9_Q3_K, K10)
 
 
 def reset_launches() -> None:

@@ -40,6 +40,9 @@ SIGNATURES = {
     "qmm_q4_1_f32": ("qmm_legacy", [_P] * 5 + [_I, _I, _I, _P]),
     "qmm_q5_0_f32": ("qmm_legacy", [_P] * 5 + [_I, _I, _I, _P]),
     "qmm_q5_1_f32": ("qmm_legacy", [_P] * 6 + [_I, _I, _I, _P]),
+    "qmm_q2k_f32": ("qmm_q23k", [_P] * 6 + [_I, _I, _I, _P]),
+    "qmm_q3k_f32": ("qmm_q23k", [_P] * 6 + [_I, _I, _I, _P]),
+    "qmm_q4k_pipe": ("qmm_q4k_pipe", [_P] * 5 + [_I, _I, _P]),
     "flash_attn_fwd": ("flash_attn", [_P] * 7 + [_I] * 6 + [_L, _L]
                        + [_F, _F, _F, _I, _P]),
 }

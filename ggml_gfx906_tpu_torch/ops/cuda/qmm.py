@@ -1,6 +1,7 @@
 """Q4_K matmul kernels K1 (f32, M < int8_min_m) and K3 (int8, M >= it),
-and the operand checks and int8 operand preparation that the other
-formats' kernels (qmm_q6k.py, qmm_q8_0.py) share with them.
+and the operand checks, f32 launch and int8 operand preparation that the
+other formats' kernels (qmm_q6k.py, qmm_q8_0.py, qmm_legacy.py, ...) share
+with them.
 
 Kernel source: csrc/qmm_q4k.cu (fuller notes there).
 
@@ -56,7 +57,15 @@ def check_x(x, k_mult: int) -> tuple[int, int]:
     return m, k
 
 
-def _check_weights(qs, scm, dd, k):
+def check_fields(x, widths: dict, **fields) -> None:
+    """x is (M, K) with K % 256 == 0, and each field f is (N, K // e) of
+    dtype dt where widths[f] = (e, dt): e elements of K per byte or value."""
+    _, k = check_x(x, 256)
+    n = fields["qs"].shape[0]
+    check_shapes({f: (t, (n, k // widths[f][0]), widths[f][1]) for f, t in fields.items()})
+
+
+def check_q4k_weights(qs, scm, dd, k):
     n, nb = qs.shape[0], k // 256
     check_shapes({"qs": (qs, (n, nb * 128), torch.uint8),
                   "scm": (scm, (n, nb * 16), torch.uint8),
@@ -78,6 +87,21 @@ def check_cuda(*ts):
             raise ValueError("kernel operands must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError("kernel operands must be 16-byte aligned")
+
+
+def launch_f32(fn: str, kernel, x, *fields):
+    """Launch the f32 matmul entry point `fn` (build.SIGNATURES) of a
+    kernel whose C signature is (x, fields..., y, M, N, K, stream), on
+    CUDA operands with qs first, and count the launch."""
+    rows, k = x.shape
+    n = fields[0].shape[0]
+    x = aligned_x(x)
+    y = torch.empty((rows, n), dtype=torch.float32, device=fields[0].device)
+    check_cuda(x, *fields)
+    build.call(fn, x.data_ptr(), *(f.data_ptr() for f in fields), y.data_ptr(),
+               rows, n, k, torch.cuda.current_stream(fields[0].device).cuda_stream)
+    kernel.launches += 1
+    return y
 
 
 def scale_arrays(scm, dd):
@@ -112,7 +136,7 @@ def qmm_q4_K_plain(x, qs, scm, dd):
 def qmm_q4_K(x, qs, scm, dd):
     """x (M, K) @ W(N, K).T → (M, N) f32, W in the port's Q4_K layout."""
     m, k = check_x(x, 256)
-    _check_weights(qs, scm, dd, k)
+    check_q4k_weights(qs, scm, dd, k)
     if not qs.is_cuda:
         return qmm_q4_K_plain(x, qs, scm, dd)
     x = aligned_x(x)
@@ -226,7 +250,7 @@ def qmm_q4_K_i8_plain(qs, qxlo, exlo, qxhi, exhi, dsclo_f, dschi_f, dmlo_f,
 def qmm_q4_K_i8(x, qs, scm, dd):
     """Integer Q4_K matmul (prefill route): x (M, K) → (M, N) f32."""
     _, k = check_x(x, 256)
-    _check_weights(qs, scm, dd, k)
+    check_q4k_weights(qs, scm, dd, k)
     ops = prepare_i8(x, scm, dd)
     if not qs.is_cuda:
         return qmm_q4_K_i8_plain(qs, *ops)

@@ -25,19 +25,12 @@ from __future__ import annotations
 import torch
 
 from ...quant import dequant_math as dqm
-from . import K8_Q4_1, K8_Q5_0, K8_Q5_1, build
-from .qmm import aligned_x, check_cuda, check_shapes, check_x
+from . import K8_Q4_1, K8_Q5_0, K8_Q5_1
+from .qmm import check_fields, launch_f32
 
 # field → (elements of K per byte or value, dtype)
 _FIELD = {"qs": (2, torch.uint8), "qh": (8, torch.uint8),
           "d": (32, torch.float32), "m": (32, torch.float32)}
-
-
-def _check(x, **fields) -> None:
-    """x is (M, K) with K % 256 == 0, and every field is at its shape for K."""
-    _, k = check_x(x, 256)
-    n = fields["qs"].shape[0]
-    check_shapes({f: (t, (n, k // _FIELD[f][0]), _FIELD[f][1]) for f, t in fields.items()})
 
 
 def _blocks(t, width):
@@ -74,38 +67,25 @@ def qmm_q5_1_plain(x, qs, qh, d, m):
     return x.float() @ dequant_q5_1(qs, qh, d, m).T
 
 
-def _launch(fn: str, kernel, x, *fields):
-    """Launch one entry point of K8 on CUDA operands (qs first)."""
-    rows, k = x.shape
-    n = fields[0].shape[0]
-    x = aligned_x(x)
-    y = torch.empty((rows, n), dtype=torch.float32, device=fields[0].device)
-    check_cuda(x, *fields)
-    build.call(fn, x.data_ptr(), *(f.data_ptr() for f in fields), y.data_ptr(),
-               rows, n, k, torch.cuda.current_stream(fields[0].device).cuda_stream)
-    kernel.launches += 1
-    return y
-
-
 def qmm_q4_1(x, qs, d, m):
     """x (M, K) @ W(N, K).T → (M, N) f32, W in the port's Q4_1 layout."""
-    _check(x, qs=qs, d=d, m=m)
+    check_fields(x, _FIELD, qs=qs, d=d, m=m)
     if not qs.is_cuda:
         return qmm_q4_1_plain(x, qs, d, m)
-    return _launch("qmm_q4_1_f32", K8_Q4_1, x, qs, d, m)
+    return launch_f32("qmm_q4_1_f32", K8_Q4_1, x, qs, d, m)
 
 
 def qmm_q5_0(x, qs, qh, d):
     """x (M, K) @ W(N, K).T → (M, N) f32, W in the port's Q5_0 layout."""
-    _check(x, qs=qs, qh=qh, d=d)
+    check_fields(x, _FIELD, qs=qs, qh=qh, d=d)
     if not qs.is_cuda:
         return qmm_q5_0_plain(x, qs, qh, d)
-    return _launch("qmm_q5_0_f32", K8_Q5_0, x, qs, qh, d)
+    return launch_f32("qmm_q5_0_f32", K8_Q5_0, x, qs, qh, d)
 
 
 def qmm_q5_1(x, qs, qh, d, m):
     """x (M, K) @ W(N, K).T → (M, N) f32, W in the port's Q5_1 layout."""
-    _check(x, qs=qs, qh=qh, d=d, m=m)
+    check_fields(x, _FIELD, qs=qs, qh=qh, d=d, m=m)
     if not qs.is_cuda:
         return qmm_q5_1_plain(x, qs, qh, d, m)
-    return _launch("qmm_q5_1_f32", K8_Q5_1, x, qs, qh, d, m)
+    return launch_f32("qmm_q5_1_f32", K8_Q5_1, x, qs, qh, d, m)

@@ -1,13 +1,14 @@
 """Quantized weights on the device and the matmuls over them.
 
 The counterpart of ggml_gfx906_tpu/ops/quantized.py for the types the port
-has kernels for: Q4_0, Q4_1, Q5_0, Q5_1, Q4_K, Q5_K, Q6_K and Q8_0 — the
-types of llama.cpp's Q4_K_M and Q5_K_M mixtures and of its Q8_0, Q4_0,
-Q4_1, Q5_0 and Q5_1 files. A QuantTensor
+has kernels for: Q4_0, Q4_1, Q5_0, Q5_1, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K and
+Q8_0 — the types of llama.cpp's Q2_K, Q3_K_M, Q4_K_M and Q5_K_M mixtures
+and of its Q8_0, Q4_0, Q4_1, Q5_0 and Q5_1 files. A QuantTensor
 keeps ggml's block fields as separate tensors (struct of arrays), one row
 of blocks per weight row. The port keeps ggml's wire byte order for the
 quants — the reference's lane-interleaved "kernel" layouts (qmm.py:9-22,
-139-155, 428-434, 471-478, 781-801, 854-878, 923-932, 981-1004) exist for
+139-155, 428-434, 471-478, 781-801, 854-878, 923-932, 981-1004,
+1093-1133) exist for
 the TPU's 128-lane tiles — with f32 block scales and mins:
 
     Q4_0  qs  (N, K/2)   u8   packed nibbles, wire order
@@ -20,6 +21,13 @@ the TPU's 128-lane tiles — with f32 block scales and mins:
                               word, bit j ↔ element j)      6 bits/weight
     Q5_1  qs, qh, d           as Q5_0
           m   (N, K/32)  f32  one min per block             7 bits/weight
+    Q2_K  qs     (N, K/4)  u8   four 2-bit planes per byte, wire order
+          scales (N, K/16) u8   wire bytes: sc low nibble, m high nibble
+          d, dmin (N, K/256) f32                            2.75 bits/weight
+    Q3_K  qs     (N, K/4)  u8   as Q2_K
+          hmask  (N, K/8)  u8   wire order: byte l, bit 4h + t
+          sc     (N, K/16) i8   unpacked signed scales (−32..31)
+          d      (N, K/256) f32                             3.625 bits/weight
     Q4_K  qs  (N, K/2)   u8   packed nibbles, wire order
           scm (N, K/16)  u8   per superblock [sc0..sc7 | m0..m7] (6-bit)
           dd  (N, K/128) f32  per superblock [d, dmin]      4.75 bits/weight
@@ -45,12 +53,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..quant.dequant_math import unpack_scale_min_k4
+from ..quant.dequant_math import unpack_q3_scales, unpack_scale_min_k4
 from ..quant.types import GGMLType, TYPE_TRAITS
 from .cuda import dispatch
 from .cuda import qmm as _qmm
 from .cuda import qmm_legacy as _qmm_legacy
 from .cuda import qmm_q4_0 as _qmm_q4_0
+from .cuda import qmm_q23k as _qmm_q23k
 from .cuda import qmm_q5k as _qmm_q5k
 from .cuda import qmm_q6k as _qmm_q6k
 from .cuda import qmm_q8_0 as _qmm_q8_0
@@ -60,12 +69,14 @@ from .cuda import qmm_q8_0 as _qmm_q8_0
 # at K % 256 == 0)
 _K_MULT = {GGMLType.Q4_K: 256, GGMLType.Q6_K: 256, GGMLType.Q8_0: 128,
            GGMLType.Q4_0: 256, GGMLType.Q5_K: 256, GGMLType.Q4_1: 256,
-           GGMLType.Q5_0: 256, GGMLType.Q5_1: 256}
+           GGMLType.Q5_0: 256, GGMLType.Q5_1: 256, GGMLType.Q2_K: 256,
+           GGMLType.Q3_K: 256}
 _DEQUANT = {GGMLType.Q4_K: _qmm.dequant, GGMLType.Q6_K: _qmm_q6k.dequant,
             GGMLType.Q8_0: _qmm_q8_0.dequant, GGMLType.Q4_0: _qmm_q4_0.dequant,
             GGMLType.Q5_K: _qmm_q5k.dequant, GGMLType.Q4_1: _qmm_legacy.dequant_q4_1,
             GGMLType.Q5_0: _qmm_legacy.dequant_q5_0,
-            GGMLType.Q5_1: _qmm_legacy.dequant_q5_1}
+            GGMLType.Q5_1: _qmm_legacy.dequant_q5_1,
+            GGMLType.Q2_K: _qmm_q23k.dequant_q2_K, GGMLType.Q3_K: _qmm_q23k.dequant_q3_K}
 
 
 def _wire_fields(qtype: GGMLType, raw: torch.Tensor) -> dict:
@@ -82,6 +93,13 @@ def _wire_fields(qtype: GGMLType, raw: torch.Tensor) -> dict:
         if qtype == GGMLType.Q5_K:
             out["qh"] = take("qh", 32)
         return out
+    if qtype == GGMLType.Q2_K:
+        return {"qs": take("qs", 64), "scales": take("scales", 16),
+                "d": f16("d"), "dmin": f16("dmin")}
+    if qtype == GGMLType.Q3_K:
+        sc = unpack_q3_scales(raw[..., off["scales"]:off["scales"] + 12])
+        return {"qs": take("qs", 64), "hmask": take("hmask", 32),
+                "sc": sc.to(torch.int8).reshape(n, -1).contiguous(), "d": f16("d")}
     if qtype == GGMLType.Q6_K:
         return {"ql": take("ql", 128), "qh": take("qh", 64),
                 "sc": take("scales", 16).view(torch.int8), "d": f16("d")}
@@ -160,6 +178,28 @@ def _from_reference_fields(qtype: GGMLType, n: int, k: int, f: dict) -> dict:
         if qtype == GGMLType.Q5_1:
             out["m"] = f["m"][:, :nb].astype(np.float32)
         return out
+    if qtype in (GGMLType.Q2_K, GGMLType.Q3_K):
+        # chunks of two superblocks, the superblock axis zero-padded to even;
+        # per chunk qs (and hmask) lane (jj, sb, h, s) ↔ wire byte 32h + 16s
+        # + jj, scale lane (t, sb, h, s) ↔ wire scale 8h + 2t + s, d repeated
+        # 4× per superblock; hmask byte jj + 16s is copied to both h-lanes
+        # and h = 0's copy is kept (qmm.py:1093-1133; the same inverse as
+        # ops/quantized.py:213-245)
+        nb = k // 256
+        ch = f["qs"].shape[1] // 128
+        lanes = lambda a: a.reshape(n, ch, 16, 2, 2, 2).transpose(0, 1, 3, 4, 5, 2)  # noqa: E731
+        scales = f["scm" if qtype == GGMLType.Q2_K else "sc"].reshape(
+            n, ch, 4, 2, 2, 2).transpose(0, 1, 3, 4, 2, 5)
+        cut = lambda a: a.reshape(n, 2 * ch, -1)[:, :nb]  # noqa: E731
+        out = {"qs": cut(lanes(f["qs"])).astype(np.uint8),
+               "d": f["dq"][:, ::4][:, :nb].astype(np.float32)}
+        if qtype == GGMLType.Q2_K:
+            out["scales"] = cut(scales).astype(np.uint8)
+            out["dmin"] = f["dm"][:, ::4][:, :nb].astype(np.float32)
+        else:
+            out["hmask"] = cut(lanes(f["hm"])[:, :, :, 0]).astype(np.uint8)
+            out["sc"] = cut(scales).astype(np.int8)
+        return out
     # Q8_0: byte lane 4*j + b of a 128-tile ↔ element 32*b + j (qmm.py:428-434)
     qs = f["qs"].reshape(n, k // 128, 32, 4).transpose(0, 1, 3, 2)
     return {"qs": qs.astype(np.int8), "d": f["d"].astype(np.float32)}
@@ -216,7 +256,8 @@ class QuantTensor:
                                      device) -> "QuantTensor":
         """From the JAX package's "kernel" layout (Q4_K qmm.py:139-155, Q6_K
         :781-801, Q8_0 :428-434, Q4_0 :471-478, Q5_K :854-878, Q4_1
-        :923-932, Q5_0 and Q5_1 :981-1004) as numpy."""
+        :923-932, Q5_0 and Q5_1 :981-1004, Q2_K and Q3_K :1093-1133) as
+        numpy."""
         n, k = cls._check(qtype, shape)
         port = _from_reference_fields(qtype, n, k,
                                       {f: np.asarray(a) for f, a in fields.items()})

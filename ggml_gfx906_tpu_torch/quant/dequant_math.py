@@ -1,7 +1,7 @@
-"""Q4_0, Q4_1, Q5_0, Q5_1, Q4_K, Q5_K, Q6_K and Q8_0 unpack and
-dequantization as torch functions.
+"""Q4_0, Q4_1, Q5_0, Q5_1, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K and Q8_0 unpack
+and dequantization as torch functions.
 
-The counterpart of ggml_gfx906_tpu/quant/dequant_math.py:19-73, 85-141,
+The counterpart of ggml_gfx906_tpu/quant/dequant_math.py:19-73, 85-178,
 which is written against an `xp` array module that torch does not
 satisfy. The arithmetic is the same, step for step, so the f32 results are
 bit-identical to the JAX package's and to ggml's dequantize_row_*:
@@ -17,7 +17,12 @@ bit-identical to the JAX package's and to ggml's dequantize_row_*:
   difference, fused or not;
 - Q6_K: w = (q − 32)·(d·sc); d (f16) times the int8 sc is exact in f32, so
   the one product rounds once whatever the order;
-- Q8_0: w = q·d, exact in f32.
+- Q8_0: w = q·d, exact in f32;
+- Q2_K: w = q·(d·(sc & 15)) − dmin·(sc >> 4); d·sc and dmin·m (f16 times
+  4 bits) and q·(d·sc) (2 bits more) are exact in f32, so w rounds once,
+  at the difference, fused or not;
+- Q3_K: w = (q − 4·(1 − hbit))·(d·sc6), sc6 the signed 6-bit scale (the
+  12-byte packing, minus 32); d·sc6 and the product are exact in f32.
 """
 from __future__ import annotations
 
@@ -151,3 +156,54 @@ def dequant_q8_0(d, qs) -> torch.Tensor:
     """d: (..., nb) f16/f32, qs: (..., nb, 32) i8 → (..., nb*32) f32."""
     y = qs.float() * d.float()[..., None]
     return y.reshape(*y.shape[:-2], -1)
+
+
+def dequant_q2_K(d, dmin, scales, qs) -> torch.Tensor:
+    """d/dmin: (..., nb) f16/f32, scales: (..., nb, 16) u8 (scale in the low
+    nibble, min in the high), qs: (..., nb, 64) u8 → (..., nb*256) f32. qs
+    byte 32h + l holds element 128h + 32t + l at bits 2t..2t+1; element e's
+    scale byte is scales[e // 16]."""
+    dl = d.float()[..., None] * (scales & 0xF).float()      # (..., nb, 16)
+    ml = dmin.float()[..., None] * (scales >> 4).float()
+    q = qs.reshape(*qs.shape[:-1], 2, 1, 32)
+    shift = torch.tensor([0, 2, 4, 6], dtype=torch.uint8, device=qs.device)[:, None]
+    qv = ((q >> shift) & 3).float()                          # (..., nb, 2, 4, 32)
+    pre = qv.shape[:-3]
+    y = (qv.reshape(*pre, 2, 4, 2, 16) * dl.reshape(*pre, 2, 4, 2, 1)
+         - ml.reshape(*pre, 2, 4, 2, 1))
+    return y.reshape(*y.shape[:-5], -1)
+
+
+def unpack_q3_scales(scales: torch.Tensor) -> torch.Tensor:
+    """(..., 12) u8 → (..., 16) int32 signed scales in [-32, 31]: the low
+    nibbles of bytes 0..7, then their high nibbles, each with two high bits
+    from byte 8 + j % 4 at bits 2·(j // 4)."""
+    s = scales.to(torch.int32)
+    low = torch.cat([s[..., 0:8] & 0xF, s[..., 0:8] >> 4], dim=-1)
+    j = torch.arange(16, device=scales.device)
+    hi = (s[..., 8 + j % 4] >> (2 * (j // 4)).to(torch.int32)) & 3
+    return (low | (hi << 4)) - 32
+
+
+def dequant_q3_K(d, hmask, scales, qs) -> torch.Tensor:
+    """d: (..., nb) f16/f32, hmask: (..., nb, 32) u8, scales: (..., nb, 12)
+    u8 packed, qs: (..., nb, 64) u8 → (..., nb*256) f32."""
+    return dequant_q3_K_unpacked(d, hmask, unpack_q3_scales(scales), qs)
+
+
+def dequant_q3_K_unpacked(d, hmask, sc, qs) -> torch.Tensor:
+    """As dequant_q3_K, from unpacked signed scales sc (..., nb, 16). qs as
+    Q2_K's; bit 4h + t of hmask byte l is element 128h + 32t + l's high
+    bit, and q − 4 where it is clear."""
+    dl = d.float()[..., None] * sc.float()                   # (..., nb, 16)
+    q = qs.reshape(*qs.shape[:-1], 2, 1, 32)
+    shift = torch.tensor([0, 2, 4, 6], dtype=torch.uint8, device=qs.device)[:, None]
+    qv = ((q >> shift) & 3).to(torch.int32)                  # (..., nb, 2, 4, 32)
+    hm = hmask.reshape(*hmask.shape[:-1], 1, 1, 32)
+    bit = (torch.arange(2, device=qs.device)[:, None] * 4
+           + torch.arange(4, device=qs.device)[None, :]).reshape(2, 4, 1).to(torch.uint8)
+    has_high = ((hm >> bit) & 1).to(torch.int32)
+    qsigned = (qv - (1 - has_high) * 4).float()
+    pre = qsigned.shape[:-3]
+    y = qsigned.reshape(*pre, 2, 4, 2, 16) * dl.reshape(*pre, 2, 4, 2, 1)
+    return y.reshape(*y.shape[:-5], -1)

@@ -26,6 +26,7 @@ class _Entry:
     parse: Callable[[str], Any]
     help: str
     only: bool = False      # True: `default` is the only implemented value
+    choices: tuple = ()     # the values a string knob takes, when it is an enum
 
 
 _REGISTRY: dict[str, _Entry] = {}
@@ -36,12 +37,14 @@ def _bool(s: str) -> bool:
     return s.strip().lower() in ("1", "true", "yes", "on")
 
 
-def register(name: str, default, help: str, parse=None, only: bool = False):
+def register(name: str, default, help: str, parse=None, only: bool = False,
+             choices: tuple = ()):
     """Declare a knob. parse defaults to the type of `default`; only=True
-    marks a knob whose other values are later slices of the port."""
+    marks a knob whose other values are later slices of the port; choices
+    lists the values of an enumerated knob (any other raises ValueError)."""
     if parse is None:
         parse = _bool if isinstance(default, bool) else type(default)
-    _REGISTRY[name] = _Entry(default, parse, help, only)
+    _REGISTRY[name] = _Entry(default, parse, help, only, choices)
     return name
 
 
@@ -51,6 +54,8 @@ def _env_key(name: str) -> str:
 
 def _check(name: str, value):
     e = _REGISTRY[name]
+    if e.choices and value not in e.choices:
+        raise ValueError(f"config {name}={value!r}: one of {list(e.choices)}")
     if e.only and value != e.default:
         raise NotImplementedError(
             f"config {name}={value!r} is not ported yet; the port runs "
@@ -85,6 +90,11 @@ register("int8_min_m", 64,
          "batch-size threshold at which Q4_K, Q8_0 and Q4_0 matmuls switch "
          "from the f32 kernels (K1, K5, K6) to the int8 kernels (K3, K5-i8, "
          "K6-i8); 0 disables the int8 path")
+register("qmm_pipeline", "off",
+         "single-stream (M = 1) Q4_K decode matvecs through K10 "
+         "(qmm_q4_K_pipelined: x in bf16, scales on per-group sums): 'on', "
+         "'auto' (on for operands on the card) or 'off' (K1)",
+         choices=("off", "on", "auto"))
 register("engine_chunk_size", 128,
          "prompt tokens prefilled per engine step during admission")
 register("engine_min_window", 32,

@@ -127,7 +127,7 @@ def test_engine_matches_reference_engine_int8_route(models, monkeypatch):
     routes = []
     real_route = dispatch.route
     monkeypatch.setattr(dispatch, "route",
-                        lambda m, qtype: routes.append((m, real_route(m, qtype)))
+                        lambda m, qtype, *a: routes.append((m, real_route(m, qtype, *a)))
                         or routes[-1][1])
     got = _run(Engine(tllama, tcfg, tp, max_batch=3, max_seq=MAX_SEQ,
                       chunk_size=chunk, device="cpu"), prompts, 4)

@@ -140,7 +140,7 @@ def test_dispatch_routes_q8_0_by_m():
         assert tdispatch.route(4096, Q8) == "f32"
     finally:
         tconfig.unset("int8_min_m")
-    for qtype in (GGMLType.Q2_K, GGMLType.Q3_K):
+    for qtype in (GGMLType.IQ4_NL, GGMLType.Q8_K):
         with pytest.raises(NotImplementedError):
             tdispatch.route(1, qtype)
         with pytest.raises(NotImplementedError):
