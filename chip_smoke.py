@@ -11,14 +11,19 @@ Phases (each failure raises, so the script exits non-zero):
      flash attention), K4 (Q6_K f32 matmul), K5 (Q8_0 f32 matmul), K5-i8
      (Q8_0 int8 matmul), K6 (Q4_0 f32 matmul), K6-i8 (Q4_0 int8 matmul),
      K7 (Q5_K f32 matmul), K8 (Q4_1, Q5_0 and Q5_1 f32 matmuls), K9 (Q2_K
-     and Q3_K f32 matmuls) and K10 (the pipelined M = 1 Q4_K matvec)
-     against their plain PyTorch versions at the main paths' shapes, each
-     timed with CUDA events beside its plain version, its library
-     yardstick and its bound;
+     and Q3_K f32 matmuls), K10 (the pipelined M = 1 Q4_K matvec) and K11
+     (the autotuner's streaming copy, bit for bit against copy_) against
+     their plain PyTorch versions at the main paths' shapes, each timed
+     with CUDA events beside its plain version, its library yardstick and
+     its bound;
   4. a small-model check of the card's forward against the CPU's, for a
      tiny Q4_K, Q4_K_M-mixture, Q8_0, Q5_K_M-mixture, Q4_0, Q4_1, Q5_0,
-     Q5_1, Q2_K-mixture and Q3_K_M-mixture model;
-  5. ten main paths at full llama-7B width, one GGUF each (random but
+     Q5_1, Q2_K-mixture and Q3_K_M-mixture model, and the Q4_K and Q3_K_M
+     models again in the int8 execution layout;
+  5. the autotuner from a fresh cache directory (so that K11 really runs):
+     `choose` and `choose_attn` on the card, K11's and the library's GB/s,
+     the two M = 1 times and both decisions;
+  6. ten main paths at full llama-7B width, one GGUF each (random but
      valid blocks, constructed scales; written under build/ and removed
      after its path): pure Q4_K with the head tied to token_embd;
      llama.cpp's Q4_K_M and Q5_K_M mixtures (Q4_K or Q5_K, with Q6_K in
@@ -26,8 +31,13 @@ Phases (each failure raises, so the script exits non-zero):
      throughout; Q4_0, Q4_1, Q5_0 and Q5_1 with a Q6_K head; and
      llama.cpp's Q2_K and Q3_K_M mixtures (Q2_K or Q3_K, with Q3_K, Q4_K
      or Q5_K in attn_v, attn_output and ffn_down and a Q6_K head). The
-     Q4_K, Q2_K and Q3_K_M files run at 32 layers (--layers), the other
-     seven at SHORT_LAYERS = 8. Each loads its file to the card, runs
+     Q4_K file runs at 32 layers (--layers), the other nine at
+     SHORT_LAYERS = 8; the Q4_K file runs twice more, in the int8 execution
+     layout at 32 layers (only K2 launches) and under weights_layout="auto"
+     at SHORT_LAYERS (layouts equal to choose's answer, generate equal to
+     the layout given explicitly, and one decode step under attn_impl="xla"
+     with no K2 launch, its logits at f32 compute on the f32 kernels within
+     K2's card-vs-plain distance of the step on K2). Each loads its file to the card, runs
      `generate`, serves 8+1 requests through `Engine`, asserts engine streams ==
      single-sequence `generate` streams, that its kernels launched as many
      times per decode step and per 128-token prefill chunk as its tensor
@@ -36,7 +46,8 @@ Phases (each failure raises, so the script exits non-zero):
      then decodes again with qmm_pipeline="on" (K10 in place of K1),
      traced, with one step's logits held against the flag off within the
      int8 route's distance from them. The launch counts are set to 0 just
-     before each path (and the K10 phase) and read just after it.
+     before each path (and the K10 and autotune phases) and read just after
+     it.
 Detailed results go to DIR/chip_smoke.json (default build/). The second-to-last
 stdout line is {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -47,6 +58,7 @@ import argparse
 import dataclasses
 import functools
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -59,16 +71,16 @@ import torch
 from ggml_gfx906_tpu_torch.gguf import GGUFWriter
 from ggml_gfx906_tpu_torch.models import llama
 from ggml_gfx906_tpu_torch.ops import cuda as kernels
-from ggml_gfx906_tpu_torch.ops.cuda import (build, dispatch, flash_attn, qmm, qmm_legacy,
-                                            qmm_pipe, qmm_q4_0, qmm_q5k, qmm_q6k, qmm_q8_0,
-                                            qmm_q23k)
+from ggml_gfx906_tpu_torch.ops.cuda import (build, dispatch, dma_copy, flash_attn, qmm,
+                                            qmm_legacy, qmm_pipe, qmm_q4_0, qmm_q5k, qmm_q6k,
+                                            qmm_q8_0, qmm_q23k)
 from ggml_gfx906_tpu_torch.ops.quantized import QuantTensor
 from ggml_gfx906_tpu_torch.quant.kquants import pack_q3_scales, pack_scale_min_k4
 from ggml_gfx906_tpu_torch.quant.types import (BLOCK_Q2_K, BLOCK_Q3_K, BLOCK_Q4_0, BLOCK_Q4_1,
                                                BLOCK_Q4_K, BLOCK_Q5_0, BLOCK_Q5_1, BLOCK_Q5_K,
                                                BLOCK_Q6_K, BLOCK_Q8_0, GGMLType)
 from ggml_gfx906_tpu_torch.runtime.engine import Engine
-from ggml_gfx906_tpu_torch.utils import config
+from ggml_gfx906_tpu_torch.utils import autotune, config
 
 ROOT = Path(__file__).resolve().parent
 # H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s and op/s
@@ -411,6 +423,29 @@ def check_pipe(device, timer, results):
         del w_dense
 
 
+def check_dma(device, timer, results):
+    """K11 on the autotuner's (4096, 4096) f32 array: bit for bit against
+    copy_, its plain version and the one PyTorch call for the same function;
+    bound: 2 × 64 MiB over the card's memory rate."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    x = torch.randn((4096, 4096), device=device, generator=gen)
+    out = torch.empty_like(x)
+    got = dma_copy.dma_copy(x, torch.empty_like(x))
+    ref = dma_copy.dma_copy_plain(x, torch.empty_like(x))
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError("K11 dma_copy differs from copy_")
+    b, by = bound(2 * x.numel() * x.element_size(), 0.0, "f32")
+    results.append(dict(
+        kernel=kernels.K11.name, shape="copy 4096x4096 f32", nmse=0.0,
+        max_abs_err=float((got - ref).abs().max()),
+        ms=timer(lambda: dma_copy.dma_copy(x, out)),
+        plain_ms=timer(lambda: dma_copy.dma_copy_plain(x, out)),
+        library_ms=timer(lambda: out.copy_(x)), bound_ms=b, bound_by=by))
+    log(f"K11 copy 4096x4096 f32 bit-exact ms={results[-1]['ms']:.4f} "
+        f"(copy_ {results[-1]['library_ms']:.4f}, bound {b:.4f})")
+
+
 def _sdpa(q, k, v, pos, scale, softcap):
     """The one PyTorch call for the same function (yardstick only)."""
     if softcap or k.dtype == torch.int8:
@@ -576,8 +611,8 @@ RECIPES = {
 }
 # the recipes whose paths run at full depth (--layers); the others, whose
 # kernels the smoke has held at full depth since the PR that added them, at
-# SHORT_LAYERS, so that ten paths fit the smoke's time
-FULL_DEPTH = ("q4_k", "q2_k", "q3_k_m")
+# SHORT_LAYERS, so that twelve paths fit the smoke's time
+FULL_DEPTH = ("q4_k",)
 SHORT_LAYERS = 8
 # the kernel each (type, route) takes (ops/cuda/dispatch.py)
 KERNEL_OF = {(GGMLType.Q4_K, "f32"): kernels.K1, (GGMLType.Q4_K, "i8"): kernels.K3,
@@ -724,12 +759,15 @@ def write_gguf(path: Path, cfg: dict, n_layer: int, recipe: str,
     tmp.rename(path)
 
 
-def expected_launches(recipe: str, n_layer: int, m: int) -> dict:
+def expected_launches(recipe: str, n_layer: int, m: int, layout: str = "kernel") -> dict:
     """Kernel launches of one forward over m tokens of the recipe's file on
-    the card, under the current config: one per matrix product (the head's
-    type is token_embd's when tied; the embedding is a row gather) and one
-    K2 per layer."""
+    the card, under the current config: one K2 per layer, and in the kernel
+    layout one per matrix product (the head's type is token_embd's when
+    tied; the embedding is a row gather). The int8 layout's products are
+    plain torch."""
     out = {kernels.K2.name: n_layer}
+    if layout == "int8":
+        return out
     types = RECIPES[recipe]
     for name, layer, r, c in _matrices(CFG_7B, n_layer):
         if name == "token_embd":
@@ -744,12 +782,37 @@ def launches():
     return {k.name: k.launches for k in kernels.KERNELS}
 
 
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
 def _delta(before: dict) -> dict:
     return {k: v - before[k] for k, v in launches().items() if v - before[k]}
 
 
-def main_path(device, n_layer: int, recipe: str) -> dict:
-    out = {"layers": n_layer, "recipe": recipe}
+def _leaves(params) -> list:
+    return ([params["wte"], params["out_norm"]] + [params[k] for k in ("lm_head",) if k in params]
+            + [t for b in params["blocks"] for t in b.values()])
+
+
+def _probe_step(cfg, params, device, prompt) -> torch.Tensor:
+    """The logits of one decode step at position len(prompt), token
+    prompt[0], after a prefill of `prompt` into a fresh cache: the same
+    inputs whatever the weights' layout."""
+    kv = llama.make_cache(cfg, 1024, device=device)
+    _, kv = llama.forward(cfg, params, torch.tensor(prompt, device=device), kv, 0)
+    lg, _ = llama.forward(cfg, params, torch.tensor(prompt[:1], device=device), kv, len(prompt))
+    return lg[-1].float()
+
+
+def main_path(device, n_layer: int, recipe: str, layout: str = "kernel",
+              keep_file: bool = False, attn_bound: float | None = None) -> dict:
+    """One file's path: load (in `layout`; "auto" through config
+    weights_layout, as a user sets it), generate, the engine, launches per
+    step and per chunk, two traced steps. With attn_bound, one decode step
+    under attn_impl="xla" too, held against the step on K2 within
+    attn_bound."""
+    out = {"layers": n_layer, "recipe": recipe, "layout_asked": layout}
     path = ROOT / "build" / f"smoke_llama7b_{recipe}_L{n_layer}.gguf"
     t0 = time.perf_counter()
     write_gguf(path, CFG_7B, n_layer, recipe)
@@ -758,13 +821,21 @@ def main_path(device, n_layer: int, recipe: str) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg, params = llama.load(path, device=device)
+    if layout == "auto":
+        config.set("weights_layout", "auto")
+        try:
+            cfg, params = llama.load(path, device=device)
+        finally:
+            config.unset("weights_layout")
+        layout = autotune.choose(device)
+    else:
+        cfg, params = llama.load(path, device=device, layout=layout)
     torch.cuda.synchronize()
     out["load_s"] = time.perf_counter() - t0
-    path.unlink()                    # the eight 7B files together hold ~38 GB
+    out["load_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["layout"] = layout
     cfg = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
-    leaves = ([params["wte"], params["out_norm"]] + [params[k] for k in ("lm_head",) if k in params]
-              + [t for b in params["blocks"] for t in b.values()])
+    leaves = _leaves(params)
     for t in leaves:
         fields = t.fields.values() if isinstance(t, QuantTensor) else [t]
         assert all(f.device.type == device.type for f in fields), \
@@ -773,13 +844,27 @@ def main_path(device, n_layer: int, recipe: str) -> dict:
     for t in leaves:
         if isinstance(t, QuantTensor):
             out["tensor_types"][t.qtype.name] = out["tensor_types"].get(t.qtype.name, 0) + 1
+    layouts = {t.layout for t in leaves if isinstance(t, QuantTensor)}
+    if layouts != {layout}:
+        raise AssertionError(f"{recipe}: matrices in layouts {layouts}, asked for {layout}")
     assert ("lm_head" in params) == (RECIPES[recipe]("output", None, n_layer) is not None)
     out["weights_gb"] = sum(t.nbytes if isinstance(t, QuantTensor)
                             else t.numel() * t.element_size() for t in leaves) / 1e9
-    log(f"loaded {n_layer}-layer 7B-width {recipe} GGUF in {out['load_s']:.2f} s "
-        f"(matrices by type {out['tensor_types']})")
-    want_step = expected_launches(recipe, n_layer, 1)
-    want_chunk = expected_launches(recipe, n_layer, 128)
+    log(f"loaded {n_layer}-layer 7B-width {recipe} GGUF in the {layout} layout in "
+        f"{out['load_s']:.2f} s (matrices by type {out['tensor_types']})")
+    if out["layout_asked"] == "auto":
+        # the same file loaded with the chosen layout given explicitly
+        _, explicit = llama.load(path, device=device, layout=layout)
+        prompt8 = [1, 2, 3, 4, 5, 6, 7, 8]
+        if (llama.generate(cfg, params, prompt8, 8, max_seq=64, device=device)
+                != llama.generate(cfg, explicit, prompt8, 8, max_seq=64, device=device)):
+            raise AssertionError(f"{recipe}: the auto load's stream differs from the "
+                                 f"{layout} load's")
+        del explicit
+    if not keep_file:
+        path.unlink()                # the 7B files together hold ~38 GB
+    want_step = expected_launches(recipe, n_layer, 1, layout)
+    want_chunk = expected_launches(recipe, n_layer, 128, layout)
 
     rng = np.random.default_rng(5)
     kernels.reset_launches()
@@ -871,10 +956,55 @@ def main_path(device, n_layer: int, recipe: str) -> dict:
     out["decode_tok_s"] = (N_NEW - 1) / out["decode_s"]
     out["engine_tok_s"] = out["engine_tokens"] / out["engine_s"]
     del eng
-    if recipe == "q4_k":
+    with torch.inference_mode():
+        if recipe == "q4_k":
+            out["probe_logits"] = _probe_step(cfg, params, device, prompt).cpu()
+        if attn_bound is not None:
+            out["attn_xla"] = attn_xla_check(device, cfg, params, prompt, attn_bound)
+    if recipe == "q4_k" and layout == "kernel":
         out["pipeline"] = pipeline_phase(device, cfg, params, n_layer)
     del params
     torch.cuda.empty_cache()
+    return out
+
+
+def attn_xla_check(device, cfg, params, prompt, attn_bound: float) -> dict:
+    """One decode step under attn_impl="xla" (the plain materialized-mask
+    attention on the card) against the same step on K2: no K2 launch, and
+    the logits within attn_bound, K2's card-vs-plain distance in phase 3,
+    where nothing between the attentions rounds coarsely: f32 compute (an
+    f32 KV cache) and the f32 matmul kernels at every M (int8_min_m = 0).
+    As served (bf16 KV cache, the int8 route for the 100-token prefill) the
+    distance is only reported: the cache's bf16 rounding and the per-tile
+    int8 activations turn the attentions' last-bit differences into
+    rounding flips that grow layer by layer (2.7e-5 at 4 layers on the
+    card, where K2 against its plain version is 1.2e-9)."""
+    out = {}
+    for name, c, min_m in (("exact", dataclasses.replace(cfg, compute_dtype=torch.float32), 0),
+                           ("served", cfg, None)):
+        if min_m is not None:
+            config.set("int8_min_m", min_m)
+        try:
+            on_k2 = _probe_step(c, params, device, prompt)
+            config.set("attn_impl", "xla")
+            kv = llama.make_cache(c, 1024, device=device)
+            _, kv = llama.forward(c, params, torch.tensor(prompt, device=device), kv, 0)
+            before = launches()
+            lg, _ = llama.forward(c, params, torch.tensor(prompt[:1], device=device), kv,
+                                  len(prompt))
+            step = _delta(before)
+        finally:
+            config.unset("attn_impl")
+            config.unset("int8_min_m")
+        if kernels.K2.name in step:
+            raise AssertionError(f"attn_impl=xla: K2 launched {step}")
+        out["launches_per_decode_step"] = step
+        out[f"logits_nmse_xla_vs_k2_{name}"] = nmse(lg[-1].float(), on_k2)
+    out["bound"] = attn_bound
+    if not out["logits_nmse_xla_vs_k2_exact"] <= attn_bound:
+        raise AssertionError(f"attn_impl=xla vs K2 (f32, f32 kernels): decode logits nmse "
+                             f"{out['logits_nmse_xla_vs_k2_exact']}, K2's own distance "
+                             f"{attn_bound}")
     return out
 
 
@@ -956,7 +1086,11 @@ def small_model_check(device) -> dict:
     768 gives layer 0's Q4_K or Q5_K ffn_down and layer 1's Q6_K one an odd
     superblock count; the legacy 5-bit files' 768 gives ffn_down 24 blocks
     per row, which the reference pads to 32; the Q2_K and Q3_K_M files'
-    gives their Q3_K and Q4_K ffn_down three superblocks."""
+    gives their Q3_K and Q4_K ffn_down three superblocks. The Q4_K and
+    Q3_K_M models (five dequantized types: Q3_K, Q4_K, Q5_K, Q6_K and the
+    embedding's) run again in the int8 execution layout: the requantized
+    weights on the card equal the CPU's bit for bit, the logits within the
+    int8 routes' error class (nmse < 2e-4)."""
     res = {}
     for recipe, n_ff, tol_70 in (("q4_k", 512, 2e-4), ("q4_k_m", 768, 2e-4),
                                  ("q8_0", 512, 2e-4), ("q5_k_m", 768, 2e-4),
@@ -978,14 +1112,56 @@ def small_model_check(device) -> dict:
             if not e < tol:
                 raise AssertionError(f"small {recipe} model {n_tok} tokens: card vs CPU nmse {e}")
             res[f"{recipe}_nmse_{n_tok}_tokens"] = e
+        if recipe not in ("q4_k", "q3_k_m"):
+            continue
+        (cfg, pc), (_, pg) = (llama.load(path, device="cpu", layout="int8"),
+                              llama.load(path, device=device, layout="int8"))
+        for tc, tg in zip(_leaves(pc), _leaves(pg)):
+            if isinstance(tc, QuantTensor):
+                assert tc.layout == tg.layout == "int8"
+                for f in ("w8t", "dwt"):
+                    if not torch.equal(tc.fields[f], tg.fields[f].cpu()):
+                        raise AssertionError(f"small {recipe} int8 load: {f} differs card vs CPU")
+        for n_tok in (7, 70):
+            toks = torch.from_numpy(rng.integers(0, 512, n_tok))
+            with torch.inference_mode():
+                lc, _ = llama.forward(cfg, pc, toks, llama.make_cache(cfg, 128, device="cpu"), 0)
+                lg, _ = llama.forward(cfg, pg, toks.to(device),
+                                      llama.make_cache(cfg, 128, device=device), 0)
+            e = nmse(lg.cpu(), lc)
+            if not e < 2e-4:
+                raise AssertionError(f"small {recipe} int8 model {n_tok} tokens: card vs CPU "
+                                     f"nmse {e}")
+            res[f"{recipe}_int8_nmse_{n_tok}_tokens"] = e
     return res
+
+
+def autotune_phase(device) -> dict:
+    """`choose` and `choose_attn` on the card from a fresh cache directory,
+    so that K11 runs (one warm and three timed calls) in every smoke run."""
+    cache = ROOT / "build" / "autotune_cache"
+    shutil.rmtree(cache, ignore_errors=True)
+    os.environ["GGML_TORCH_CACHE"] = str(cache)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    layout = autotune.choose(device)
+    attn = autotune.choose_attn(device)
+    out = dict(autotune.measure(device), layout=layout, attn_impl=attn,
+               seconds=time.perf_counter() - t0, launches=launches())
+    if out["launches"][kernels.K11.name] != 4:
+        raise AssertionError(f"K11 launched {out['launches'][kernels.K11.name]} times "
+                             "from a fresh cache, not 4")
+    if not (cache / "autotune.json").exists():
+        raise AssertionError("the autotune cache was not written")
+    return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
-                    help="depth of the 7B-width Q4_K, Q2_K and Q3_K_M files, and "
-                         f"at most {SHORT_LAYERS} of the other seven (width is never cut)")
+                    help="depth of the 7B-width Q4_K file (kernel and int8 layouts), and "
+                         f"at most {SHORT_LAYERS} of the other nine and of the Q4_K file "
+                         "under weights_layout=auto (width is never cut)")
     ap.add_argument("--out", type=Path, default=ROOT / "build",
                     help="directory for chip_smoke.json, the detailed results")
     args = ap.parse_args(argv)
@@ -1024,24 +1200,42 @@ def main(argv=None) -> int:
     check_legacy(device, timer, results)
     check_q23k(device, timer, results)
     check_pipe(device, timer, results)
+    check_dma(device, timer, results)
 
     small = small_model_check(device)
     log(f"small models card vs CPU: {small}")
 
+    tune = autotune_phase(device)
+    log(f"autotune [{label}]: K11 {tune['dma_gbs']:.1f} GB/s, library reduction "
+        f"{tune['hbm_gbs']:.1f} GB/s; M=1 2048x2048 Q4_K qmatmul kernel layout "
+        f"{tune.get('t_kernel_s', float('nan')) * 1e3:.4f} ms, int8 layout "
+        f"{tune.get('t_int8_s', float('nan')) * 1e3:.4f} ms; weights_layout=auto -> "
+        f"{tune['layout']}, attn_impl -> {tune['attn_impl']} ({tune['seconds']:.1f} s, "
+        f"launches {_nonzero(tune['launches'])})")
+    k2_dist = max(r["nmse"] for r in results if r["kernel"] == kernels.K2.name)
+
     log(f"free disk under build/: {shutil.disk_usage(ROOT / 'build').free / 1e9:.1f} GB")
+    short = min(args.layers, SHORT_LAYERS)
+    # (name, recipe, depth, layout, keep the file for the next entry)
+    plan = [("q4_k", "q4_k", args.layers, "kernel", True),
+            ("q4_k int8", "q4_k", args.layers, "int8", False)]
+    plan += [(r, r, args.layers if r in FULL_DEPTH else short, "kernel", False)
+             for r in RECIPES if r != "q4_k"]
+    plan.append(("q4_k auto", "q4_k", short, "auto", False))
     paths = {}
-    for recipe in RECIPES:
-        depth = args.layers if recipe in FULL_DEPTH else min(args.layers, SHORT_LAYERS)
+    for name, recipe, depth, layout, keep in plan:
         cut = "" if depth == 32 else f" (depth cut to {depth} of 32 layers)"
-        mp = paths[recipe] = main_path(device, depth, recipe)
-        log(f"main path {recipe}{cut} [{label}]: load {mp['load_s']:.2f} s "
+        mp = paths[name] = main_path(device, depth, recipe, layout, keep_file=keep,
+                                     attn_bound=k2_dist if layout == "auto" else None)
+        log(f"main path {name}{cut} [{label}]: load {mp['load_s']:.2f} s "
             f"({mp['gguf_gb']:.2f} GB file, written in {mp['gguf_write_s']:.1f} s; "
             f"{mp['weights_gb']:.2f} GB of weights on the card), "
             f"prefill {mp['prefill_tok_s']:.1f} tok/s (100-token prompt), "
             f"decode {mp['decode_tok_s']:.2f} tok/s (single stream), "
             f"engine {mp['engine_tok_s']:.1f} tok/s aggregate "
             f"({mp['engine_tokens']} tokens, {mp['engine_steps']} steps), "
-            f"peak device memory {mp['peak_mem_gb']:.2f} GB")
+            f"peak device memory {mp['peak_mem_gb']:.2f} GB "
+            f"({mp['load_peak_gb']:.2f} GB at the end of the load)")
         log(f"  launches per decode step {mp['launches_per_decode_step']}, "
             f"per 128-token prefill chunk {mp['launches_per_prefill_chunk_128']}, "
             f"in the whole path {mp['launches']}")
@@ -1052,6 +1246,13 @@ def main(argv=None) -> int:
                 f"{t['busy_ms']} ms ({t['device_activities']} activities; "
                 f"profiled wall {t['profiled_wall_ms']:.3f} ms), busy share "
                 f"{t['busy_share']}; busiest {t['top_ms'][:5]}")
+        if "attn_xla" in mp:
+            ax = mp["attn_xla"]
+            log(f"  attn_impl=xla [{label}]: launches per decode step "
+                f"{ax['launches_per_decode_step']}, decode logits nmse vs K2 "
+                f"{ax['logits_nmse_xla_vs_k2_exact']:.3e} at f32 with the f32 kernels (K2's "
+                f"card-vs-plain distance {ax['bound']:.3e}), "
+                f"{ax['logits_nmse_xla_vs_k2_served']:.3e} as served")
         if "pipeline" in mp:
             pp = mp["pipeline"]
             t = pp["decode_step_trace"]
@@ -1078,8 +1279,15 @@ def main(argv=None) -> int:
            "qmm_q5_1": "M=8 N=11008 K=4096",
            "qmm_q2_K": "M=8 N=11008 K=4096",
            "qmm_q3_K": "M=8 N=11008 K=4096",
-           "qmm_q4_K_pipelined": "M=1 N=11008 K=4096"}
-    runs = list(paths.values()) + [mp["pipeline"] for mp in paths.values() if "pipeline" in mp]
+           "qmm_q4_K_pipelined": "M=1 N=11008 K=4096",
+           "dma_copy": "copy 4096x4096 f32"}
+    int8_nmse = nmse(paths["q4_k int8"].pop("probe_logits"), paths["q4_k"].pop("probe_logits"))
+    paths["q4_k int8"]["probe_logits_nmse_vs_kernel_layout"] = int8_nmse
+    paths["q4_k auto"].pop("probe_logits")
+    log(f"q4_k int8 layout vs kernel layout [{label}]: one decode step's logits nmse "
+        f"{int8_nmse:.3e}")
+    runs = ([tune] + list(paths.values())
+            + [mp["pipeline"] for mp in paths.values() if "pipeline" in mp])
     line = []
     for kern in kernels.KERNELS:
         rows = [r for r in results if r["kernel"] == kern.name]
@@ -1093,7 +1301,8 @@ def main(argv=None) -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"]})
     detail = {"device": smi, "build_s": build_s, "build": build.BUILD_LOG,
-              "kernels": results, "main_paths": paths, "small_model": small}
+              "kernels": results, "autotune": tune, "main_paths": paths,
+              "small_model": small}
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke.json").write_text(json.dumps(detail, indent=1, default=str))
     log(json.dumps({"kernels": line}))

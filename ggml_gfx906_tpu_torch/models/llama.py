@@ -9,7 +9,9 @@ of them, as in llama.cpp's Q2_K, Q3_K_M, Q4_K_M, Q5_K_M, Q4_0, Q4_1, Q5_0
 and Q5_1 files) or a dense tensor. Quantized matmuls run on kernels K1/K3
 (Q4_K, and K10 for single-row products under `qmm_pipeline`), K4 (Q6_K),
 K5/K5-i8 (Q8_0), K6/K6-i8 (Q4_0), K7 (Q5_K), K8 (Q4_1, Q5_0, Q5_1) and K9
-(Q2_K, Q3_K), attention on K2 (ops/cuda/).
+(Q2_K, Q3_K), attention on K2 (ops/cuda/); in the int8 execution layout
+(`load(layout="int8")`, config "weights_layout") every quantized matmul
+runs in plain torch (ops/quantized.py::_int8_layout_matmul).
 
 GGUF schema: llama.cpp conventions (kv `llama.*`; tensors blk.N.attn_q|
 attn_k|attn_v|attn_output|ffn_gate|ffn_up|ffn_down|attn_norm|ffn_norm).
@@ -26,9 +28,10 @@ import torch
 
 from .. import ops
 from ..gguf import GGUFReader
-from ..ops.quantized import QuantTensor, embed_rows, qmatmul
+from ..ops.quantized import QuantTensor, apply_weights_layout, embed_rows, qmatmul
 from ..quant.types import GGMLType, TYPE_TRAITS
 from ..runtime.kv_cache import KVCache
+from ..utils import autotune, config
 from ..utils.device import resolve
 
 ARCH = "llama"
@@ -81,13 +84,24 @@ def _to_param(reader: GGUFReader, name: str, device):
     return torch.from_numpy(reader.tensor_float(name)).to(device)
 
 
-def load(path, device=None) -> tuple[LlamaConfig, dict]:
-    """Read a llama GGUF: mmap → torch → device, one tensor at a time. Each
-    quantized tensor goes by its own type: it goes to the device as wire
-    bytes and is split into the port's fields there (ops/quantized.py). An
-    `output.weight` becomes `lm_head`; without one the head is tied to
-    `token_embd`. compute_dtype is f32; pass the config through
-    dataclasses.replace for bf16 compute."""
+def load(path, device=None, layout: str | None = None) -> tuple[LlamaConfig, dict]:
+    """Read a llama GGUF: mmap → torch → device. An `output.weight`
+    becomes `lm_head`; without one the head is tied to `token_embd`.
+    compute_dtype is f32; pass the config through dataclasses.replace for
+    bf16 compute.
+
+    layout: the execution layout of the quantized matrices; None reads
+    config "weights_layout", and "auto" asks utils/autotune.choose(device)
+    (reference :61-156); another value raises ValueError. Each tensor goes
+    to the device as wire bytes, one at a time, and is split into its
+    type's fields there (ops/quantized.py; "wire" where the kernels do not
+    take its shape); for "int8" it is then converted on the device by
+    ops/quantized.py::apply_weights_layout before the next tensor is read,
+    so the kernel layout of one tensor at a time stands beside the int8
+    params. The reference gathers the wire bytes into `load_chunk_mb`
+    chunks to cut its host→device transfers (:159-208); a copy to the card
+    costs no such fixed price, and the port keeps neither the chunks nor
+    the knob."""
     device = resolve(device)
     r = GGUFReader(path)
     arch = r.kv.get("general.architecture")
@@ -110,40 +124,62 @@ def load(path, device=None) -> tuple[LlamaConfig, dict]:
         if f"{ARCH}.rope.dimension_count" in kv else None,
         rope_freq_scale=float(kv.get(f"{ARCH}.rope.freq_scale", 1.0)),
     )
-    p = {"wte": _to_param(r, "token_embd.weight", device),
-         "out_norm": _to_param(r, "output_norm.weight", device),
-         "blocks": []}
+    names = {"wte": "token_embd.weight", "out_norm": "output_norm.weight"}
     if "output.weight" in r.tensors:
-        p["lm_head"] = _to_param(r, "output.weight", device)
-    for i in range(cfg.n_layer):
-        p["blocks"].append({short: _to_param(r, f"blk.{i}.{gname}", device)
-                            for short, gname in _PER_BLOCK})
+        names["lm_head"] = "output.weight"
+    blocks = [{short: f"blk.{i}.{gname}" for short, gname in _PER_BLOCK}
+              for i in range(cfg.n_layer)]
+    layout = layout or config.get("weights_layout")
+    if layout == "auto":
+        layout = autotune.choose(device)
+
+    def mk(nm):
+        return apply_weights_layout(_to_param(r, nm, device), layout)
+    p = {key: mk(nm) for key, nm in names.items()}
+    p["blocks"] = [{key: mk(nm) for key, nm in b.items()} for b in blocks]
     return cfg, p
 
 
 def params_from_numpy(tree: dict, device=None) -> dict:
     """Carry the JAX package's llama params across. `tree` mirrors its
     params pytree with numpy leaves; each QuantTensor arrives as
-    {"qtype", "shape", "layout", "fields": {name: ndarray}} in the JAX
-    "kernel" layout (Q4_0, Q4_1, Q5_0, Q5_1, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K or
-    Q8_0; ops/quantized.py).
+    {"qtype", "shape", "layout", "fields": {name: ndarray}} in one of the
+    JAX layouts: "kernel" (Q4_0, Q4_1, Q5_0, Q5_1, Q2_K, Q3_K, Q4_K, Q5_K,
+    Q6_K or Q8_0), "wire" (the ggml block fields, ops/quantized.py:29-42)
+    or "int8" (w8t, dwt, carried as they are).
     Returns the port's params, which compute the same function."""
     device = resolve(device)
 
     def conv(leaf):
         if isinstance(leaf, dict) and "fields" in leaf:
-            if leaf["layout"] != "kernel":
-                raise NotImplementedError(
-                    f"{leaf['layout']!r} layout weights are not ported yet")
+            qtype, shape = GGMLType(leaf["qtype"]), tuple(leaf["shape"])
+            if leaf["layout"] == "int8":
+                return QuantTensor(qtype, shape, {
+                    f: torch.from_numpy(np.array(leaf["fields"][f], copy=True)).to(device)
+                    for f in ("w8t", "dwt")}, "int8")
+            if leaf["layout"] == "wire":
+                return _from_reference_wire(qtype, shape, leaf["fields"], device)
             return QuantTensor.from_reference_kernel_layout(
-                GGMLType(leaf["qtype"]), tuple(leaf["shape"]), leaf["fields"],
-                device)
+                qtype, shape, leaf["fields"], device)
         return torch.from_numpy(np.array(leaf, copy=True)).to(device)
 
     out = {k: conv(v) for k, v in tree.items() if k != "blocks"}
     out["blocks"] = [{k: conv(v) for k, v in blk.items()}
                      for blk in tree["blocks"]]
     return out
+
+
+def _from_reference_wire(qtype: GGMLType, shape, fields: dict, device) -> QuantTensor:
+    """The JAX package's "wire" fields (ggml's block fields by name) →
+    packed blocks → QuantTensor.from_wire. Fields the reference does not
+    keep (Q8_1's s, Q8_K's bsums) are not read by dequantization and stay
+    zero."""
+    tt = TYPE_TRAITS[qtype]
+    n, k = shape
+    blocks = np.zeros((n, k // tt.blck_size), tt.block_dtype)
+    for name, a in fields.items():
+        blocks[name] = np.asarray(a).reshape(blocks[name].shape)
+    return QuantTensor.from_wire(qtype, blocks.view(np.uint8).reshape(-1), (n, k), device)
 
 
 def _rms(x, g, eps):

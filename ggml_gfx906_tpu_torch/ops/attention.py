@@ -3,14 +3,17 @@ attention_ref, _causal_ref, causal_flash_attn).
 
 Array convention (numpy order): q (B, H, N, D), k/v (B, H_kv, M, D) with
 grouped-query broadcast when H > H_kv. `causal_flash_attn` is the hot path:
-a CUDA tensor always takes kernel K2 (ops/cuda/flash_attn.py), for any cache
-length; a CPU tensor takes K2's plain version. The reference's `attn_impl`
-and `force_ref` switches are not ported.
+under config attn_impl="pallas" (the default) a CUDA tensor takes kernel K2
+(ops/cuda/flash_attn.py), for any cache length, and a CPU tensor K2's plain
+version; under "xla" every device takes the materialized-mask `_causal_ref`,
+as the reference's does (ops/attention.py:269-270). The reference's
+`force_ref` argument is not ported.
 """
 from __future__ import annotations
 
 import torch
 
+from ..utils import config
 from .cuda import flash_attn as _fa
 
 
@@ -59,7 +62,14 @@ def _causal_ref(q, k, v, pos, scale, logit_softcap, k_scale=None,
     return attention_ref(q, k, v, mask, scale, 0.0, logit_softcap, None)
 
 
-# Causal attention against a (possibly longer) KV cache: q (B, H, N, D) at
-# absolute positions pos(B,)+n; k/v (B, KVH, M, D) (int8 with k_scale/v_scale
-# (B, KVH, M) when the cache is quantized).
-causal_flash_attn = _fa.causal_flash_attention
+def causal_flash_attn(q, k, v, pos, scale: float | None = None,
+                      logit_softcap: float = 0.0, k_scale=None, v_scale=None):
+    """Causal attention against a (possibly longer) KV cache: q (B, H, N, D)
+    at absolute positions pos(B,)+n; k/v (B, KVH, M, D) (int8 with
+    k_scale/v_scale (B, KVH, M) when the cache is quantized). Returns (B, H,
+    N, D) in q.dtype."""
+    if config.get("attn_impl") == "xla":
+        if scale is None:
+            scale = 1.0 / (q.shape[-1] ** 0.5)
+        return _causal_ref(q, k, v, pos, scale, logit_softcap, k_scale, v_scale)
+    return _fa.causal_flash_attention(q, k, v, pos, scale, logit_softcap, k_scale, v_scale)

@@ -50,8 +50,10 @@ K9_Q3_K = Kernel("qmm_q3_K", "ggml_gfx906_tpu_torch/csrc/qmm_q23k.cu",
                  "ggml_gfx906_tpu/ops/pallas/qmm.py:1158")
 K10 = Kernel("qmm_q4_K_pipelined", "ggml_gfx906_tpu_torch/csrc/qmm_q4k_pipe.cu",
              "ggml_gfx906_tpu/ops/pallas/qmm.py:349")
+K11 = Kernel("dma_copy", "ggml_gfx906_tpu_torch/csrc/dma_copy.cu",
+             "ggml_gfx906_tpu/utils/autotune.py:142")
 KERNELS = (K1, K2, K3, K4, K5, K5_I8, K6, K6_I8, K7, K8_Q4_1, K8_Q5_0, K8_Q5_1,
-           K9_Q2_K, K9_Q3_K, K10)
+           K9_Q2_K, K9_Q3_K, K10, K11)
 
 
 def reset_launches() -> None:

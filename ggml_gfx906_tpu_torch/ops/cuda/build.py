@@ -45,6 +45,7 @@ SIGNATURES = {
     "qmm_q4k_pipe": ("qmm_q4k_pipe", [_P] * 5 + [_I, _I, _P]),
     "flash_attn_fwd": ("flash_attn", [_P] * 7 + [_I] * 6 + [_L, _L]
                        + [_F, _F, _F, _I, _P]),
+    "dma_copy_f32": ("dma_copy", [_P, _P, _L, _P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -63,11 +64,16 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
+def digest(name: str) -> str:
+    """The hash of `csrc/<name>.cu` and the flags, which names its build."""
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
+
+
+def _target(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{digest(name)}.so"
 
 
 def build_all(names: list[str] | None = None) -> dict[str, Path]:

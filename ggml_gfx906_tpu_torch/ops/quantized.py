@@ -43,6 +43,18 @@ the TPU's 128-lane tiles — with f32 block scales and mins:
 Dequantization from it is bit-identical to ggml's (and the JAX package's)
 for every layout they hold.
 
+A QuantTensor's `layout` says which matmul runs it (`qmatmul`):
+- "kernel": the fields above at K % `_K_MULT` == 0; the type's kernels
+  (ops/cuda/dispatch.py). The default.
+- "wire": the same fields where the kernels cannot take them (a block-32
+  type at K % 32 == 0 but K % `_K_MULT` != 0), and Q8_1 / Q8_K (qs (N, K)
+  i8, d f32 per block) at any K: dequantized, then one f32 torch.matmul,
+  as the reference dequantizes and hands them to XLA (quantized.py:
+  339-341, 370-373, 628-639).
+- "int8": the reference's int8 execution layout (quantized.py:412-605),
+  w8t (K/tile, N, tile) i8 and dwt (K/tile, N) f32, each (row, K-tile)
+  requantized against its own max; `_int8_layout_matmul` in plain torch.
+
 ref: ggml's mul_mat convention — weights are (n_out, n_in) rows and
 `mul_mat(W, x)` dots rows of x with rows of W, i.e. x @ W.T here.
 """
@@ -53,8 +65,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..quant.dequant_math import unpack_q3_scales, unpack_scale_min_k4
+from ..quant.dequant_math import dequant_q8_0, unpack_q3_scales, unpack_scale_min_k4
 from ..quant.types import GGMLType, TYPE_TRAITS
+from ..utils import autotune, config
 from .cuda import dispatch
 from .cuda import qmm as _qmm
 from .cuda import qmm_legacy as _qmm_legacy
@@ -76,7 +89,12 @@ _DEQUANT = {GGMLType.Q4_K: _qmm.dequant, GGMLType.Q6_K: _qmm_q6k.dequant,
             GGMLType.Q5_K: _qmm_q5k.dequant, GGMLType.Q4_1: _qmm_legacy.dequant_q4_1,
             GGMLType.Q5_0: _qmm_legacy.dequant_q5_0,
             GGMLType.Q5_1: _qmm_legacy.dequant_q5_1,
-            GGMLType.Q2_K: _qmm_q23k.dequant_q2_K, GGMLType.Q3_K: _qmm_q23k.dequant_q3_K}
+            GGMLType.Q2_K: _qmm_q23k.dequant_q2_K, GGMLType.Q3_K: _qmm_q23k.dequant_q3_K,
+            GGMLType.Q8_1: _qmm_q8_0.dequant,
+            GGMLType.Q8_K: lambda qs, d: dequant_q8_0(d, qs.reshape(qs.shape[0], -1, 256))}
+# each type's fields in its dequantization's argument order; Q8_1 and Q8_K
+# have no kernel in either package and only the "wire" layout
+_FIELDS = {**dispatch.FIELDS, GGMLType.Q8_1: ("qs", "d"), GGMLType.Q8_K: ("qs", "d")}
 
 
 def _wire_fields(qtype: GGMLType, raw: torch.Tensor) -> dict:
@@ -110,7 +128,9 @@ def _wire_fields(qtype: GGMLType, raw: torch.Tensor) -> dict:
         if "m" in off:
             out["m"] = f16("m")
         return out
-    return {"qs": take("qs", 32).view(torch.int8), "d": f16("d")}     # Q8_0
+    if qtype == GGMLType.Q8_K:
+        return {"qs": take("qs", 256).view(torch.int8), "d": take("d", 4).view(torch.float32)}
+    return {"qs": take("qs", 32).view(torch.int8), "d": f16("d")}     # Q8_0, Q8_1
 
 
 def _from_reference_fields(qtype: GGMLType, n: int, k: int, f: dict) -> dict:
@@ -213,33 +233,40 @@ class QuantTensor:
     qtype: GGMLType
     shape: tuple[int, ...]
     fields: dict[str, torch.Tensor]
+    layout: str = "kernel"      # "kernel" | "wire" | "int8" (module docstring)
 
     @property
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self.fields.values())
 
     @staticmethod
-    def _check(qtype: GGMLType, shape) -> tuple[int, int]:
-        if qtype not in _K_MULT:
+    def _layout(qtype: GGMLType, shape) -> str:
+        """"kernel" where the type's kernels take the shape, else "wire"
+        where its fields can still be dequantized; raises otherwise."""
+        if qtype not in _FIELDS:
             raise NotImplementedError(f"{qtype.name} weights are not ported yet")
-        n, k = shape
-        if k % _K_MULT[qtype]:
-            raise ValueError(f"{qtype.name} row length {k} is not a multiple "
-                             f"of {_K_MULT[qtype]}")
-        return n, k
+        k = shape[-1]
+        if qtype in _K_MULT and k % _K_MULT[qtype] == 0:
+            return "kernel"
+        blck = TYPE_TRAITS[qtype].blck_size
+        if k % blck:
+            raise ValueError(f"{qtype.name} row length {k} is not a multiple of {blck}")
+        return "wire"
 
     @classmethod
     def from_wire(cls, qtype: GGMLType, raw, shape: tuple[int, int],
                   device) -> "QuantTensor":
         """From packed wire bytes (a uint8 numpy array or tensor of N rows
         of blocks, e.g. GGUFReader.tensor_bytes). The bytes go to the
-        device as they are and are split into fields there."""
-        n, k = cls._check(qtype, shape)
+        device as they are and are split into fields there; the layout is
+        "kernel" where the kernels take the shape, else "wire"."""
+        layout = cls._layout(qtype, shape)
+        n, k = shape
         tt = TYPE_TRAITS[qtype]
         if not isinstance(raw, torch.Tensor):
             raw = torch.from_numpy(np.array(raw, dtype=np.uint8, copy=True))
         raw = raw.to(device).reshape(n, k // tt.blck_size, tt.type_size)
-        return cls(qtype, (n, k), _wire_fields(qtype, raw))
+        return cls(qtype, (n, k), _wire_fields(qtype, raw), layout)
 
     @classmethod
     def from_blocks(cls, qtype: GGMLType, blocks: np.ndarray, device) -> "QuantTensor":
@@ -258,7 +285,9 @@ class QuantTensor:
         :781-801, Q8_0 :428-434, Q4_0 :471-478, Q5_K :854-878, Q4_1
         :923-932, Q5_0 and Q5_1 :981-1004, Q2_K and Q3_K :1093-1133) as
         numpy."""
-        n, k = cls._check(qtype, shape)
+        if cls._layout(qtype, shape) != "kernel":
+            raise ValueError(f"{qtype.name} {tuple(shape)} has no kernel layout")
+        n, k = shape
         port = _from_reference_fields(qtype, n, k,
                                       {f: np.asarray(a) for f, a in fields.items()})
         return cls(qtype, (n, k), {
@@ -266,30 +295,192 @@ class QuantTensor:
             for f, a in port.items()})
 
 
+# ------------------------------------------------ the int8 execution layout
+
+# the widest K-tile whose int8 dot is exact in f32: tile·127² < 2^24
+_EXACT_TILE = 1024
+# the values of config "weights_layout"
+WEIGHTS_LAYOUTS = ("kernel", "int8", "auto")
+
+
+def _choose_tile(k: int, tile: int | None) -> int:
+    """The int8 layout's K-tile for rows of k (reference quantized.py:434):
+    halve while k % tile != 0; for the configured tile (`int8_tile`), also
+    while k / tile < 8, never below 128. K = 4096 → 512, 11008 → 256,
+    256 → 128."""
+    from_config = tile is None
+    if from_config:
+        tile = int(config.get("int8_tile"))
+    while k % tile and tile > 32:
+        tile //= 2
+    if from_config:
+        while k // tile < 8 and tile > 128:
+            tile //= 2
+    if k % tile:
+        raise ValueError(f"row length {k} has no int8 tile (from {tile})")
+    return tile
+
+
+def _tile_scales(amax: torch.Tensor):
+    """(amax / 127, 127 / amax or 0 where amax == 0), both correctly
+    rounded divisions as XLA's are: tensor by tensor, since torch turns
+    `127.0 / t` into t.reciprocal() * 127 and, on the card, a division by a
+    scalar into a multiply by its reciprocal."""
+    c = torch.full_like(amax, 127.0)
+    pos = amax > 0
+    inv = torch.where(pos, c / torch.where(pos, amax, torch.ones_like(amax)),
+                      torch.zeros_like(amax))
+    return amax / c, inv
+
+
+def _round_i8(v: torch.Tensor) -> torch.Tensor:
+    """Half to even, then clip to ±127, as jnp.round and jnp.clip do."""
+    return torch.clamp(torch.round(v), -127.0, 127.0)
+
+
+def _requant_tiles(w: torch.Tensor, tile: int):
+    """(N, K) f32 → (w8t (K/tile, N, tile) i8, dwt (K/tile, N) f32), each
+    (row, tile) requantized against its own max (reference
+    quantized.py:454), stored tile-major as the reference stores it."""
+    n, k = w.shape
+    wt = w.reshape(n, k // tile, tile)
+    dw, inv = _tile_scales(wt.abs().amax(-1))
+    w8 = _round_i8(wt * inv[..., None]).to(torch.int8)
+    return w8.transpose(0, 1).contiguous(), dw.T.contiguous()
+
+
+def to_int8_layout(qt: QuantTensor, tile: int | None = None) -> QuantTensor:
+    """Any quantized weight → the int8 execution layout (reference
+    quantized.py:412): dequantize, then requantize per (row, K-tile); the
+    tile from `_choose_tile`."""
+    w = dequant(qt)
+    tile = _choose_tile(w.shape[1], tile)
+    w8t, dwt = _requant_tiles(w, tile)
+    return QuantTensor(qt.qtype, qt.shape, {"w8t": w8t, "dwt": dwt}, "int8")
+
+
+def _tile_dots(qx: torch.Tensor, w8t: torch.Tensor) -> torch.Tensor:
+    """Per-tile integer dots: qx (Kt, M, tile) integer-valued f32, w8t (Kt,
+    N, tile) i8 → (Kt, M, N) f32 holding the exact int32 sums. torch has no
+    int8 matmul that fits (CPU int8 matmul wraps, CUDA's raises,
+    `_int_mm` is 2-D with M > 16), so the int8 values are multiplied as f32:
+    every product and partial sum is an integer below 2^24, exact in any
+    summation order, while tile ≤ 1024. A wider tile is cut into
+    1024-wide parts whose sums are added in integers."""
+    if qx.is_cuda and torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError("the int8 layout's per-tile dots need full-f32 matmuls "
+                           "(TF32 off)")
+    kt, m, tile = qx.shape
+    n = w8t.shape[1]
+    if tile <= _EXACT_TILE:
+        return torch.matmul(qx, w8t.float().transpose(1, 2))
+    s = tile // _EXACT_TILE
+    part = torch.matmul(qx.reshape(kt, m, s, _EXACT_TILE).transpose(1, 2),
+                        w8t.reshape(kt, n, s, _EXACT_TILE).permute(0, 2, 3, 1).float())
+    return part.to(torch.int32).sum(1).float()
+
+
+def _sum_tiles(t: torch.Tensor) -> torch.Tensor:
+    """(Kt, ...) → (...): tiles added in a fixed pairwise order (0+1, 2+3,
+    ..., then the pairs' sums, an odd last tile carried up), elementwise
+    adds only, so that a row's sum does not depend on M (torch's reduction
+    over a leading dim may reorder with the output size); log2(Kt) launches
+    where a left-to-right loop takes Kt − 1."""
+    while t.shape[0] > 1:
+        kt = t.shape[0]
+        pairs = t[0:kt - 1:2] + t[1:kt:2]
+        t = torch.cat([pairs, t[kt - 1:]]) if kt % 2 else pairs
+    return t[0]
+
+
+def _int8_layout_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
+    """x (..., K) @ int8-layout weight → (..., N) f32 (reference
+    quantized.py:534): x requantized per (row, tile), exact per-tile
+    integer dots, each scaled by its activation and weight tile scales,
+    and the tiles summed in a fixed order (`_sum_tiles`)."""
+    lead = x.shape[:-1]
+    w8t, dwt = qt.fields["w8t"], qt.fields["dwt"]
+    kt, n, tile = w8t.shape
+    x2 = x.reshape(-1, kt, tile).float()
+    ex, inv = _tile_scales(x2.abs().amax(-1))
+    qx = _round_i8(x2 * inv[..., None])
+    scaled = _tile_dots(qx.transpose(0, 1), w8t) * ex.T[:, :, None] * dwt[:, None, :]
+    return _sum_tiles(scaled).reshape(*lead, n)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _first_device(tree) -> torch.device:
+    found = []
+    _tree_map(lambda t: found.append(t.device) if isinstance(t, torch.Tensor) else None,
+              tree)
+    return found[0]
+
+
+def apply_weights_layout(params, layout: str | None = None):
+    """Every QuantTensor of a params tree (or one QuantTensor) in the
+    execution layout `layout` (None reads config "weights_layout"; "auto"
+    asks utils/autotune.choose on the params' device): "int8" converts by
+    `to_int8_layout`, "kernel" keeps the loaded layouts (reference
+    quantized.py:580); any other value raises ValueError."""
+    layout = layout or config.get("weights_layout")
+    if layout not in WEIGHTS_LAYOUTS:
+        raise ValueError(f"weights_layout {layout!r} is not one of {WEIGHTS_LAYOUTS}")
+    if layout == "auto":
+        layout = autotune.choose(_first_device(params))
+    if layout != "int8":
+        return params
+    return _tree_map(lambda t: to_int8_layout(t)
+                     if isinstance(t, QuantTensor) and t.layout != "int8" else t, params)
+
+
+# ---------------------------------------------------------- every layout
+
 def dequant(qt: QuantTensor, dtype=torch.float32) -> torch.Tensor:
-    """Dense tensor of qt.shape (bit-exact f32 w.r.t. ggml)."""
-    w = _DEQUANT[qt.qtype](*(qt.fields[f] for f in dispatch.FIELDS[qt.qtype]))
+    """Dense tensor of qt.shape: bit-exact f32 w.r.t. ggml for the "kernel"
+    and "wire" layouts; the int8 layout's own requantized values."""
+    if qt.layout == "int8":
+        w8 = qt.fields["w8t"].transpose(0, 1).float()
+        w = w8 * qt.fields["dwt"].T[..., None]
+    else:
+        w = _DEQUANT[qt.qtype](*(qt.fields[f] for f in _FIELDS[qt.qtype]))
     return w.reshape(qt.shape).to(dtype)
 
 
 def embed_rows(table, ids: torch.Tensor) -> torch.Tensor:
-    """Row gather (+ dequantization for a QuantTensor table)."""
+    """Row gather (+ dequantization for a QuantTensor table; the int8
+    layout keeps rows on axis 1 of its fields)."""
     if not isinstance(table, QuantTensor):
         return table[ids]
     flat = ids.reshape(-1)
-    sub = QuantTensor(table.qtype, (flat.numel(),) + table.shape[1:],
-                      {k: v[flat] for k, v in table.fields.items()})
+    if table.layout == "int8":
+        fields = {k: v[:, flat] for k, v in table.fields.items()}
+    else:
+        fields = {k: v[flat] for k, v in table.fields.items()}
+    sub = QuantTensor(table.qtype, (flat.numel(),) + table.shape[1:], fields, table.layout)
     return dequant(sub).reshape(*ids.shape, *table.shape[1:])
 
 
 def qmatmul(x: torch.Tensor, w, compute_dtype=None) -> torch.Tensor:
     """x (..., K) @ w(N, K).T → (..., N) in x.dtype (ggml mul_mat).
 
-    A QuantTensor goes through its type's kernels (ops/cuda/dispatch.py); a
-    dense f32/bf16 weight goes to torch.matmul, as the JAX package gives it
-    to XLA (quantized.py:628-639). f32 products run in full f32: the card's
-    TF32 switch for matmuls is off by default and must stay off."""
+    A QuantTensor goes by its layout: "kernel" through its type's kernels
+    (ops/cuda/dispatch.py), "int8" through `_int8_layout_matmul`, "wire"
+    dequantized and multiplied in f32; a dense f32/bf16 weight goes to
+    torch.matmul, as the JAX package gives both to XLA (quantized.py:
+    628-639). f32 products run in full f32: the card's TF32 switch for
+    matmuls is off by default and must stay off."""
     if isinstance(w, QuantTensor):
-        return dispatch.matmul(x, w).to(x.dtype)
+        if w.layout == "kernel":
+            return dispatch.matmul(x, w).to(x.dtype)
+        if w.layout == "int8":
+            return _int8_layout_matmul(x, w).to(x.dtype)
+        return torch.matmul(x.float(), dequant(w).T).to(x.dtype)
     wd = w.to(compute_dtype or x.dtype)
     return torch.matmul(x.to(wd.dtype), wd.T).to(x.dtype)

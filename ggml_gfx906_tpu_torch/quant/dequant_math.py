@@ -1,7 +1,7 @@
-"""Q4_0, Q4_1, Q5_0, Q5_1, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K and Q8_0 unpack
-and dequantization as torch functions.
+"""Q4_0, Q4_1, Q5_0, Q5_1, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K, Q8_0, Q8_1 and
+Q8_K unpack and dequantization as torch functions.
 
-The counterpart of ggml_gfx906_tpu/quant/dequant_math.py:19-73, 85-178,
+The counterpart of ggml_gfx906_tpu/quant/dequant_math.py:19-178,
 which is written against an `xp` array module that torch does not
 satisfy. The arithmetic is the same, step for step, so the f32 results are
 bit-identical to the JAX package's and to ggml's dequantize_row_*:
@@ -17,7 +17,8 @@ bit-identical to the JAX package's and to ggml's dequantize_row_*:
   difference, fused or not;
 - Q6_K: w = (q − 32)·(d·sc); d (f16) times the int8 sc is exact in f32, so
   the one product rounds once whatever the order;
-- Q8_0: w = q·d, exact in f32;
+- Q8_0, Q8_1: w = q·d, exact in f32; Q8_K: w = q·d with an f32 d, one
+  rounding;
 - Q2_K: w = q·(d·(sc & 15)) − dmin·(sc >> 4); d·sc and dmin·m (f16 times
   4 bits) and q·(d·sc) (2 bits more) are exact in f32, so w rounds once,
   at the difference, fused or not;
@@ -153,7 +154,9 @@ def dequant_q6_K(d, ql, qh, scales) -> torch.Tensor:
 
 
 def dequant_q8_0(d, qs) -> torch.Tensor:
-    """d: (..., nb) f16/f32, qs: (..., nb, 32) i8 → (..., nb*32) f32."""
+    """d: (..., nb) f16/f32, qs: (..., nb, 32) i8 → (..., nb*32) f32. Also
+    Q8_1's values (its block sum s is not read) and Q8_K's, with qs (...,
+    nb, 256) and an f32 d (its bsums are not read)."""
     y = qs.float() * d.float()[..., None]
     return y.reshape(*y.shape[:-2], -1)
 

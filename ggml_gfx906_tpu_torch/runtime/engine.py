@@ -20,9 +20,12 @@ batched decode with the window bucket (:860-885, :920-930) and the depth-1
 engine_window_delta=False. Later slices: batched flood admission, harvest
 depth > 1 and scan windows, window delta, the paged pool, int8 KV, meshes.
 
-Sampling: a request's Gumbel noise comes from its own torch.Generator,
-seeded with the request's seed and drawn once per produced token, so a
-request samples the same tokens alone or batched.
+Sampling: token j of a request draws its Gumbel noise under the key
+fold_in(PRNGKey(seed), j), bit for bit the reference's (runtime/sampling.py):
+the first token at counter 0 on admission (reference :38), decode steps
+from 1 on, each slot's counter set to 1 at install and raised by every
+dispatch (:706, :781, :883). So a request samples the same tokens alone or
+batched, and the same tokens as in the reference engine.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ import torch
 from ..utils import config
 from ..utils.device import resolve
 from .batched_kv import BatchedKVCache
-from .sampling import gumbel, sample_batch
+from .sampling import gumbel_noise, sample_batch
 
 MAX_K = 64
 
@@ -53,7 +56,6 @@ class Request:
     seed: int = 0
     out: list[int] = field(default_factory=list)
     done: bool = False
-    generator: torch.Generator | None = None
 
 
 def _bucket(n: int, buckets=(16, 32, 64, 128, 256, 512, 1024, 2048)) -> int:
@@ -97,6 +99,7 @@ class Engine:
                                         device=self.device)
         self.slots: list[Request | None] = [None] * max_batch
         self.host_len = np.zeros(max_batch, np.int32)
+        self.counters = np.zeros(max_batch, np.int64)     # sampling key counters
         self.queue: list[Request] = []
         self.pending: _Pending | None = None
         self.finished: list[Request] = []
@@ -114,8 +117,7 @@ class Engine:
         if len(prompt) >= self.max_seq:
             raise ValueError(f"prompt length {len(prompt)} >= max_seq {self.max_seq}")
         r = Request(next(self._rid), list(prompt), max_new_tokens, eos_id,
-                    temp, top_k, top_p, seed,
-                    generator=torch.Generator().manual_seed(int(seed)))
+                    temp, top_k, top_p, seed)
         self.queue.append(r)
         return r.rid
 
@@ -171,7 +173,8 @@ class Engine:
         return n
 
     def _sample_one(self, logits_row: torch.Tensor, r: Request) -> torch.Tensor:
-        noise = self._noise([r], logits_row.shape[-1])
+        """A request's first token, under its counter-0 key."""
+        noise = self._noise([r], [0], logits_row)
         return sample_batch(
             logits_row[None], noise,
             torch.tensor([r.temp], dtype=torch.float32),
@@ -179,10 +182,15 @@ class Engine:
             torch.tensor([r.top_p], dtype=torch.float32))[0]
 
     @staticmethod
-    def _noise(reqs, n_vocab: int) -> torch.Tensor:
-        k = min(MAX_K, n_vocab)
-        return torch.stack([gumbel(r.generator, k) if r is not None and r.temp > 0
-                            else torch.zeros(k) for r in reqs])
+    def _noise(reqs, counters, logits: torch.Tensor) -> torch.Tensor:
+        """(len(reqs), k) Gumbel rows on the logits' device, row b under
+        (reqs[b].seed, counters[b]), built on the host (`gumbel_noise`);
+        zeros (unused) when no request samples."""
+        k = min(MAX_K, logits.shape[-1])
+        if not any(r is not None and r.temp > 0 for r in reqs):
+            return torch.zeros((len(reqs), k), device=logits.device)
+        seeds = [r.seed if r is not None else 0 for r in reqs]
+        return gumbel_noise(seeds, list(counters), k, logits.device)
 
     def _advance_admission_once(self) -> int:
         """Process at most ONE prefill chunk; install the request when its
@@ -210,6 +218,7 @@ class Engine:
         self.kv.set_slot(b, p.kv.k, p.kv.v, len(toks))
         self.slots[b] = r
         self.host_len[b] = len(toks)
+        self.counters[b] = 1
         self._tok[b] = first
         self.pending = None
         r.out.append(first)
@@ -243,12 +252,13 @@ class Engine:
             self.kv.lengths, attn_window=window)
         reqs = self.slots
         nxt = sample_batch(
-            logits[:, 0, :], self._noise(reqs, logits.shape[-1]),
+            logits[:, 0, :], self._noise(reqs, self.counters, logits),
             torch.tensor([r.temp if r else 0.0 for r in reqs], dtype=torch.float32),
             torch.tensor([r.top_k if r else 1 for r in reqs], dtype=torch.int32),
             torch.tensor([r.top_p if r else 1.0 for r in reqs], dtype=torch.float32))
         self.kv.lengths += torch.as_tensor(active, device=self.device).to(torch.int32)
         self.host_len += active
+        self.counters += 1
         self._tok = nxt.to(torch.int64)
         return nxt, [r.rid if r is not None else None for r in reqs]
 

@@ -1,10 +1,14 @@
 """Token sampling: greedy and batched top-k/top-p with temperature (the
-counterpart of ggml_gfx906_tpu/runtime/sampling.py).
+counterpart of ggml_gfx906_tpu/runtime/sampling.py), and the reference's
+random numbers.
 
 The reference draws from jax.random.categorical, i.e. argmax(logp + Gumbel
-noise); torch cannot reproduce jax.random's bits, so the port's
-`sample_batch` takes the Gumbel noise as an argument. The engine draws it
-from a torch.Generator seeded per request (`gumbel`).
+noise), with the key fold_in(PRNGKey(seed), counter) (runtime/engine.py:
+38, 216-217). Its threefry2x32 generator is integer arithmetic, so the port
+computes the same keys and bits in torch integer ops (uint32 values held in
+int64 and masked to 32 bits) and forms the Gumbel draws as jax.random.gumbel
+does. `sample_batch` takes the noise as an argument; the engine builds it
+with `gumbel_noise` on the host and copies it to the logits' device.
 
 ref: gpt_sample_top_k_top_p examples/common.cpp:113-121.
 """
@@ -12,17 +16,78 @@ from __future__ import annotations
 
 import torch
 
+_MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def gumbel(generator: torch.Generator, n: int) -> torch.Tensor:
-    """n Gumbel(0, 1) draws (f32, CPU) from `generator`, as jax.random.gumbel
-    forms them: -log(-log(u)), u uniform in [tiny, 1)."""
-    u = torch.rand(n, generator=generator, dtype=torch.float32)
-    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
+def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
+    return ((v << r) | (v >> (32 - r))) & _MASK
+
+
+def threefry2x32(k1, k2, x0, x1):
+    """The Threefry-2x32 hash (20 rounds) as jax computes it (jax/_src/
+    prng.py::_threefry2x32_lowering): int64 tensors of uint32 values in,
+    the two hashed words out."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK
+    return x0, x1
+
+
+def prng_key(seed, device=None) -> torch.Tensor:
+    """jax.random.PRNGKey(seed) for int32 seeds: (..., 2) int64 [0, seed
+    mod 2^32]. `seed` is an int or an integer tensor of seeds."""
+    s = torch.as_tensor(seed, dtype=torch.int64, device=device) & _MASK
+    return torch.stack([torch.zeros_like(s), s], dim=-1)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """jax.random.fold_in(key, data): the hash of the count [0, data] under
+    the key. key (..., 2); data an int or a tensor broadcastable to key's
+    leading shape."""
+    d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _MASK
+    y0, y1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def uniform_bits(key: torch.Tensor, n: int) -> torch.Tensor:
+    """jax.random.bits(key, (n,)) with jax_threefry_partitionable on (jax's
+    default): the xor of the two hashed words of the counts 0..n-1. key
+    (..., 2) → (..., n) int64 values below 2^32."""
+    lo = torch.arange(n, dtype=torch.int64, device=key.device)
+    b0, b1 = threefry2x32(key[..., 0:1], key[..., 1:2], torch.zeros_like(lo), lo)
+    return b0 ^ b1
+
+
+def gumbel(key: torch.Tensor, n: int) -> torch.Tensor:
+    """jax.random.gumbel(key, (n,), float32): u uniform in [tiny, 1) from the
+    top 23 bits (jax/_src/random.py::_uniform), then -log(-log(u)) in f32.
+    key (..., 2) → (..., n) f32."""
+    tiny = torch.finfo(torch.float32).tiny
+    mant = (uniform_bits(key, n) >> 9) | 0x3F800000        # below 2^31: fits int32
+    f = mant.to(torch.int32).view(torch.float32) - 1.0
+    u = torch.clamp(f + tiny, min=tiny)     # f·(1 − tiny) + tiny; 1 − tiny is 1 in f32
     return -torch.log(-torch.log(u))
+
+
+def gumbel_noise(seeds, counters, n: int, device=None) -> torch.Tensor:
+    """(B, n) Gumbel draws of B requests, row b under the key
+    fold_in(PRNGKey(seeds[b]), counters[b]), as the reference engine keys
+    its token counters[b] (runtime/engine.py:38, 216-217). Computed on the
+    host, where the hash's few hundred small integer ops cost no kernel
+    launches, and copied to `device` once."""
+    key = fold_in(prng_key(seeds), torch.as_tensor(counters))
+    return gumbel(key, n).to(device)
 
 
 def sample_batch(logits, noise, temp, top_k, top_p, max_k: int = 64):

@@ -95,6 +95,25 @@ register("qmm_pipeline", "off",
          "(qmm_q4_K_pipelined: x in bf16, scales on per-group sums): 'on', "
          "'auto' (on for operands on the card) or 'off' (K1)",
          choices=("off", "on", "auto"))
+register("int8_tile", 512,
+         "K-tile width of the int8 execution layout (per-(row, tile) requant "
+         "scale granularity); halved while K % tile != 0 and, for this "
+         "default, while K / tile < 8, down to 128 (ops/quantized.py::"
+         "_choose_tile)")
+register("weights_layout", "kernel",
+         "quantized weight execution layout: 'kernel' (the GGUF types' "
+         "fields and their matmul kernels K1-K10), 'int8' (tile-major int8 "
+         "+ per-tile f32 scales, exact per-tile integer dots in plain torch) "
+         "or 'auto' (measure both once per process and pick; utils/"
+         "autotune.py::choose)",
+         choices=("kernel", "int8", "auto"))
+register("attn_impl", "pallas",
+         "causal attention implementation: 'pallas' (kernel K2, ops/cuda/"
+         "flash_attn.py) or 'xla' (the plain materialized-mask attention "
+         "ops/attention.py::_causal_ref); the reference's value names, so "
+         "that a setting and utils/autotune.py::choose_attn read the same in "
+         "both packages",
+         choices=("pallas", "xla"))
 register("engine_chunk_size", 128,
          "prompt tokens prefilled per engine step during admission")
 register("engine_min_window", 32,

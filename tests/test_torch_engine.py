@@ -109,6 +109,38 @@ def test_engine_sampling_batch_invariant(models):
     assert all(len(o) == 6 for o in solo)
 
 
+def test_engine_sampled_streams_match_reference_engine(models):
+    """At temp > 0 both engines key token j of a request with
+    fold_in(PRNGKey(seed), j): the port's streams equal the JAX Engine's
+    token for token (window delta off; int8_min_m = 0 on both sides, as in
+    test_engine_matches_reference_engine)."""
+    jcfg, jp, tcfg, tp = models
+    prompts = _prompts([9, 14, 2, 16], seed=6)      # one prefill bucket: few compiles
+    seeds = [3, 11, 12345, 2 ** 31 - 1]
+    kw = dict(temp=0.9, top_k=20, top_p=0.85)
+
+    def run(eng):
+        rids = [eng.submit(p, 6, seed=s, **kw) for p, s in zip(prompts, seeds)]
+        done = {r.rid: r.out for r in eng.run()}
+        return [done[r] for r in rids]
+
+    jconfig.set("engine_window_delta", False)
+    jconfig.set("int8_min_m", 0)
+    tconfig.set("int8_min_m", 0)
+    try:
+        ref = run(JEngine(jllama, jcfg, jp, max_batch=4, max_seq=MAX_SEQ, chunk_size=CHUNK))
+        got = run(Engine(tllama, tcfg, tp, max_batch=4, max_seq=MAX_SEQ, chunk_size=CHUNK,
+                         device="cpu"))
+    finally:
+        jconfig.unset("engine_window_delta")
+        jconfig.unset("int8_min_m")
+        tconfig.unset("int8_min_m")
+    assert got == ref
+    greedy = [tllama.generate(tcfg, tp, p, 6, max_seq=MAX_SEQ, device="cpu")[len(p):]
+              for p in prompts]
+    assert got != greedy                      # the streams are really sampled
+
+
 def test_engine_matches_reference_engine_int8_route(models, monkeypatch):
     """Prefill chunks of 64 tokens and ragged tails padded to 64 run the
     int8 route (K3) at the default int8_min_m on both sides. Every prompt is

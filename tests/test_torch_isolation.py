@@ -42,6 +42,8 @@ def test_port_imports_no_jax_and_runs_a_cpu_forward():
         names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
         for n in names:
             importlib.import_module(n)
+        for n in ("utils.autotune", "utils.perf", "ops.cuda.dma_copy"):
+            assert pkg.__name__ + "." + n in names, n
         import chip_smoke   # the smoke script imports nothing of JAX either
         assert not any(m.split(".")[0] in ("jax", "jaxlib", "ggml_gfx906_tpu")
                        for m in sys.modules)

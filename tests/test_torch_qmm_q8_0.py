@@ -143,5 +143,8 @@ def test_dispatch_routes_q8_0_by_m():
     for qtype in (GGMLType.IQ4_NL, GGMLType.Q8_K):
         with pytest.raises(NotImplementedError):
             tdispatch.route(1, qtype)
-        with pytest.raises(NotImplementedError):
-            tqz.QuantTensor.from_wire(qtype, np.zeros(0, np.uint8), (0, 256), "cpu")
+    with pytest.raises(NotImplementedError):
+        tqz.QuantTensor.from_wire(GGMLType.IQ4_NL, np.zeros(0, np.uint8), (0, 256), "cpu")
+    # Q8_K has no kernel in either package: it loads in the "wire" layout
+    assert tqz.QuantTensor.from_wire(GGMLType.Q8_K, np.zeros(292, np.uint8), (1, 256),
+                                     "cpu").layout == "wire"
