@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--layers N] [--out DIR]
+    python3 chip_smoke.py [--layers N] [--out DIR] [--checks A,B] [--paths P,Q]
 
 Phases (each failure raises, so the script exits non-zero):
   1. device: requires CUDA; prints `nvidia-smi` name and power limit; TF32
@@ -15,7 +15,9 @@ Phases (each failure raises, so the script exits non-zero):
      (the autotuner's streaming copy, bit for bit against copy_) against
      their plain PyTorch versions at the main paths' shapes, each timed
      with CUDA events beside its plain version, its library yardstick and
-     its bound;
+     its bound; K4 and K7 also row by row: on each shape the rows of one
+     128-row product equal, bit for bit, those of the same x cut to M in
+     {1, 8, 16, 63, 100} and of single rows (check_rows);
   4. a small-model check of the card's forward against the CPU's, for a
      tiny Q4_K, Q4_K_M-mixture, Q8_0, Q5_K_M-mixture, Q4_0, Q4_1, Q5_0,
      Q5_1, Q2_K-mixture and Q3_K_M-mixture model, and the Q4_K and Q3_K_M
@@ -42,12 +44,15 @@ Phases (each failure raises, so the script exits non-zero):
      single-sequence `generate` streams, that its kernels launched as many
      times per decode step and per 128-token prefill chunk as its tensor
      types predict, and traces one decode step and one 8-slot engine decode
-     step with torch.profiler for the device-busy share. The Q4_K file
+     step with torch.profiler for the device-busy share (and, on the
+     Q4_K_M and Q5_K_M paths, one more 100-token prefill). The Q4_K file
      then decodes again with qmm_pipeline="on" (K10 in place of K1),
      traced, with one step's logits held against the flag off within the
      int8 route's distance from them. The launch counts are set to 0 just
      before each path (and the K10 and autotune phases) and read just after
      it.
+--checks and --paths cut phases 3 and 6 to the named checks and paths (a
+cut run skips phases 4 and 5 and prints no result line).
 Detailed results go to DIR/chip_smoke.json (default build/). The second-to-last
 stdout line is {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -254,11 +259,35 @@ def check_qmm(device, timer, results):
         del w_dense
 
 
+# K4's and K7's timed M: decode (1, 8 slots), the engine's short chunks (16),
+# a ragged 63, the single-stream 100-token prefill and a 128-row chunk
+TILED_MS = (1, 8, 16, 63, 100, 128)
+ROW_MS = (1, 8, 16, 63, 100)
+ROW_IS = (0, 37, 99, 127)
+
+
+def check_rows(label, fn, x) -> dict:
+    """Invariant of the tiled f32 kernels: a row's bits do not depend on M.
+    fn(x)[:m] must equal fn(x[:m]) for m in ROW_MS, and fn(x)[i] must equal
+    fn(x[i:i+1])[0] for the rows in ROW_IS, bit for bit (torch.equal)."""
+    full = fn(x)
+    bad = [m for m in ROW_MS if not torch.equal(full[:m], fn(x[:m]))]
+    bad += [f"row {i}" for i in ROW_IS if not torch.equal(full[i], fn(x[i:i + 1])[0])]
+    if bad:
+        raise AssertionError(f"{label} N={full.shape[1]} K={x.shape[1]}: the rows of a "
+                             f"{x.shape[0]}-row product differ from those at M = {bad}")
+    log(f"{label} N={full.shape[1]} K={x.shape[1]}: rows bit-equal at M = "
+        f"{list(ROW_MS) + [x.shape[0]]} and rows {list(ROW_IS)} alone")
+    return {"ms": list(ROW_MS) + [x.shape[0]], "rows": list(ROW_IS), "equal": True}
+
+
 def check_q6k(device, timer, results):
     """K4 at the Q4_K_M file's Q6_K shapes: attn_v, ffn_down (43
     superblocks per row, an odd count) and the head, from decode to a
-    128-row prefill chunk (Q6_K has no int8 twin)."""
+    128-row prefill chunk (Q6_K has no int8 twin), and its rows bit for bit
+    across M (check_rows)."""
     gen = torch.Generator(device=device).manual_seed(4)
+    rows = {}
     for n, k in ((4096, 4096), (4096, 11008), (32000, 4096)):
         nb = k // 256
         w = (torch.randint(0, 256, (n, nb * 128), dtype=torch.uint8, device=device, generator=gen),
@@ -266,13 +295,16 @@ def check_q6k(device, timer, results):
              torch.randint(-128, 128, (n, nb * 16), dtype=torch.int8, device=device, generator=gen),
              torch.rand((n, nb), device=device, generator=gen) * 1e-3)
         w_dense = qmm_q6k.dequant(*w)
-        for m in (1, 8, 16, 63, 128):
+        for m in TILED_MS:
             check_f32(timer, results, "K4", kernels.K4,
                       lambda x: qmm_q6k.qmm_q6_K(x, *w),
                       lambda x: qmm_q6k.qmm_q6_K_plain(x, *w),
                       torch.randn((m, k), device=device, generator=gen), w_dense,
                       n * k * 6.625 / 8)
         del w_dense
+        rows[f"N={n} K={k}"] = check_rows("K4", lambda x: qmm_q6k.qmm_q6_K(x, *w),
+                                          torch.randn((128, k), device=device, generator=gen))
+    return rows
 
 
 def check_q8_0(device, timer, results):
@@ -327,8 +359,10 @@ def check_q4_0(device, timer, results):
 def check_q5k(device, timer, results):
     """K7 at the Q5_K_M file's Q5_K shapes: attention, ffn_gate/up and
     ffn_down (43 superblocks per row, an odd count), from decode to a
-    128-row prefill chunk (Q5_K has no int8 twin)."""
+    128-row prefill chunk (Q5_K has no int8 twin), and its rows bit for bit
+    across M (check_rows)."""
     gen = torch.Generator(device=device).manual_seed(7)
+    rows = {}
     for n, k in ((4096, 4096), (11008, 4096), (4096, 11008)):
         nb = k // 256
         w = (torch.randint(0, 256, (n, nb * 128), dtype=torch.uint8, device=device, generator=gen),
@@ -336,13 +370,16 @@ def check_q5k(device, timer, results):
              torch.randint(0, 64, (n, nb * 16), dtype=torch.uint8, device=device, generator=gen),
              torch.rand((n, nb * 2), device=device, generator=gen) * 1e-3)
         w_dense = qmm_q5k.dequant(*w)
-        for m in (1, 8, 16, 63, 128):
+        for m in TILED_MS:
             check_f32(timer, results, "K7", kernels.K7,
                       lambda x: qmm_q5k.qmm_q5_K(x, *w),
                       lambda x: qmm_q5k.qmm_q5_K_plain(x, *w),
                       torch.randn((m, k), device=device, generator=gen), w_dense,
                       n * k * 5.75 / 8)
         del w_dense
+        rows[f"N={n} K={k}"] = check_rows("K7", lambda x: qmm_q5k.qmm_q5_K(x, *w),
+                                          torch.randn((128, k), device=device, generator=gen))
+    return rows
 
 
 # K8's types: (type, kernel, bits per weight in the port's layout)
@@ -614,6 +651,9 @@ RECIPES = {
 # SHORT_LAYERS, so that twelve paths fit the smoke's time
 FULL_DEPTH = ("q4_k",)
 SHORT_LAYERS = 8
+# the recipes whose 100-token prefill is traced too (every product of the
+# Q5_K_M file's prefill runs on K4 and K7, of the Q4_K_M file's on K3 and K4)
+TRACE_PREFILL = ("q4_k_m", "q5_k_m")
 # the kernel each (type, route) takes (ops/cuda/dispatch.py)
 KERNEL_OF = {(GGMLType.Q4_K, "f32"): kernels.K1, (GGMLType.Q4_K, "i8"): kernels.K3,
              (GGMLType.Q6_K, "f32"): kernels.K4, (GGMLType.Q8_0, "f32"): kernels.K5,
@@ -879,6 +919,9 @@ def main_path(device, n_layer: int, recipe: str, layout: str = "kernel",
         torch.cuda.synchronize()
         out["prefill_100_s"] = time.perf_counter() - t0
         assert logits.shape == (100, cfg.n_vocab) and bool(torch.isfinite(logits).all())
+        if recipe in TRACE_PREFILL:
+            out["prefill_trace"] = trace_device(lambda: llama.forward(
+                cfg, params, toks, llama.make_cache(cfg, 1024, device=device), 0))
         stream = prompt + [int(logits[-1].argmax())]
         per_step = {}
         t0 = time.perf_counter()
@@ -944,7 +987,10 @@ def main_path(device, n_layer: int, recipe: str, layout: str = "kernel",
         out["engine_decode_step_ms"] = (time.perf_counter() - t0) / 5 * 1e3
         out["engine_step_trace"] = trace_device(eng.step)
     for key, step_ms in (("decode_step_trace", out["decode_step_ms"]),
-                         ("engine_step_trace", out["engine_decode_step_ms"])):
+                         ("engine_step_trace", out["engine_decode_step_ms"]),
+                         ("prefill_trace", out["prefill_100_s"] * 1e3)):
+        if key not in out:
+            continue
         busy = out[key]["busy_ms"]
         out[key]["busy_share"] = None if busy is None else busy / step_ms
     out["launches"] = launches()
@@ -953,6 +999,7 @@ def main_path(device, n_layer: int, recipe: str, layout: str = "kernel",
         raise AssertionError(f"{recipe}: kernels never launched on its path: {missing}")
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["prefill_tok_s"] = 100 / out["prefill_100_s"]
+    out["prefill_100_ms"] = out["prefill_100_s"] * 1e3
     out["decode_tok_s"] = (N_NEW - 1) / out["decode_s"]
     out["engine_tok_s"] = out["engine_tokens"] / out["engine_s"]
     del eng
@@ -1156,6 +1203,13 @@ def autotune_phase(device) -> dict:
     return out
 
 
+# phase 3, by name (--checks)
+CHECKS = {"qmm": check_qmm, "attention": check_attention, "q6k": check_q6k,
+          "q8_0": check_q8_0, "q4_0": check_q4_0, "q5k": check_q5k,
+          "legacy": check_legacy, "q23k": check_q23k, "pipe": check_pipe,
+          "dma": check_dma}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -1164,7 +1218,17 @@ def main(argv=None) -> int:
                          "under weights_layout=auto (width is never cut)")
     ap.add_argument("--out", type=Path, default=ROOT / "build",
                     help="directory for chip_smoke.json, the detailed results")
+    ap.add_argument("--checks", default=",".join(CHECKS),
+                    help="comma-separated kernel checks of phase 3 (default: all)")
+    ap.add_argument("--paths", default=None,
+                    help="comma-separated main paths of phase 6 (default: all); a run "
+                         "cut by --checks or --paths skips phases 4 and 5 and prints no "
+                         "result line")
     args = ap.parse_args(argv)
+    checks = args.checks.split(",")
+    unknown = set(checks) - set(CHECKS)
+    if unknown:
+        ap.error(f"unknown checks {sorted(unknown)}; known: {list(CHECKS)}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1191,28 +1255,27 @@ def main(argv=None) -> int:
 
     timer = Timer(device)
     results = []
-    check_qmm(device, timer, results)
-    check_attention(device, timer, results)
-    check_q6k(device, timer, results)
-    check_q8_0(device, timer, results)
-    check_q4_0(device, timer, results)
-    check_q5k(device, timer, results)
-    check_legacy(device, timer, results)
-    check_q23k(device, timer, results)
-    check_pipe(device, timer, results)
-    check_dma(device, timer, results)
+    row_checks = {}
+    for name in checks:
+        got = CHECKS[name](device, timer, results)
+        if got is not None:
+            row_checks[name] = got
+    partial = len(checks) < len(CHECKS) or args.paths is not None
 
-    small = small_model_check(device)
-    log(f"small models card vs CPU: {small}")
+    small = {} if partial else small_model_check(device)
+    if not partial:
+        log(f"small models card vs CPU: {small}")
 
-    tune = autotune_phase(device)
-    log(f"autotune [{label}]: K11 {tune['dma_gbs']:.1f} GB/s, library reduction "
-        f"{tune['hbm_gbs']:.1f} GB/s; M=1 2048x2048 Q4_K qmatmul kernel layout "
-        f"{tune.get('t_kernel_s', float('nan')) * 1e3:.4f} ms, int8 layout "
-        f"{tune.get('t_int8_s', float('nan')) * 1e3:.4f} ms; weights_layout=auto -> "
-        f"{tune['layout']}, attn_impl -> {tune['attn_impl']} ({tune['seconds']:.1f} s, "
-        f"launches {_nonzero(tune['launches'])})")
-    k2_dist = max(r["nmse"] for r in results if r["kernel"] == kernels.K2.name)
+    tune = {"launches": launches()} if partial else autotune_phase(device)
+    if not partial:
+        log(f"autotune [{label}]: K11 {tune['dma_gbs']:.1f} GB/s, library reduction "
+            f"{tune['hbm_gbs']:.1f} GB/s; M=1 2048x2048 Q4_K qmatmul kernel layout "
+            f"{tune.get('t_kernel_s', float('nan')) * 1e3:.4f} ms, int8 layout "
+            f"{tune.get('t_int8_s', float('nan')) * 1e3:.4f} ms; weights_layout=auto -> "
+            f"{tune['layout']}, attn_impl -> {tune['attn_impl']} ({tune['seconds']:.1f} s, "
+            f"launches {_nonzero(tune['launches'])})")
+    k2_dist = max((r["nmse"] for r in results if r["kernel"] == kernels.K2.name),
+                  default=None)
 
     log(f"free disk under build/: {shutil.disk_usage(ROOT / 'build').free / 1e9:.1f} GB")
     short = min(args.layers, SHORT_LAYERS)
@@ -1222,6 +1285,8 @@ def main(argv=None) -> int:
     plan += [(r, r, args.layers if r in FULL_DEPTH else short, "kernel", False)
              for r in RECIPES if r != "q4_k"]
     plan.append(("q4_k auto", "q4_k", short, "auto", False))
+    if args.paths is not None:
+        plan = [p for p in plan if p[0] in args.paths.split(",")]
     paths = {}
     for name, recipe, depth, layout, keep in plan:
         cut = "" if depth == 32 else f" (depth cut to {depth} of 32 layers)"
@@ -1240,7 +1305,10 @@ def main(argv=None) -> int:
             f"per 128-token prefill chunk {mp['launches_per_prefill_chunk_128']}, "
             f"in the whole path {mp['launches']}")
         for key, step in (("decode_step_trace", "decode_step_ms"),
-                          ("engine_step_trace", "engine_decode_step_ms")):
+                          ("engine_step_trace", "engine_decode_step_ms"),
+                          ("prefill_trace", "prefill_100_ms")):
+            if key not in mp:
+                continue
             t = mp[key]
             log(f"  {key} [{label}]: step {mp[step]:.3f} ms unprofiled, device busy "
                 f"{t['busy_ms']} ms ({t['device_activities']} activities; "
@@ -1281,6 +1349,16 @@ def main(argv=None) -> int:
            "qmm_q3_K": "M=8 N=11008 K=4096",
            "qmm_q4_K_pipelined": "M=1 N=11008 K=4096",
            "dma_copy": "copy 4096x4096 f32"}
+    if partial:
+        detail = {"device": smi, "build_s": build_s, "build": build.BUILD_LOG,
+                  "kernels": results, "row_checks": row_checks, "main_paths": paths,
+                  "checks": checks, "partial": True}
+        for mp in paths.values():
+            mp.pop("probe_logits", None)
+        args.out.mkdir(parents=True, exist_ok=True)
+        (args.out / "chip_smoke.json").write_text(json.dumps(detail, indent=1, default=str))
+        log(f"partial run ({checks}, paths {list(paths)}): no result line")
+        return 0
     int8_nmse = nmse(paths["q4_k int8"].pop("probe_logits"), paths["q4_k"].pop("probe_logits"))
     paths["q4_k int8"]["probe_logits_nmse_vs_kernel_layout"] = int8_nmse
     paths["q4_k auto"].pop("probe_logits")
@@ -1301,8 +1379,8 @@ def main(argv=None) -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"]})
     detail = {"device": smi, "build_s": build_s, "build": build.BUILD_LOG,
-              "kernels": results, "autotune": tune, "main_paths": paths,
-              "small_model": small}
+              "kernels": results, "row_checks": row_checks, "autotune": tune,
+              "main_paths": paths, "small_model": small}
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke.json").write_text(json.dumps(detail, indent=1, default=str))
     log(json.dumps({"kernels": line}))

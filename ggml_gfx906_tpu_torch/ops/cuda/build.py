@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` becomes `build/torch_kernels/lib<name>-<hash>.so` at
 the root of the checkout, compiled for Hopper (`sm_90a`) with a plain C
-interface. The hash covers the source and the flags, so an edited source
-builds anew and an unchanged one is reused. Builds happen at first use,
+interface. The hash covers the source, the headers in `csrc/` and the
+flags, so an edited source or header builds anew and an unchanged one is
+reused. Builds happen at first use,
 never at import: `build_all()` starts one nvcc per source, all at once, and
 waits for them; `library(name)` builds one source if it is missing.
 
@@ -64,10 +65,14 @@ def _nvcc() -> str:
     return found
 
 
-def digest(name: str) -> str:
-    """The hash of `csrc/<name>.cu` and the flags, which names its build."""
+def digest(name: str, csrc: Path = CSRC) -> str:
+    """The hash of `csrc/<name>.cu`, of every header in `csrc/` (a source
+    may include any of them) and of the flags, which names its build."""
     h = hashlib.sha256()
-    h.update((CSRC / f"{name}.cu").read_bytes())
+    h.update((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 

@@ -1,13 +1,23 @@
 """Q5_K matmul kernel K7 (f32, every M: Q5_K has no int8 twin).
 
-Kernel source: csrc/qmm_q5k.cu (fuller notes there).
+Kernel source: csrc/qmm_q5k.cu on the body it shares with K4,
+csrc/qmm_f32_tiled.cuh (fuller notes there).
 
 - K7 `qmm_q5_K` replaces ggml_gfx906_tpu/ops/pallas/qmm.py::qmm_q5_K.
-  Bound on the H100: bytes at decode — the packed weights (5.75 bits per
-  weight) are read once. Design: K4's — each lane reads 16 qs bytes and the
-  16 qh bytes that hold their fifth bits, forms 32 f32 weights in registers
-  and FMAs them against up to 8 activation rows; a fixed xor-shuffle
-  reduction per output (no TF32, no atomics).
+  The C entry point picks the kernel by M. M <= 8 (decode): lanes over
+  the K chunks, 2 weight rows per warp, x staged in shared memory per 32
+  chunks; bound by the packed weight bytes (5.75 bits per weight, read
+  once), then latency. M > 8 (prefill): a block dequantizes a 16- or
+  32-row weight tile once into shared memory for 64 or 32 activation rows
+  (128 accumulators per lane, 224 / 160 KB of shared memory), or, at
+  M > 32 where 64 x 64 tiles keep more than half of the SMs busy, a
+  lanes-as-outputs 64 x 64 tile (64 KB); bound by the f32 FMA rate, then
+  shared memory and the L2 traffic of x. The ptxas lines chip_smoke.py
+  prints give the registers.
+- Reduction order: 32 slots over the K chunks (c ≡ slot mod 32, ascending,
+  each chunk's 16 low then 16 high elements), then the xor-butterfly tree;
+  fixed by K alone, so a row's bits are the same at every M and in every
+  variant (engine streams equal `generate`'s). No TF32, no atomics.
 
 Weight layout (ggml wire order, struct of arrays; see ops/quantized.py):
 qs (N, K/2) u8, qh (N, K/8) u8, scm (N, K/16) u8 = unpacked [sc0..7 |

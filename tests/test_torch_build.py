@@ -1,0 +1,61 @@
+"""The port's kernel build (ops/cuda/build.py) on the CPU: the hash that
+names a library in build/torch_kernels/ changes with its source, with any
+header in csrc/ (K4 and K7 share qmm_f32_tiled.cuh) and with the flags, so
+an edit never reuses a stale library. nvcc itself runs only on the card's
+machine (chip_smoke.py)."""
+import shutil
+
+import pytest
+
+from ggml_gfx906_tpu_torch.ops.cuda import build
+
+
+@pytest.fixture
+def csrc(tmp_path):
+    copy = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, copy)
+    return copy
+
+
+def _digests(csrc):
+    return {name: build.digest(name, csrc) for name in build.sources()}
+
+
+def test_digest_of_a_copy_equals_the_checkout(csrc):
+    assert _digests(csrc) == {name: build.digest(name) for name in build.sources()}
+
+
+def test_sources_are_the_cu_files_and_headers_are_hashed(csrc):
+    assert "qmm_q6k" in build.sources() and "qmm_q5k" in build.sources()
+    assert not any(name.endswith(".cuh") for name in build.sources())
+    for name in ("qmm_q6k", "qmm_q5k"):
+        assert '#include "qmm_f32_tiled.cuh"' in (csrc / f"{name}.cu").read_text()
+
+
+@pytest.mark.parametrize("edit", [b"\n// a comment\n", b" "])
+def test_a_header_edit_changes_every_digest(csrc, edit):
+    before = _digests(csrc)
+    header = csrc / "qmm_f32_tiled.cuh"
+    header.write_bytes(header.read_bytes() + edit)
+    after = _digests(csrc)
+    assert all(after[name] != before[name] for name in before)
+
+
+def test_a_new_header_changes_every_digest(csrc):
+    before = _digests(csrc)
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert all(d != before[name] for name, d in _digests(csrc).items())
+
+
+def test_a_source_edit_changes_only_its_digest(csrc):
+    before = _digests(csrc)
+    src = csrc / "qmm_q6k.cu"
+    src.write_bytes(src.read_bytes() + b"\n")
+    after = _digests(csrc)
+    assert {name for name in before if after[name] != before[name]} == {"qmm_q6k"}
+
+
+def test_the_flags_change_every_digest(csrc, monkeypatch):
+    before = _digests(csrc)
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ["-lineinfo"])
+    assert all(d != before[name] for name, d in _digests(csrc).items())
