@@ -15,9 +15,10 @@ Phases (each failure raises, so the script exits non-zero):
      (the autotuner's streaming copy, bit for bit against copy_) against
      their plain PyTorch versions at the main paths' shapes, each timed
      with CUDA events beside its plain version, its library yardstick and
-     its bound; K4 and K7 also row by row: on each shape the rows of one
-     128-row product equal, bit for bit, those of the same x cut to M in
-     {1, 8, 16, 63, 100} and of single rows (check_rows);
+     its bound; the kernels on the f32 body (K4, K7, K8, K9) also row by
+     row: on each shape the rows of one 128-row product equal, bit for
+     bit, those of the same x cut to M in {1, 8, 16, 63, 100} and of
+     single rows (check_rows);
   4. a small-model check of the card's forward against the CPU's, for a
      tiny Q4_K, Q4_K_M-mixture, Q8_0, Q5_K_M-mixture, Q4_0, Q4_1, Q5_0,
      Q5_1, Q2_K-mixture and Q3_K_M-mixture model, and the Q4_K and Q3_K_M
@@ -45,7 +46,7 @@ Phases (each failure raises, so the script exits non-zero):
      times per decode step and per 128-token prefill chunk as its tensor
      types predict, and traces one decode step and one 8-slot engine decode
      step with torch.profiler for the device-busy share (and, on the
-     Q4_K_M and Q5_K_M paths, one more 100-token prefill). The Q4_K file
+     paths of TRACE_PREFILL, one more 100-token prefill). The Q4_K file
      then decodes again with qmm_pipeline="on" (K10 in place of K1),
      traced, with one step's logits held against the flag off within the
      int8 route's distance from them. The launch counts are set to 0 just
@@ -259,8 +260,9 @@ def check_qmm(device, timer, results):
         del w_dense
 
 
-# K4's and K7's timed M: decode (1, 8 slots), the engine's short chunks (16),
-# a ragged 63, the single-stream 100-token prefill and a 128-row chunk
+# The timed M of the kernels on the f32 body (K4, K7, K8, K9): decode (1,
+# 8 slots), the engine's short chunks (16), a ragged 63, the single-stream
+# 100-token prefill and a 128-row chunk
 TILED_MS = (1, 8, 16, 63, 100, 128)
 ROW_MS = (1, 8, 16, 63, 100)
 ROW_IS = (0, 37, 99, 127)
@@ -390,14 +392,15 @@ LEGACY = ((GGMLType.Q4_1, kernels.K8_Q4_1, 6), (GGMLType.Q5_0, kernels.K8_Q5_0, 
 def check_legacy(device, timer, results):
     """K8's three entry points at every matrix shape of the Q4_1, Q5_0 and
     Q5_1 files but their Q6_K head, from decode to a 128-row prefill chunk
-    (none has an int8 twin). The 11008-wide ffn_down has 344 blocks per
-    row, which the kernel's groups of 512-element spans do not divide."""
+    (none has an int8 twin; the 11008-wide ffn_down has 344 blocks per
+    row, which 32 slots do not divide), and their rows bit for bit across
+    M (check_rows)."""
     gen = torch.Generator(device=device).manual_seed(8)
+    rows = {}
     for qtype, kern, bpw in LEGACY:
         name = qtype.name.lower()
         fn, plain = getattr(qmm_legacy, f"qmm_{name}"), getattr(qmm_legacy, f"qmm_{name}_plain")
-        for n, k, ms in ((4096, 4096, (1,)), (11008, 4096, (1, 8, 16, 63, 128)),
-                         (4096, 11008, (1, 8, 16, 63, 128))):
+        for n, k in ((4096, 4096), (11008, 4096), (4096, 11008)):
             w = {"qs": torch.randint(0, 256, (n, k // 2), dtype=torch.uint8, device=device,
                                      generator=gen),
                  "qh": torch.randint(0, 256, (n, k // 8), dtype=torch.uint8, device=device,
@@ -406,12 +409,16 @@ def check_legacy(device, timer, results):
                  "m": torch.rand((n, k // 32), device=device, generator=gen) * -0.1}
             fields = [w[f] for f in dispatch.FIELDS[qtype]]
             w_dense = getattr(qmm_legacy, f"dequant_{name}")(*fields)
-            for m in ms:
+            for m in TILED_MS:
                 check_f32(timer, results, f"K8 {qtype.name}", kern,
                           lambda x: fn(x, *fields), lambda x: plain(x, *fields),
                           torch.randn((m, k), device=device, generator=gen), w_dense,
                           n * k * bpw / 8)
             del w_dense
+            rows[f"{qtype.name} N={n} K={k}"] = check_rows(
+                f"K8 {qtype.name}", lambda x: fn(x, *fields),
+                torch.randn((128, k), device=device, generator=gen))
+    return rows
 
 
 # K9's types: (type, kernel, bits per weight in the port's layout)
@@ -421,9 +428,11 @@ Q23K = ((GGMLType.Q2_K, kernels.K9_Q2_K, 2.75), (GGMLType.Q3_K, kernels.K9_Q3_K,
 def check_q23k(device, timer, results):
     """K9's two entry points at every matrix shape of the Q2_K and Q3_K_M
     files that their types take (the 11008-wide ffn_down has 43
-    superblocks per row, an odd count), at decode, 8-slot and 128-row
-    prefill M (neither type has an int8 twin)."""
+    superblocks per row, an odd count), from decode to a 128-row prefill
+    chunk (neither type has an int8 twin), and their rows bit for bit
+    across M (check_rows)."""
     gen = torch.Generator(device=device).manual_seed(9)
+    rows = {}
     for qtype, kern, bpw in Q23K:
         name = qtype.name[:2].lower() + "_K"
         fn, plain = getattr(qmm_q23k, f"qmm_{name}"), getattr(qmm_q23k, f"qmm_{name}_plain")
@@ -437,12 +446,16 @@ def check_q23k(device, timer, results):
                  "dmin": torch.rand((n, k // 256), device=device, generator=gen) * 1e-3}
             fields = [w[f] for f in dispatch.FIELDS[qtype]]
             w_dense = getattr(qmm_q23k, f"dequant_{name}")(*fields)
-            for m in (1, 8, 128):
+            for m in TILED_MS:
                 check_f32(timer, results, f"K9 {qtype.name}", kern,
                           lambda x: fn(x, *fields), lambda x: plain(x, *fields),
                           torch.randn((m, k), device=device, generator=gen), w_dense,
                           n * k * bpw / 8)
             del w_dense
+            rows[f"{qtype.name} N={n} K={k}"] = check_rows(
+                f"K9 {qtype.name}", lambda x: fn(x, *fields),
+                torch.randn((128, k), device=device, generator=gen))
+    return rows
 
 
 def check_pipe(device, timer, results):
@@ -651,9 +664,10 @@ RECIPES = {
 # SHORT_LAYERS, so that twelve paths fit the smoke's time
 FULL_DEPTH = ("q4_k",)
 SHORT_LAYERS = 8
-# the recipes whose 100-token prefill is traced too (every product of the
-# Q5_K_M file's prefill runs on K4 and K7, of the Q4_K_M file's on K3 and K4)
-TRACE_PREFILL = ("q4_k_m", "q5_k_m")
+# the recipes whose 100-token prefill is traced too: those whose prefill
+# products run on the f32 body (K4, K7, K8, K9; K3 takes the Q4_K_M file's
+# Q4_K ones and some of the Q3_K_M file's)
+TRACE_PREFILL = ("q4_k_m", "q5_k_m", "q4_1", "q5_0", "q5_1", "q2_k", "q3_k_m")
 # the kernel each (type, route) takes (ops/cuda/dispatch.py)
 KERNEL_OF = {(GGMLType.Q4_K, "f32"): kernels.K1, (GGMLType.Q4_K, "i8"): kernels.K3,
              (GGMLType.Q6_K, "f32"): kernels.K4, (GGMLType.Q8_0, "f32"): kernels.K5,

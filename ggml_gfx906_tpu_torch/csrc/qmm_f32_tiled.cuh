@@ -1,25 +1,35 @@
-// Shared body of the f32 k-quant matmul kernels K4 (Q6_K, csrc/qmm_q6k.cu)
-// and K7 (Q5_K, csrc/qmm_q5k.cu) for Hopper (sm_90a):
-//   y (M, N) f32 = x (M, K) f32 . W^T, W dequantized on the fly.
+// Shared body of the f32 quantized matmul kernels for Hopper (sm_90a):
+//   y (M, N) f32 = x (M, K) f32 . W^T, W dequantized on the fly,
+// for K4 (Q6_K, csrc/qmm_q6k.cu), K7 (Q5_K, csrc/qmm_q5k.cu), K8 (Q4_1,
+// Q5_0, Q5_1, csrc/qmm_legacy.cu) and K9 (Q2_K, Q3_K, csrc/qmm_q23k.cu).
 //
-// A chunk is 16 bytes of a row's low-nibble array (ql / qs): 32 weights in
-// two runs of 16 consecutive K positions, the low nibbles' ("lo") and the
-// high nibbles' ("hi"), plus the 16 bytes of high bits (qh) that go with
-// them. A format F supplies where a chunk's runs and bytes lie, its scales,
-// and the dequantization of one packed 32-bit word (4 weights of a run):
+// A chunk is 16 bytes of a row's packed low-bit array (ql / qs): 32 weights
+// in two runs of 16 consecutive K positions, "lo" and "hi" (the low and
+// high nibbles of the 16 bytes, or two 2-bit planes of them), plus the
+// high bits that go with them: 16 bytes (F::HBYTES = 16: Q6_K, Q5_K,
+// Q3_K), one 4-byte word (4: Q5_0, Q5_1) or none (0: Q4_1, Q2_K; Q4_K and
+// Q4_0 would be 0 too). A format F supplies where a chunk's runs and bytes
+// lie, its scales, and the dequantization of one packed 32-bit word (4
+// weights of a run):
 //   struct Ptrs;                       the weight arrays
+//   HBYTES                             high-bit bytes per chunk: 16, 4 or 0
 //   int run(c, half)                   K index of chunk c's lo (0) / hi (1) run
-//   const uint8_t* qptr(p, n, c, K)    chunk c's 16 nibble bytes, row n
-//   const uint8_t* hptr(p, n, c, K)    their 16 high-bit bytes
+//   const uint8_t* qptr(p, n, c, K)    chunk c's 16 packed bytes, row n
+//   const uint8_t* hptr(p, n, c, K)    their HBYTES high-bit bytes (HBYTES > 0)
 //   Sraw sload(p, n, c, K)             the scale words the chunk needs
 //   copy_sraw(dst, p, n, c, K)         the same bytes by cp.async (16-byte slot)
 //   Sraw sraw_of(src, c)               ... read back from that slot
 //   Scale scale(Sraw, half)            w = q * mul (- sub)
+//   uint32_t hword(h, j)               the high bits of packed word j, from the
+//                                      word the body loaded for it: word j of
+//                                      16 bytes, the chunk's one word of 4
+//                                      (0 without high bits)
 //   float4 dequant4(q, h, c, half, s)  the 4 weights of one packed word
-// Every weight is formed with __fmul_rn / __fsub_rn exactly as the plain
-// dequantization forms it (nvcc would otherwise contract a*b - c into an
-// FMA), so the weights in registers and in shared memory equal it bit for
-// bit.
+// The body loads only the HBYTES bytes: a 16-byte, one 4-byte or no load
+// (or cp.async) per chunk, never past a row's end. Every weight is formed
+// with __fmul_rn / __fsub_rn exactly as the plain dequantization forms it
+// (nvcc would otherwise contract a*b - c into an FMA), so the weights in
+// registers and in shared memory equal it bit for bit.
 //
 // Reduction order (one order for every M, kernel and launch shape): each
 // output y[m, n] is the sum of 32 slot sums. Slot l (0..31) takes the
@@ -30,7 +40,9 @@
 // place in its tile or on the launch shape, so a row of x gives the same
 // bits alone and in any batch: the engine's streams equal `generate`'s.
 // No split-K across blocks, no atomics. It is the order K4 and K7 had
-// before this body, so their M = 1 results keep their bits.
+// before this body, so their M = 1 results kept their bits; K8's and K9's
+// earlier kernels summed in another order, so their results moved in the
+// last bits when they came onto the body.
 //
 // Three kernels share the format step and the order; launch() picks one
 // by M and by the grid the tree kernel would have:
@@ -68,9 +80,10 @@
 //   added, left + right, and passed up): the adds pair exactly the sums the
 //   butterfly pairs, so the result is the butterfly's, bit for bit. A warp
 //   touches 4 x rows and 8 weight float4s per element (broadcast reads).
-//   A stage's packed bytes come as one 16-byte copy per row and run, its
-//   scales as one copy per row. 64 KB of shared memory, ~238 registers,
-//   one block per SM.
+//   A stage's packed bytes come as one 16-byte copy per row, its high bits
+//   as one 16- or 4-byte copy per row (none without), its scales as one
+//   copy per row. 64 KB of shared memory, ~238 registers, one block per
+//   SM.
 // Every kernel reads each weight from HBM and dequantizes it once per
 // block row of activations: at most twice for M <= 128.
 // FP32 FMA on the CUDA cores, never TF32: the reference dot is HIGHEST.
@@ -100,6 +113,15 @@ __device__ __forceinline__ void cp_async_small(void* dst, const void* src) {
                  :: "r"(s), "l"(src), "n"(BYTES) : "memory");
 }
 
+// Byte i of v as the float byte - bias: one PRMT puts the byte under the
+// exponent of 2^23 (the float 2^23 + byte), an FADD takes bias + 2^23 off;
+// exact for a small integer bias. It spares the I2F conversion, which
+// runs at a fraction of the FMA rate, on formats whose quants are bytes
+// of a packed word.
+__device__ __forceinline__ float byte_minus(uint32_t v, int i, float bias_plus_2p23) {
+    return __fsub_rn(__uint_as_float(__byte_perm(v, 0x4B000000u, 0x7540u | i)), bias_plus_2p23);
+}
+
 // ------------------------------------------------------------ formats
 
 // Q6_K (ggml wire order, struct of arrays, per row n, superblock sb of
@@ -121,6 +143,7 @@ struct Q6K {
         float d;
         int lo, hi;
     };
+    static constexpr int HBYTES = 16;
     static __device__ __forceinline__ int run(int c, int half) {
         const int q = c & 7;
         return (c >> 3) * 256 + (q >> 2) * 128 + ((q >> 1) & 1) * 32 + (q & 1) * 16 + half * 64;
@@ -153,6 +176,7 @@ struct Q6K {
         return {*reinterpret_cast<const float*>(src + 8), s[(run(c, 0) >> 4) & 3],
                 s[4 + ((run(c, 1) >> 4) & 3)]};
     }
+    static __device__ __forceinline__ uint32_t hword(uint32_t h, int) { return h; }
     static __device__ __forceinline__ float4 dequant4(uint32_t q, uint32_t h, int c, int half,
                                                       const Scale& s) {
         const int shift = 2 * ((c >> 1) & 1) + 4 * half;
@@ -187,6 +211,7 @@ struct Q5K {
         float d, dmin;
         uint32_t sc, m;      // sub-blocks 2g (bits 0..7) and 2g+1 (bits 8..15)
     };
+    static constexpr int HBYTES = 16;
     static __device__ __forceinline__ int run(int c, int half) {
         const int q = c & 7;
         return (c >> 3) * 256 + (q >> 1) * 64 + (q & 1) * 16 + half * 32;
@@ -225,6 +250,7 @@ struct Q5K {
         return {__fmul_rn((float)((r.sc >> sh) & 0xFFu), r.d),
                 __fmul_rn((float)((r.m >> sh) & 0xFFu), r.dmin)};
     }
+    static __device__ __forceinline__ uint32_t hword(uint32_t h, int) { return h; }
     static __device__ __forceinline__ float4 dequant4(uint32_t q, uint32_t h, int c, int half,
                                                       const Scale& s) {
         const int shift = 2 * ((c & 7) >> 1) + half;
@@ -247,7 +273,7 @@ struct Q5K {
 
 template <class F>
 struct ChunkRaw {
-    uint4 q, h;
+    uint4 q, h;              // h: 16 high-bit bytes, or the one word in h.x
     typename F::Sraw s;
 };
 
@@ -255,7 +281,12 @@ template <class F>
 __device__ __forceinline__ void load_chunk(ChunkRaw<F>& r, const typename F::Ptrs& p,
                                            int n, int c, int K) {
     r.q = *reinterpret_cast<const uint4*>(F::qptr(p, n, c, K));
-    r.h = *reinterpret_cast<const uint4*>(F::hptr(p, n, c, K));
+    if constexpr (F::HBYTES == 16)
+        r.h = *reinterpret_cast<const uint4*>(F::hptr(p, n, c, K));
+    else if constexpr (F::HBYTES == 4)
+        r.h = make_uint4(*reinterpret_cast<const uint32_t*>(F::hptr(p, n, c, K)), 0u, 0u, 0u);
+    else
+        r.h = make_uint4(0u, 0u, 0u, 0u);
     r.s = F::sload(p, n, c, K);
 }
 
@@ -323,8 +354,10 @@ small_kernel(const float* __restrict__ x, const typename F::Ptrs p, float* __res
                 const Scale s = F::scale(cur.s, half);
 #pragma unroll
                 for (int j = 0; j < 4; ++j)
-                    w[r][4 * half + j] = n0 + r < N ? F::dequant4(qw[j], hw[j], c, half, s)
-                                                    : make_float4(0.f, 0.f, 0.f, 0.f);
+                    w[r][4 * half + j] =
+                        n0 + r < N ? F::dequant4(qw[j], F::hword(hw[F::HBYTES == 16 ? j : 0], j),
+                                                 c, half, s)
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
             }
         }
         const float4* xb = xs4 + (rd & 1) * MT * 256 + lane;
@@ -404,7 +437,7 @@ __device__ __forceinline__ void scatter(float* acc, int lane) {
 
 template <class F>
 struct StageRaw {
-    uint2 q, h;
+    uint2 q, h;              // h: the stage's 8 high-bit bytes, or the chunk's one word in h.x
     typename F::Sraw s;
     bool ok;
 };
@@ -454,7 +487,10 @@ tiled_kernel(const float* __restrict__ x, const typename F::Ptrs p, float* __res
             raw[i].ok = n < N && c < chunks;
             if (raw[i].ok) {
                 raw[i].q = *reinterpret_cast<const uint2*>(F::qptr(p, n, c, K) + 8 * (g & 1));
-                raw[i].h = *reinterpret_cast<const uint2*>(F::hptr(p, n, c, K) + 8 * (g & 1));
+                if constexpr (F::HBYTES == 16)
+                    raw[i].h = *reinterpret_cast<const uint2*>(F::hptr(p, n, c, K) + 8 * (g & 1));
+                else if constexpr (F::HBYTES == 4)
+                    raw[i].h.x = *reinterpret_cast<const uint32_t*>(F::hptr(p, n, c, K));
                 raw[i].s = F::sload(p, n, c, K);
             }
         }
@@ -467,8 +503,11 @@ tiled_kernel(const float* __restrict__ x, const typename F::Ptrs p, float* __res
             float4 w0 = make_float4(0.f, 0.f, 0.f, 0.f), w1 = w0;
             if (raw[i].ok) {
                 const Scale s = F::scale(raw[i].s, half);
-                w0 = F::dequant4(raw[i].q.x, raw[i].h.x, c, half, s);
-                w1 = F::dequant4(raw[i].q.y, raw[i].h.y, c, half, s);
+                const int j = 2 * (g & 1);        // the packed word of q.x
+                const uint32_t h0 = F::HBYTES ? raw[i].h.x : 0u;
+                const uint32_t h1 = F::HBYTES == 16 ? raw[i].h.y : h0;
+                w0 = F::dequant4(raw[i].q.x, F::hword(h0, j), c, half, s);
+                w1 = F::dequant4(raw[i].q.y, F::hword(h1, j + 1), c, half, s);
             }
             dst[i * S::WARPS * 64] = w0;
             dst[i * S::WARPS * 64 + 32] = w1;
@@ -544,7 +583,7 @@ tiled_kernel(const float* __restrict__ x, const typename F::Ptrs p, float* __res
 
 // one stage = one chunk c of every row of the tile: x [BM][XLD] f32 (its lo
 // run at 0..15, hi run at 16..31), the dequantized weights [32][BN] f32,
-// and each thread's packed bytes (one word of one row) in a 32-byte slot
+// and each row's packed bytes, high bits and scale words in a 48-byte slot
 struct TreeSmem {
     static constexpr int XS = TREE_BM * TREE_XLD;         // floats
     static constexpr int WS = 32 * TREE_BN;                // floats
@@ -605,14 +644,24 @@ tree_kernel(const float* __restrict__ x, const typename F::Ptrs p, float* __rest
                 const float* src = ok ? x + (size_t)(mb + m) * K + F::run(c, q >> 2) + 4 * (q & 3) : x;
                 cp_async16(xd + m * TREE_XLD + 4 * q, src, ok);
             }
-            // the chunk's packed bytes, one 16-byte copy per thread, and the
-            // scale bytes of each row
+            // the chunk's packed bytes and high bits, one copy per thread
+            // (16 bytes, or 4 for a 4-byte high-bit word), and the scale
+            // bytes of each row
             uint8_t* rd = rs + (g % TREE_NBUF) * TreeSmem::RS;
             if (tid < 2 * TREE_BN) {
                 const int r = tid >> 1, n = nb + r;
-                const uint8_t* src = (tid & 1) ? F::hptr(p, n, c, K) : F::qptr(p, n, c, K);
-                cp_async16(rd + r * 48 + (tid & 1) * 16,
-                           n < N ? static_cast<const void*>(src) : static_cast<const void*>(x), n < N);
+                if constexpr (F::HBYTES == 16) {
+                    const uint8_t* src = (tid & 1) ? F::hptr(p, n, c, K) : F::qptr(p, n, c, K);
+                    cp_async16(rd + r * 48 + (tid & 1) * 16,
+                               n < N ? static_cast<const void*>(src) : static_cast<const void*>(x),
+                               n < N);
+                } else if (!(tid & 1)) {
+                    cp_async16(rd + r * 48,
+                               n < N ? static_cast<const void*>(F::qptr(p, n, c, K))
+                                     : static_cast<const void*>(x), n < N);
+                } else if constexpr (F::HBYTES == 4) {
+                    if (n < N) cp_async_small<4>(rd + r * 48 + 16, F::hptr(p, n, c, K));
+                }
             } else if (tid < 3 * TREE_BN) {
                 const int r = tid - 2 * TREE_BN, n = nb + r;
                 if (n < N) F::copy_sraw(rd + r * 48 + 32, p, n, c, K);
@@ -632,7 +681,8 @@ tree_kernel(const float* __restrict__ x, const typename F::Ptrs p, float* __rest
         if (nb + wrow < N) {
             const uint8_t* rd = rs + (g % TREE_NBUF) * TreeSmem::RS + wrow * 48;
             const uint32_t q = *reinterpret_cast<const uint32_t*>(rd + 4 * wword);
-            const uint32_t h = *reinterpret_cast<const uint32_t*>(rd + 16 + 4 * wword);
+            const uint32_t h = F::HBYTES == 0 ? 0u : F::hword(*reinterpret_cast<const uint32_t*>(
+                rd + 16 + (F::HBYTES == 16 ? 4 * wword : 0)), wword);
             const typename F::Sraw sr = F::sraw_of(rd + 32, c);
             lo = F::dequant4(q, h, c, 0, F::scale(sr, 0));
             hi = F::dequant4(q, h, c, 1, F::scale(sr, 1));

@@ -1,18 +1,29 @@
 """Q4_1, Q5_0 and Q5_1 matmul kernel K8 (f32, every M: none of the three
 has an int8 twin).
 
-Kernel source: csrc/qmm_legacy.cu (fuller notes there). One template over
-the two optional fields, three entry points:
+Kernel source: csrc/qmm_legacy.cu, three format structs on the body it
+shares with K4, K7 and K9, csrc/qmm_f32_tiled.cuh (fuller notes there):
 
 - `qmm_q4_1` replaces ggml_gfx906_tpu/ops/pallas/qmm.py::qmm_q4_1;
 - `qmm_q5_0` replaces ggml_gfx906_tpu/ops/pallas/qmm.py::qmm_q5_0;
 - `qmm_q5_1` replaces ggml_gfx906_tpu/ops/pallas/qmm.py::qmm_q5_1.
 
-Bound on the H100: bytes at decode — the weights (6 bits per weight for
-Q4_1 and Q5_0, 7 for Q5_1) are read once. Design: K6's — each lane reads
-half a 32-element block (8 qs bytes, and for Q5 the block's qh word) of
-every 512-element span, forms f32 weights in registers and FMAs them
-against up to 8 activation rows; a fixed xor-shuffle reduction per output.
+A 32-element block is one chunk of the body (its 16 low nibbles, then its
+16 high nibbles); Q5_0 and Q5_1 bring the block's 4-byte qh word with it,
+Q4_1 no high bits. The C entry point picks the kernel by M. M <= 8
+(decode): lanes over the blocks, 2 weight rows per warp, x staged in
+shared memory per 32 blocks; bound by the weight bytes (6 bits per weight
+for Q4_1 and Q5_0, 7 for Q5_1, read once), then latency. M > 8 (prefill):
+a block dequantizes a 16- or 32-row weight tile once into shared memory
+for 64 or 32 activation rows, or, at M > 32 where 64 x 64 tiles keep more
+than half of the SMs busy, a lanes-as-outputs 64 x 64 tile; bound by the
+f32 FMA rate, then shared memory and the L2 traffic of x.
+
+Reduction order: 32 slots over the blocks (block c in slot c mod 32,
+ascending, each block's 16 low then 16 high elements), then the
+xor-butterfly tree; fixed by K alone, so a row's bits are the same at
+every M and in every variant (engine streams equal `generate`'s). No
+TF32, no atomics.
 
 Weight layout (ggml wire order, struct of arrays; see ops/quantized.py):
 qs (N, K/2) u8, qh (N, K/8) u8 (Q5 only: four wire bytes per block), d (N,

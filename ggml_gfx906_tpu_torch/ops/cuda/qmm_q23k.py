@@ -1,18 +1,29 @@
 """Q2_K and Q3_K matmul kernel K9 (f32, every M: neither has an int8 twin).
 
-Kernel source: csrc/qmm_q23k.cu (fuller notes there). One template over
-the high-bit plane, two entry points:
+Kernel source: csrc/qmm_q23k.cu, two format structs on the body it shares
+with K4, K7 and K8, csrc/qmm_f32_tiled.cuh (fuller notes there):
 
 - `qmm_q2_K` replaces ggml_gfx906_tpu/ops/pallas/qmm.py::qmm_q2_K;
 - `qmm_q3_K` replaces ggml_gfx906_tpu/ops/pallas/qmm.py::qmm_q3_K.
 
-Bound on the H100: bytes at decode — the weights (2.75 bits per weight for
-Q2_K, 3.625 for Q3_K) are read once — and the f32 FMAs (2·M flops per
-weight) from M ≈ 4 on. Design: K8's — each lane reads 16 qs bytes (64
-weights in four 2-bit planes; for Q3_K also the 16 hmask bytes that hold
-their high bits) per step, forms the f32 weights in registers one plane at
-a time and FMAs them against up to 8 activation rows; a fixed xor-shuffle
-reduction per output.
+16 qs bytes of a 128-element half hold four 2-bit planes of 16
+consecutive elements; each such group is two chunks of the body (planes
+0 and 1, then planes 2 and 3), and Q3_K brings the 16 hmask bytes that
+hold their high bits. The C entry point picks the kernel by M. M <= 8
+(decode): lanes over the chunks, 2 weight rows per warp, x staged in
+shared memory per 32 chunks; bound by the weight bytes (2.75 bits per
+weight for Q2_K, 3.625 for Q3_K, read once) and, from M of about 4, by the
+f32 FMAs. M > 8 (prefill): a block dequantizes a 16- or 32-row weight tile
+once into shared memory for 64 or 32 activation rows, or, at M > 32 where
+64 x 64 tiles keep more than half of the SMs busy, a lanes-as-outputs 64 x
+64 tile; bound by the f32 FMA rate, then shared memory and the L2 traffic
+of x.
+
+Reduction order: 32 slots over the chunks (chunk c in slot c mod 32,
+ascending, each chunk's 16 elements of its first plane, then the 16 of
+its second), then the xor-butterfly tree; fixed by K alone, so a row's
+bits are the same at every M and in every variant (engine streams equal
+`generate`'s). No TF32, no atomics.
 
 Weight layout (ggml wire order, struct of arrays; see ops/quantized.py):
 Q2_K qs (N, K/4) u8, scales (N, K/16) u8, d and dmin (N, K/256) f32; Q3_K

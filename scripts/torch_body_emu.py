@@ -1,0 +1,276 @@
+"""Run the f32 matmul body's CUDA kernels on the CPU, emulated, to check them
+before a chip run.
+
+    python3 scripts/torch_body_emu.py [--formats q4_1,q2_K,...] [--ref DIR]
+
+`csrc/qmm_f32_tiled.cuh` and the four sources on it (K4 Q6_K, K7 Q5_K, K8
+Q4_1 / Q5_0 / Q5_1, K9 Q2_K / Q3_K) are rewritten into plain C++ (one
+std::thread per CUDA thread, barriers for __syncthreads and the warp
+shuffles, synchronous copies for cp.async) and built with g++ (C++20)
+into build/emu/. Each format then runs at small shapes (K = 512, 1280 and
+2816, N not a multiple of the tiles) through all three kernels (small,
+tiled and tree: the SM count the emulation reports decides between the
+last two), and the script checks, per format and shape:
+- nmse < 1e-10 against the wrapper's plain version (ops/cuda/*.py);
+- the one-order rule: every row has the same bits at every M and in every
+  kernel;
+- with --ref DIR (another version of csrc/, e.g. a parent checkout's), the
+  same bits as that version at M = 1, 8 and 100.
+It proves nothing about the card (alignment, races between asynchronous
+copies, registers): chip_smoke.py does that. CPU only; no CUDA needed.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+from ggml_gfx906_tpu_torch.ops.cuda import (build, qmm_legacy, qmm_q5k, qmm_q6k,  # noqa: E402
+                                            qmm_q23k)
+
+EMU_H = r"""
+#pragma once
+#include <barrier>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <functional>
+#include <memory>
+#include <thread>
+#include <vector>
+#define __device__
+#define __global__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __restrict__
+struct uint4 { unsigned x, y, z, w; };
+struct uint2 { unsigned x, y; };
+struct float4 { float x, y, z, w; };
+struct float2 { float x, y; };
+struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+const int cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 1,
+          cudaDevAttrMultiProcessorCount = 2;
+template <class T> inline cudaError_t cudaFuncSetAttribute(T, int, int) { return 0; }
+inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+extern int emu_sms;
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = emu_sms; return 0; }
+inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
+inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
+inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
+inline float fmaf_emu(float a, float b, float c) { return std::fmaf(a, b, c); }
+inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
+inline unsigned __brev(unsigned v) {
+    unsigned r = 0;
+    for (int i = 0; i < 32; ++i) if (v >> i & 1) r |= 1u << (31 - i);
+    return r;
+}
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+    unsigned long long v = ((unsigned long long)y << 32) | x;
+    unsigned r = 0;
+    for (int k = 0; k < 4; ++k) r |= (unsigned)((v >> (8 * ((s >> (4 * k)) & 7))) & 0xFF) << (8 * k);
+    return r;
+}
+struct EmuBlock {
+    std::barrier<>* bar;
+    std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
+    std::vector<std::vector<float>> shfl;
+    char* smem;
+};
+extern thread_local dim3 threadIdx, blockIdx;
+extern thread_local EmuBlock* emu_blk;
+inline void __syncthreads() { emu_blk->bar->arrive_and_wait(); }
+inline float __shfl_xor_sync(unsigned, float v, int off) {
+    const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+    auto& b = *emu_blk->warp_bar[w];
+    auto& s = emu_blk->shfl[w];
+    b.arrive_and_wait();
+    s[l] = v;
+    b.arrive_and_wait();
+    const float r = s[l ^ off];
+    b.arrive_and_wait();
+    return r;
+}
+inline char* emu_smem() { return emu_blk->smem; }
+inline void emu_launch(dim3 grid, unsigned threads, size_t smem, std::function<void()> fn) {
+    for (unsigned by = 0; by < grid.y; ++by)
+        for (unsigned bx = 0; bx < grid.x; ++bx) {
+            EmuBlock blk;
+            std::barrier<> bar(threads);
+            blk.bar = &bar;
+            for (unsigned w = 0; w < (threads + 31) / 32; ++w) {
+                blk.warp_bar.emplace_back(new std::barrier<>(32));
+                blk.shfl.emplace_back(32, 0.f);
+            }
+            std::vector<float4> mem(smem / 16 + 1);
+            std::memset(mem.data(), 0x7f, mem.size() * 16);    // not zero: stale reads show
+            blk.smem = (char*)mem.data();
+            std::vector<std::thread> ts;
+            for (unsigned t = 0; t < threads; ++t)
+                ts.emplace_back([&, t] {
+                    threadIdx = dim3(t); blockIdx = dim3(bx, by); emu_blk = &blk; fn();
+                });
+            for (auto& th : ts) th.join();
+        }
+}
+"""
+
+MAIN_CPP = r"""
+#include "emu.h"
+int emu_sms = 132;
+thread_local dim3 threadIdx, blockIdx;
+thread_local EmuBlock* emu_blk;
+extern "C" void emu_set_sms(int v) { emu_sms = v; }
+#include "qmm_q6k.cu"
+#include "qmm_q5k.cu"
+#include "qmm_legacy.cu"
+#include "qmm_q23k.cu"
+"""
+
+# format → (C entry point, wrapper module, plain function, field specs:
+# name, K elements per value, kind)
+FORMATS = {
+    "q6_K": ("qmm_q6k_f32", qmm_q6k, "qmm_q6_K_plain",
+             [("ql", 2, "u8"), ("qh", 4, "u8"), ("sc", 16, "i8"), ("d", 256, "f")]),
+    "q5_K": ("qmm_q5k_f32", qmm_q5k, "qmm_q5_K_plain",
+             [("qs", 2, "u8"), ("qh", 8, "u8"), ("scm", 16, "u6"), ("dd", 128, "f")]),
+    "q4_1": ("qmm_q4_1_f32", qmm_legacy, "qmm_q4_1_plain",
+             [("qs", 2, "u8"), ("d", 32, "f"), ("m", 32, "-f")]),
+    "q5_0": ("qmm_q5_0_f32", qmm_legacy, "qmm_q5_0_plain",
+             [("qs", 2, "u8"), ("qh", 8, "u8"), ("d", 32, "f")]),
+    "q5_1": ("qmm_q5_1_f32", qmm_legacy, "qmm_q5_1_plain",
+             [("qs", 2, "u8"), ("qh", 8, "u8"), ("d", 32, "f"), ("m", 32, "-f")]),
+    "q2_K": ("qmm_q2k_f32", qmm_q23k, "qmm_q2_K_plain",
+             [("qs", 4, "u8"), ("scales", 16, "u8"), ("d", 256, "f"), ("dmin", 256, "f")]),
+    "q3_K": ("qmm_q3k_f32", qmm_q23k, "qmm_q3_K_plain",
+             [("qs", 4, "u8"), ("hmask", 8, "u8"), ("sc", 16, "i6"), ("d", 256, "f")]),
+}
+SHAPES = ((100, 2816), (48, 512), (64, 1280))
+MS = (1, 3, 8, 9, 33, 64, 100)
+TILED, TREE = 1 << 20, 1        # reported SM counts: launch() picks tiled, or tree at M > 32
+
+
+def emulated(src: Path, out: Path) -> Path:
+    """The sources of `src` rewritten for the emulation and built into
+    out/libemu.so."""
+    out.mkdir(parents=True, exist_ok=True)
+    for f in list(src.glob("*.cuh")) + [src / f"{n}.cu" for n in
+                                         ("qmm_q6k", "qmm_q5k", "qmm_legacy", "qmm_q23k")]:
+        s = f.read_text().replace("#include <cuda_runtime.h>", '#include "emu.h"')
+        s = re.sub(r'asm volatile\("cp\.async\.(commit|wait)_group[^"]*"[^;]*;', ";", s)
+        s = re.sub(r'(void cp_async16\(void\* dst, const void\* src, bool valid\) \{).*?\n\}',
+                   r'\1 if (valid) std::memcpy(dst, src, 16); else std::memset(dst, 0, 16); }',
+                   s, flags=re.S)
+        s = re.sub(r'(void cp_async_small\(void\* dst, const void\* src\) \{).*?\n\}',
+                   r'\1 std::memcpy(dst, src, BYTES); }', s, flags=re.S)
+        s = re.sub(r'extern __shared__ __align__\(16\) (\w+) (\w+)\[\];',
+                   r'\1* \2 = (\1*)emu_smem();', s)
+        s = re.sub(r'(\w+(?:<[^<>]*>)?)<<<([^,]+), ([^,]+), ([^,]+), ([^>]+)>>>\(([^;]*)\);',
+                   r'emu_launch(\2, \3, \4, [=] { \1(\6); });', s)
+        s = re.sub(r'\bfmaf\(', "fmaf_emu(", s)
+        (out / f.name).write_text(s)
+    (out / "emu.h").write_text(EMU_H)
+    (out / "main.cpp").write_text(MAIN_CPP)
+    lib = out / "libemu.so"
+    subprocess.run(["g++", "-std=c++20", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
+                    "-pthread", "-Wno-unknown-pragmas", str(out / "main.cpp"), "-o", str(lib)],
+                   check=True)
+    return lib
+
+
+def load(lib: Path) -> ctypes.CDLL:
+    dll = ctypes.CDLL(str(lib))
+    dll.emu_set_sms.argtypes = [ctypes.c_int]
+    for fn, *_ in FORMATS.values():
+        getattr(dll, fn).restype = ctypes.c_int
+    return dll
+
+
+def weights(spec, n, k, gen):
+    out = []
+    for _, per, kind in spec:
+        shape = (n, k // per)
+        if kind in ("f", "-f"):
+            out.append(torch.rand(shape, generator=gen) * (1e-3 if kind == "f" else -0.1))
+        elif kind in ("i8", "i6"):
+            lim = 128 if kind == "i8" else 32
+            out.append(torch.randint(-lim, lim, shape, dtype=torch.int8, generator=gen))
+        else:
+            top = 64 if kind == "u6" else 256
+            out.append(torch.randint(0, top, shape, dtype=torch.uint8, generator=gen))
+    return out
+
+
+def call(dll, fn, x, fields, n, sms):
+    dll.emu_set_sms(sms)
+    m, k = x.shape
+    y = torch.full((m, n), float("nan"))
+    args = [ctypes.c_void_p(t.data_ptr()) for t in (x, *fields, y)]
+    if getattr(dll, fn)(*args, m, n, k, None):
+        raise RuntimeError(f"{fn}: launch error")
+    return y
+
+
+def nmse(a, b):
+    a, b = a.double(), b.double()
+    return float(((a - b) ** 2).mean() / (b ** 2).mean())
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--formats", default=",".join(FORMATS))
+    ap.add_argument("--ref", type=Path, default=None,
+                    help="another csrc/ directory whose kernels must give the same bits")
+    args = ap.parse_args(argv)
+    dll = load(emulated(build.CSRC, ROOT / "build" / "emu" / "this"))
+    ref = load(emulated(args.ref, ROOT / "build" / "emu" / "ref")) if args.ref else None
+    gen = torch.Generator().manual_seed(0)
+    for name in args.formats.split(","):
+        fn, mod, plain_name, spec = FORMATS[name]
+        plain = getattr(mod, plain_name)
+        for n, k in SHAPES:
+            t0 = time.perf_counter()
+            fields = weights(spec, n, k, gen)
+            x = torch.randn((max(MS), k), generator=gen)
+            outs = {}
+            for m in MS:
+                for kern, sms in (("tiled", TILED), ("tree", TREE)):
+                    if kern == "tree" and m <= 32:
+                        continue
+                    y = call(dll, fn, x[:m], fields, n, sms)
+                    e = nmse(y, plain(x[:m], *fields))
+                    if not e < 1e-10:
+                        raise AssertionError(f"{name} N={n} K={k} M={m} {kern}: nmse {e}")
+                    outs[(m, kern)] = y
+            full = outs[(max(MS), "tree")]
+            for (m, kern), y in outs.items():
+                if not torch.equal(y, full[:m]):
+                    raise AssertionError(f"{name} N={n} K={k}: M={m} {kern} rows differ")
+            same = ""
+            if ref is not None:
+                same = "; bits equal to --ref's at " + ", ".join(
+                    f"M={m}: {torch.equal(call(ref, fn, x[:m], fields, n, 132), full[:m])}"
+                    for m in (1, 8, 100))
+            print(f"{name} N={n} K={k}: plain nmse ok, rows equal across M and kernels"
+                  f"{same} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,6 @@
 """The port's kernel build (ops/cuda/build.py) on the CPU: the hash that
 names a library in build/torch_kernels/ changes with its source, with any
-header in csrc/ (K4 and K7 share qmm_f32_tiled.cuh) and with the flags, so
+header in csrc/ (K4, K7, K8 and K9 share qmm_f32_tiled.cuh) and with the flags, so
 an edit never reuses a stale library. nvcc itself runs only on the card's
 machine (chip_smoke.py)."""
 import shutil
@@ -25,11 +25,12 @@ def test_digest_of_a_copy_equals_the_checkout(csrc):
     assert _digests(csrc) == {name: build.digest(name) for name in build.sources()}
 
 
-def test_sources_are_the_cu_files_and_headers_are_hashed(csrc):
-    assert "qmm_q6k" in build.sources() and "qmm_q5k" in build.sources()
-    assert not any(name.endswith(".cuh") for name in build.sources())
-    for name in ("qmm_q6k", "qmm_q5k"):
-        assert '#include "qmm_f32_tiled.cuh"' in (csrc / f"{name}.cu").read_text()
+# the sources on the shared f32 body: K4, K7, K8, K9
+@pytest.mark.parametrize("name", ["qmm_q6k", "qmm_q5k", "qmm_legacy", "qmm_q23k"])
+def test_sources_are_the_cu_files_and_headers_are_hashed(csrc, name):
+    assert name in build.sources()
+    assert not any(source.endswith(".cuh") for source in build.sources())
+    assert '#include "qmm_f32_tiled.cuh"' in (csrc / f"{name}.cu").read_text()
 
 
 @pytest.mark.parametrize("edit", [b"\n// a comment\n", b" "])

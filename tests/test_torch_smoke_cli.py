@@ -19,7 +19,11 @@ def test_no_card_no_result(argv, capsys):
     assert '"ok"' not in capsys.readouterr().out
 
 
-def test_checks_cover_k4_and_k7_row_invariance():
-    assert {"q6k", "q5k"} <= set(chip_smoke.CHECKS)
+# the checks of the kernels on the shared f32 body: K4, K7, K8, K9
+@pytest.mark.parametrize("check", ["q6k", "q5k", "legacy", "q23k"])
+def test_checks_cover_k4_and_k7_row_invariance(check):
+    assert check in chip_smoke.CHECKS
+    names = chip_smoke.CHECKS[check].__code__.co_names
+    assert "TILED_MS" in names and "check_rows" in names
     assert chip_smoke.TILED_MS[-1] == 128 and 100 in chip_smoke.TILED_MS
     assert set(chip_smoke.ROW_MS) == {1, 8, 16, 63, 100}
