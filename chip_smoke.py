@@ -15,10 +15,12 @@ Phases (each failure raises, so the script exits non-zero):
      (the autotuner's streaming copy, bit for bit against copy_) against
      their plain PyTorch versions at the main paths' shapes, each timed
      with CUDA events beside its plain version, its library yardstick and
-     its bound; the kernels on the f32 body (K4, K7, K8, K9) also row by
-     row: on each shape the rows of one 128-row product equal, bit for
-     bit, those of the same x cut to M in {1, 8, 16, 63, 100} and of
-     single rows (check_rows);
+     its bound, and a sha256 of every f32 kernel's output (fixed seeds: a
+     kernel that keeps its summation order keeps its digests from one tree
+     to another); the kernels on the f32 body (K1, K4, K6, K7, K8, K9)
+     also row by row: on each shape the rows of one 128-row product equal,
+     bit for bit, those of the same x cut to M in {1, 8, 16, 63, 100} and
+     of single rows (check_rows);
   4. a small-model check of the card's forward against the CPU's, for a
      tiny Q4_K, Q4_K_M-mixture, Q8_0, Q5_K_M-mixture, Q4_0, Q4_1, Q5_0,
      Q5_1, Q2_K-mixture and Q3_K_M-mixture model, and the Q4_K and Q3_K_M
@@ -46,7 +48,8 @@ Phases (each failure raises, so the script exits non-zero):
      times per decode step and per 128-token prefill chunk as its tensor
      types predict, and traces one decode step and one 8-slot engine decode
      step with torch.profiler for the device-busy share (and, on the
-     paths of TRACE_PREFILL, one more 100-token prefill). The Q4_K file
+     paths of TRACE_PREFILL, one more 100-token prefill), and records a
+     sha256 of its greedy streams. The Q4_K file
      then decodes again with qmm_pipeline="on" (K10 in place of K1),
      traced, with one step's logits held against the flag off within the
      int8 route's distance from them. The launch counts are set to 0 just
@@ -63,6 +66,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import hashlib
 import json
 import os
 import shutil
@@ -178,7 +182,8 @@ def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
 def check_f32(timer, results, label, kernel, fn, plain, x, w_dense, wbytes):
     """Hold an f32 matmul kernel fn(x) against its plain version plain(x)
     (nmse < 1e-10) and time both beside torch.matmul on the dense weight
-    and the bound (weight bytes `wbytes` in the port's layout)."""
+    and the bound (weight bytes `wbytes` in the port's layout); record the
+    sha256 of the kernel's output bytes."""
     m, k = x.shape
     n = w_dense.shape[0]
     got, ref = fn(x), plain(x)
@@ -190,6 +195,7 @@ def check_f32(timer, results, label, kernel, fn, plain, x, w_dense, wbytes):
     results.append(dict(
         kernel=kernel.name, shape=f"M={m} N={n} K={k}", nmse=e,
         max_abs_err=float((got - ref).abs().max()),
+        sha256=hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest(),
         ms=timer(lambda: fn(x)), plain_ms=timer(lambda: plain(x)),
         library_ms=timer(lambda: torch.matmul(x, w_dense.T)),
         bound_ms=b, bound_by=by))
@@ -225,11 +231,6 @@ def check_i8(timer, results, label, kernel, full, prepare, launch, plain, x,
         f"ms={results[-1]['ms']:.4f}")
 
 
-# decode (1, 8 slots) and the engine's short prefill chunks (16, 32): M > 8
-# runs a kernel's second and later 8-row M tiles, 63 a ragged one
-F32_MS = (1, 8, 16, 32, 63)
-
-
 def random_q4k(n, k, device, gen):
     """Q4_K weights with random nibbles and 6-bit scales, plausible d."""
     nb = k // 256
@@ -240,16 +241,22 @@ def random_q4k(n, k, device, gen):
 
 
 def check_qmm(device, timer, results):
+    """K1 on the 7B shapes (every matrix of the Q4_K file, the tied head
+    included) at TILED_MS and Q4_EXTRA_MS, and its rows bit for bit across
+    M (check_rows); K3 at prefill M."""
     gen = torch.Generator(device=device).manual_seed(1)
+    rows = {}
     for n, k in QMM_SHAPES:
         qs, scm, dd = random_q4k(n, k, device, gen)
         w_dense = qmm.dequant(qs, scm, dd)
         wbytes = n * k / 2 + n * k / 16 + n * k / 32
-        for m in F32_MS:
+        for m in sorted(TILED_MS + Q4_EXTRA_MS):
             check_f32(timer, results, "K1", kernels.K1,
                       lambda x: qmm.qmm_q4_K(x, qs, scm, dd),
                       lambda x: qmm.qmm_q4_K_plain(x, qs, scm, dd),
                       torch.randn((m, k), device=device, generator=gen), w_dense, wbytes)
+        rows[f"N={n} K={k}"] = check_rows("K1", lambda x: qmm.qmm_q4_K(x, qs, scm, dd),
+                                          torch.randn((128, k), device=device, generator=gen))
         for m in (100, 128, 512):        # 100: the ragged single-stream prefill
             check_i8(timer, results, "K3", kernels.K3,
                      lambda x: qmm.qmm_q4_K_i8(x, qs, scm, dd),
@@ -258,12 +265,17 @@ def check_qmm(device, timer, results):
                      lambda *ops: qmm.qmm_q4_K_i8_plain(qs, *ops),
                      torch.randn((m, k), device=device, generator=gen), w_dense, wbytes)
         del w_dense
+    return rows
 
 
-# The timed M of the kernels on the f32 body (K4, K7, K8, K9): decode (1,
-# 8 slots), the engine's short chunks (16), a ragged 63, the single-stream
-# 100-token prefill and a 128-row chunk
+# The timed M of the kernels on the f32 body: decode (1, 8 slots), the
+# engine's short chunks (16), a ragged 63, the single-stream 100-token
+# prefill and a 128-row chunk. K1 and K6 also at Q4_EXTRA_MS: 2 and 4
+# (the decode kernel's narrower register tiles; K1 changes kernel between
+# M = 1 and 2) and 32 (the tiled kernel's narrow tile); the main path gives
+# them M < int8_min_m = 64 only.
 TILED_MS = (1, 8, 16, 63, 100, 128)
+Q4_EXTRA_MS = (2, 4, 32)
 ROW_MS = (1, 8, 16, 63, 100)
 ROW_IS = (0, 37, 99, 127)
 
@@ -334,20 +346,24 @@ def check_q8_0(device, timer, results):
 
 
 def check_q4_0(device, timer, results):
-    """K6 at decode and short-chunk M, K6-i8 at prefill M, on the 7B
-    shapes (every matrix of a Q4_0 file but its Q6_K head; the 11008-wide
-    ffn_down has 43 spans of 256)."""
+    """K6 at TILED_MS and Q4_EXTRA_MS and its rows bit for bit across M
+    (check_rows), K6-i8 at prefill M, on the 7B shapes (every matrix of a
+    Q4_0 file but its Q6_K head; the 11008-wide ffn_down has 43 spans of
+    256 and 344 blocks, which 32 slots do not divide)."""
     gen = torch.Generator(device=device).manual_seed(6)
+    rows = {}
     for n, k in QMM_SHAPES:
         qs = torch.randint(0, 256, (n, k // 2), dtype=torch.uint8, device=device, generator=gen)
         d = torch.rand((n, k // 32), device=device, generator=gen) * 1e-2
         w_dense = qmm_q4_0.dequant(qs, d)
         wbytes = n * k * 5 / 8
-        for m in F32_MS:
+        for m in sorted(TILED_MS + Q4_EXTRA_MS):
             check_f32(timer, results, "K6", kernels.K6,
                       lambda x: qmm_q4_0.qmm_q4_0(x, qs, d),
                       lambda x: qmm_q4_0.qmm_q4_0_plain(x, qs, d),
                       torch.randn((m, k), device=device, generator=gen), w_dense, wbytes)
+        rows[f"N={n} K={k}"] = check_rows("K6", lambda x: qmm_q4_0.qmm_q4_0(x, qs, d),
+                                          torch.randn((128, k), device=device, generator=gen))
         for m in (64, 100, 128, 512):
             check_i8(timer, results, "K6-i8", kernels.K6_I8,
                      lambda x: qmm_q4_0.qmm_q4_0_i8(x, qs, d),
@@ -356,6 +372,7 @@ def check_q4_0(device, timer, results):
                      lambda *ops: qmm_q4_0.qmm_q4_0_i8_plain(qs, *ops),
                      torch.randn((m, k), device=device, generator=gen), w_dense, wbytes)
         del w_dense
+    return rows
 
 
 def check_q5k(device, timer, results):
@@ -985,6 +1002,9 @@ def main_path(device, n_layer: int, recipe: str, layout: str = "kernel",
         if mismatches:
             raise AssertionError(f"{recipe}: engine streams differ from generate for "
                                  f"prompt lengths {mismatches}")
+        # the greedy streams, to compare two trees' paths token for token
+        out["streams_sha256"] = hashlib.sha256(json.dumps(
+            [stream] + [done[rid].out for rid in rids]).encode()).hexdigest()
 
         # engine decode steps at steady state: 8 active slots, no admission
         del eng                          # one engine's KV cache at a time

@@ -1,14 +1,15 @@
 // Shared body of the f32 quantized matmul kernels for Hopper (sm_90a):
 //   y (M, N) f32 = x (M, K) f32 . W^T, W dequantized on the fly,
-// for K4 (Q6_K, csrc/qmm_q6k.cu), K7 (Q5_K, csrc/qmm_q5k.cu), K8 (Q4_1,
-// Q5_0, Q5_1, csrc/qmm_legacy.cu) and K9 (Q2_K, Q3_K, csrc/qmm_q23k.cu).
+// for K1 (Q4_K, csrc/qmm_q4k.cu), K4 (Q6_K, csrc/qmm_q6k.cu), K7 (Q5_K,
+// csrc/qmm_q5k.cu), K6 and K8 (Q4_0; Q4_1, Q5_0, Q5_1: csrc/qmm_legacy.cu)
+// and K9 (Q2_K, Q3_K, csrc/qmm_q23k.cu).
 //
 // A chunk is 16 bytes of a row's packed low-bit array (ql / qs): 32 weights
 // in two runs of 16 consecutive K positions, "lo" and "hi" (the low and
 // high nibbles of the 16 bytes, or two 2-bit planes of them), plus the
 // high bits that go with them: 16 bytes (F::HBYTES = 16: Q6_K, Q5_K,
-// Q3_K), one 4-byte word (4: Q5_0, Q5_1) or none (0: Q4_1, Q2_K; Q4_K and
-// Q4_0 would be 0 too). A format F supplies where a chunk's runs and bytes
+// Q3_K), one 4-byte word (4: Q5_0, Q5_1) or none (0: Q4_K, Q4_0, Q4_1,
+// Q2_K). A format F supplies where a chunk's runs and bytes
 // lie, its scales, and the dequantization of one packed 32-bit word (4
 // weights of a run):
 //   struct Ptrs;                       the weight arrays
@@ -40,9 +41,9 @@
 // place in its tile or on the launch shape, so a row of x gives the same
 // bits alone and in any batch: the engine's streams equal `generate`'s.
 // No split-K across blocks, no atomics. It is the order K4 and K7 had
-// before this body, so their M = 1 results kept their bits; K8's and K9's
-// earlier kernels summed in another order, so their results moved in the
-// last bits when they came onto the body.
+// before this body, and K1 had too, so their results kept their bits;
+// K6's, K8's and K9's earlier kernels summed in another order, so their
+// results moved in the last bits when they came onto the body.
 //
 // Three kernels share the format step and the order; launch() picks one
 // by M and by the grid the tree kernel would have:
@@ -192,15 +193,17 @@ struct Q6K {
     }
 };
 
-// Q5_K: qs (N, K/2) u8: chunk c = 8*sb + 2*g + j2 holds, for i < 16,
-// element sb*256 + g*64 + 16*j2 + i in its low nibble (lo, sub-block 2g)
-// and that + 32 in its high nibble (hi, sub-block 2g+1); qh (N, K/8) u8:
-// byte sb*32 + 16*j2 + i holds their fifth bits at 2g (lo) and 2g+1 (hi);
-// scm (N, K/16) u8 = [sc0..sc7 | m0..m7] per superblock; dd (N, K/128) f32
-// = [d, dmin]. w = q * (d*sc) - dmin*m: every product is exact (11-bit
-// significands times 6- and 5-bit integers), so w rounds once, at the
-// difference.
-struct Q5K {
+// Q5_K (HIGH) and Q4_K: qs (N, K/2) u8: chunk c = 8*sb + 2*g + j2 holds,
+// for i < 16, element sb*256 + g*64 + 16*j2 + i in its low nibble (lo,
+// sub-block 2g) and that + 32 in its high nibble (hi, sub-block 2g+1); qh
+// (N, K/8) u8, Q5_K only: byte sb*32 + 16*j2 + i holds their fifth bits at
+// 2g (lo) and 2g+1 (hi); scm (N, K/16) u8 = [sc0..sc7 | m0..m7] per
+// superblock; dd (N, K/128) f32 = [d, dmin]. w = q * (d*sc) - dmin*m:
+// every product is exact (11-bit significands times 6- and 5-bit
+// integers), so w rounds once, at the difference. Q4_K has no high bits
+// (HBYTES = 0, qh unused) and turns its nibbles into floats by byte_minus.
+template <bool HIGH>
+struct QK45 {
     struct Ptrs {
         const uint8_t* qs;
         const uint8_t* qh;
@@ -211,7 +214,7 @@ struct Q5K {
         float d, dmin;
         uint32_t sc, m;      // sub-blocks 2g (bits 0..7) and 2g+1 (bits 8..15)
     };
-    static constexpr int HBYTES = 16;
+    static constexpr int HBYTES = HIGH ? 16 : 0;
     static __device__ __forceinline__ int run(int c, int half) {
         const int q = c & 7;
         return (c >> 3) * 256 + (q >> 1) * 64 + (q & 1) * 16 + half * 32;
@@ -253,18 +256,29 @@ struct Q5K {
     static __device__ __forceinline__ uint32_t hword(uint32_t h, int) { return h; }
     static __device__ __forceinline__ float4 dequant4(uint32_t q, uint32_t h, int c, int half,
                                                       const Scale& s) {
-        const int shift = 2 * ((c & 7) >> 1) + half;
         const int nshift = 4 * half;
         float w[4];
+        if constexpr (HIGH) {
+            const int shift = 2 * ((c & 7) >> 1) + half;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const uint32_t b = (q >> (8 * i + nshift)) & 0xFu;
-            const uint32_t hb = (h >> (8 * i + shift)) & 1u;
-            w[i] = __fsub_rn(__fmul_rn((float)(b | (hb << 4)), s.mul), s.sub);
+            for (int i = 0; i < 4; ++i) {
+                const uint32_t b = (q >> (8 * i + nshift)) & 0xFu;
+                const uint32_t hb = (h >> (8 * i + shift)) & 1u;
+                w[i] = __fsub_rn(__fmul_rn((float)(b | (hb << 4)), s.mul), s.sub);
+            }
+        } else {
+            // byte i: the nibble of element 4j + i of the run
+            const uint32_t b4 = (q >> nshift) & 0x0F0F0F0Fu;
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                w[i] = __fsub_rn(__fmul_rn(byte_minus(b4, i, 8388608.f), s.mul), s.sub);
         }
         return make_float4(w[0], w[1], w[2], w[3]);
     }
 };
+
+using Q5K = QK45<true>;
+using Q4K = QK45<false>;
 
 // ------------------------------------------------------------ small M
 

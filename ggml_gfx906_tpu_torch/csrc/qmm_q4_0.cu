@@ -1,150 +1,22 @@
-// Q4_0 fused dequant + matmul kernels for Hopper (sm_90a).
+// Q4_0 int8 matmul kernel K6-i8 for Hopper (sm_90a). K6, the f32 product
+// for M < int8_min_m, is a format on the shared f32 body
+// (csrc/qmm_f32_tiled.cuh; its entry point qmm_q4_0_f32 is in
+// csrc/qmm_legacy.cu, beside K8's).
 //
 // Q4_0 weight layout (ggml wire order, struct of arrays, per row n of N,
 // per 32-element block b of K/32):
 //   qs (N, K/2)  u8 : byte 16*b + j holds element 32*b + j in its low nibble
 //                     and element 32*b + 16 + j in its high nibble
 //   d  (N, K/32) f32: one scale per block
-// w = (q - 8) * d; q - 8 is exact, so the one product rounds once and the
-// weights formed in registers equal the plain dequantization bit for bit.
 //
-// Both kernels are deterministic: each output element is summed by one warp
-// or one thread in an order fixed by K alone, never by M, by the row's place
-// in its tile, or by the launch shape. No atomics, no split-K.
+// The kernel is deterministic: each output element is summed by one thread
+// in an order fixed by K alone, never by M, by the row's place in its tile,
+// or by the launch shape. No atomics, no split-K.
 //
-// Every function returns the cudaError_t of its launch (0 = success).
+// Returns the cudaError_t of its launch (0 = success).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-// ------------------------------------------------------------------ K6
-// Replaces ggml_gfx906_tpu/ops/pallas/qmm.py::qmm_q4_0 (_q40_kernel):
-// y (M, N) f32 = x (M, K) f32 . W^T, for M < int8_min_m (decode, short
-// prefill chunks).
-// Bound on the H100: bytes. The weight stream is 0.625 B per weight
-// (0.5 qs + 1/8 d) and is read once; the FMAs are 2*M flops per weight, far
-// below the 67 TFLOP/s f32 rate at M <= 63.
-// Design: K5's (csrc/qmm_q8_0.cu). One warp owns K6_ROWS weight rows and
-// walks K in 512-element spans, K6_SPANS at a time; lane l owns half a
-// block (8 qs bytes: 8 low-nibble and 8 high-nibble elements, one scale) of
-// every span. Two lanes share a block, so one warp-wide 16-byte load of x
-// touches 16 cache lines, as K1's and K5's do; a lane owning a whole block
-// would make it 32 (K5's first design, 1.5x slower at M=8). Each lane forms
-// its f32 weights in registers and FMAs them against up to K6_MT activation
-// rows; lanes then reduce with a fixed xor-shuffle butterfly. FP32 FMA on
-// the CUDA cores, never TF32: the reference dot is HIGHEST precision.
-
-#define K6_WARPS 4
-#define K6_ROWS 2
-#define K6_MT 8
-#define K6_SPANS 4       // 512-element spans whose weights are loaded at once
-
-__global__ void __launch_bounds__(K6_WARPS * 32)
-qmm_q4_0_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qs,
-                    const float* __restrict__ d, float* __restrict__ y,
-                    int M, int N, int K) {
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int n0 = (blockIdx.x * K6_WARPS + warp) * K6_ROWS;
-    const int m0 = blockIdx.y * K6_MT;
-    const int chunks = K / 16;          // half blocks (8 qs bytes) per row
-    const int nblk = K / 32;
-    const size_t row_qs = (size_t)K / 2;
-
-    float acc[K6_ROWS][K6_MT];
-#pragma unroll
-    for (int r = 0; r < K6_ROWS; ++r)
-#pragma unroll
-        for (int m = 0; m < K6_MT; ++m) acc[r][m] = 0.f;
-
-    for (int c0 = lane; c0 < chunks; c0 += 32 * K6_SPANS) {
-        // all weight loads of this group of spans first, then the arithmetic
-        uint2 q8[K6_ROWS][K6_SPANS];
-        float dv[K6_ROWS][K6_SPANS];
-#pragma unroll
-        for (int j = 0; j < K6_SPANS; ++j) {
-            const int c = c0 + 32 * j;
-#pragma unroll
-            for (int r = 0; r < K6_ROWS; ++r) {
-                const int n = n0 + r;
-                const bool ok = n < N && c < chunks;
-                q8[r][j] = ok ? *reinterpret_cast<const uint2*>(qs + (size_t)n * row_qs + (size_t)c * 8)
-                              : make_uint2(0u, 0u);
-                dv[r][j] = ok ? d[(size_t)n * nblk + (c >> 1)] : 0.f;
-            }
-        }
-#pragma unroll
-        for (int j = 0; j < K6_SPANS; ++j) {
-            const int c = c0 + 32 * j;
-            if (c < chunks) {
-                const int e_lo = (c >> 1) * 32 + (c & 1) * 8;   // low nibbles
-                const int e_hi = e_lo + 16;                      // high nibbles
-                float wlo[K6_ROWS][8], whi[K6_ROWS][8];
-#pragma unroll
-                for (int r = 0; r < K6_ROWS; ++r) {
-                    const uint32_t words[2] = {q8[r][j].x, q8[r][j].y};
-#pragma unroll
-                    for (int i = 0; i < 8; ++i) {
-                        const uint32_t b = (words[i >> 2] >> (8 * (i & 3))) & 0xFFu;
-                        wlo[r][i] = __fmul_rn((float)((int)(b & 0xFu) - 8), dv[r][j]);
-                        whi[r][i] = __fmul_rn((float)((int)(b >> 4) - 8), dv[r][j]);
-                    }
-                }
-#pragma unroll
-                for (int m = 0; m < K6_MT; ++m) {
-                    if (m0 + m < M) {
-                        const float* xr = x + (size_t)(m0 + m) * K;
-#pragma unroll
-                        for (int v = 0; v < 2; ++v) {
-                            const float4 xl = *reinterpret_cast<const float4*>(xr + e_lo + 4 * v);
-#pragma unroll
-                            for (int r = 0; r < K6_ROWS; ++r) {
-                                acc[r][m] = fmaf(xl.x, wlo[r][4 * v + 0], acc[r][m]);
-                                acc[r][m] = fmaf(xl.y, wlo[r][4 * v + 1], acc[r][m]);
-                                acc[r][m] = fmaf(xl.z, wlo[r][4 * v + 2], acc[r][m]);
-                                acc[r][m] = fmaf(xl.w, wlo[r][4 * v + 3], acc[r][m]);
-                            }
-                        }
-#pragma unroll
-                        for (int v = 0; v < 2; ++v) {
-                            const float4 xh = *reinterpret_cast<const float4*>(xr + e_hi + 4 * v);
-#pragma unroll
-                            for (int r = 0; r < K6_ROWS; ++r) {
-                                acc[r][m] = fmaf(xh.x, whi[r][4 * v + 0], acc[r][m]);
-                                acc[r][m] = fmaf(xh.y, whi[r][4 * v + 1], acc[r][m]);
-                                acc[r][m] = fmaf(xh.z, whi[r][4 * v + 2], acc[r][m]);
-                                acc[r][m] = fmaf(xh.w, whi[r][4 * v + 3], acc[r][m]);
-                            }
-                        }
-                    }
-                }
-            }
-        }
-    }
-
-#pragma unroll
-    for (int r = 0; r < K6_ROWS; ++r) {
-#pragma unroll
-        for (int m = 0; m < K6_MT; ++m) {
-            float v = acc[r][m];
-            // butterfly: every lane ends with the same bits (a+b == b+a)
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-                v += __shfl_xor_sync(0xffffffffu, v, off);
-            const int n = n0 + r;
-            if (lane == 0 && n < N && m0 + m < M) y[(size_t)(m0 + m) * N + n] = v;
-        }
-    }
-}
-
-extern "C" int qmm_q4_0_f32(const float* x, const uint8_t* qs, const float* d,
-                            float* y, int M, int N, int K, void* stream) {
-    dim3 grid((N + K6_WARPS * K6_ROWS - 1) / (K6_WARPS * K6_ROWS),
-              (M + K6_MT - 1) / K6_MT);
-    qmm_q4_0_f32_kernel<<<grid, K6_WARPS * 32, 0, (cudaStream_t)stream>>>(
-        x, qs, d, y, M, N, K);
-    return (int)cudaGetLastError();
-}
 
 // ------------------------------------------------------------------ K6-i8
 // Replaces ggml_gfx906_tpu/ops/pallas/qmm.py::qmm_q4_0_i8 (_q40_i8_kernel,

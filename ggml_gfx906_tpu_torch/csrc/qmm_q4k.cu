@@ -12,28 +12,44 @@
 // so the weights formed in registers equal the plain dequantization bit for
 // bit.
 //
-// Both kernels are deterministic: each output element is summed by one warp
-// or one thread in an order fixed by K alone, never by M, by the row's place
-// in its tile, or by the launch shape. No atomics, no split-K.
+// Both kernels are deterministic: each output element is summed in an
+// order fixed by K alone, never by M, by the row's place in its tile, or
+// by the launch shape. No atomics, no split-K.
 //
 // Every function returns the cudaError_t of its launch (0 = success).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "qmm_f32_tiled.cuh"
 
 // ------------------------------------------------------------------ K1
 // Replaces ggml_gfx906_tpu/ops/pallas/qmm.py::qmm_q4_K (_q4k_kernel):
 // y (M, N) f32 = x (M, K) f32 . W^T, for M < int8_min_m (decode, short
-// prefill chunks).
-// Bound on the H100: bytes. The packed weight stream is ~0.59 B per weight
-// (0.5 qs + 1/16 scm + 1/32 dd) and is read once; the FMAs are 2*M flops per
-// weight, far below the 67 TFLOP/s f32 rate at M <= 63.
-// Design: one warp owns K1_ROWS weight rows; each lane reads 16 packed bytes
-// (32 weights) per step with one 16-byte load, forms the f32 weights in
-// registers, and FMAs them against up to K1_MT activation rows (x is read
-// through the L1/L2 cache; it is small next to W). Lanes then reduce with a
-// fixed xor-shuffle butterfly. FP32 FMA on the CUDA cores, never TF32: the
-// reference dot is HIGHEST precision.
+// prefill chunks); K3 takes the larger M.
+// The body is qmm_f32_tiled.cuh's, shared with K4, K6, K7, K8 and K9: the
+// format Q4K there is K7's Q5_K without the fifth bits (HBYTES = 0). The
+// entry point picks its kernel by M (fuller notes in the header):
+// - M = 1 (single-stream decode): `qmm_q4k_f32_kernel` below, K1's kernel
+//   from before the body: one warp owns 2 weight rows, each lane reads 16
+//   packed bytes (32 weights) per step, forms the weights in registers and
+//   reads x through L1/L2. On an H100 the body's decode kernel took 13%
+//   longer at M = 1 on 4096 x 4096, and 10% longer over a 32-layer decode
+//   step (PERF.md), so this kernel stays for M = 1; it sums in the body's
+//   order, so the bits are the same.
+// - 2 <= M <= 8 (the engine's decode steps): `small_kernel`, lanes over the
+//   K chunks, 2 weight rows per warp, x staged per 32 chunks in shared
+//   memory.
+//   Both decode kernels are bound by the weight bytes (~0.59 B per weight:
+//   0.5 qs + 1/16 scm + 1/32 dd, read once: 0.0080 ms for 11008 x 4096 on
+//   the H100), then latency.
+// - M > 8 (the engine's chunks, prefill tails shorter than int8_min_m):
+//   `tiled_kernel` or `tree_kernel`, each weight read and dequantized once
+//   per 32 or 64 activation rows (the earlier design: once per 8). Bound:
+//   the f32 FMA rate (2*M*N*K flops at 67 TFLOP/s: 0.0848 ms for 11008 x
+//   4096 at M = 63), then shared memory and the L2 traffic of x.
+// Reduction order: the body's, which was K1's before it: lane (slot) l
+// takes the chunks c ≡ l (mod 32) in order, each chunk's 16 low then 16
+// high elements, then the xor-butterfly tree. So K1's results kept their
+// bits when it came onto the body. FP32 FMA on the CUDA cores, never TF32:
+// the reference dot is HIGHEST precision.
 
 #define K1_WARPS 4
 #define K1_ROWS 2
@@ -138,8 +154,9 @@ qmm_q4k_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qs,
 extern "C" int qmm_q4k_f32(const float* x, const uint8_t* qs, const uint8_t* scm,
                            const float* dd, float* y, int M, int N, int K,
                            void* stream) {
-    dim3 grid((N + K1_WARPS * K1_ROWS - 1) / (K1_WARPS * K1_ROWS),
-              (M + K1_MT - 1) / K1_MT);
+    if (M > 1)
+        return qmm_tiled::launch<qmm_tiled::Q4K>(x, {qs, nullptr, scm, dd}, y, M, N, K, stream);
+    dim3 grid((N + K1_WARPS * K1_ROWS - 1) / (K1_WARPS * K1_ROWS), 1);
     qmm_q4k_f32_kernel<<<grid, K1_WARPS * 32, 0, (cudaStream_t)stream>>>(
         x, qs, scm, dd, y, M, N, K);
     return (int)cudaGetLastError();

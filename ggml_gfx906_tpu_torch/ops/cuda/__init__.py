@@ -32,7 +32,7 @@ K5 = Kernel("qmm_q8_0", "ggml_gfx906_tpu_torch/csrc/qmm_q8_0.cu",
             "ggml_gfx906_tpu/ops/pallas/qmm.py:443")
 K5_I8 = Kernel("qmm_q8_0_i8", "ggml_gfx906_tpu_torch/csrc/qmm_q8_0.cu",
                "ggml_gfx906_tpu/ops/pallas/qmm.py:692")
-K6 = Kernel("qmm_q4_0", "ggml_gfx906_tpu_torch/csrc/qmm_q4_0.cu",
+K6 = Kernel("qmm_q4_0", "ggml_gfx906_tpu_torch/csrc/qmm_legacy.cu",
             "ggml_gfx906_tpu/ops/pallas/qmm.py:489")
 K6_I8 = Kernel("qmm_q4_0_i8", "ggml_gfx906_tpu_torch/csrc/qmm_q4_0.cu",
                "ggml_gfx906_tpu/ops/pallas/qmm.py:704")

@@ -3,13 +3,17 @@ and the operand checks, f32 launch and int8 operand preparation that the
 other formats' kernels (qmm_q6k.py, qmm_q8_0.py, qmm_legacy.py, ...) share
 with them.
 
-Kernel source: csrc/qmm_q4k.cu (fuller notes there).
+Kernel source: csrc/qmm_q4k.cu (fuller notes there); K1 is the format Q4K
+on the shared f32 body csrc/qmm_f32_tiled.cuh.
 
 - K1 `qmm_q4_K` replaces ggml_gfx906_tpu/ops/pallas/qmm.py::qmm_q4_K.
-  Bound on the H100: bytes — the packed weights (~0.59 B per weight) are
-  read once. Design: each lane reads 16 packed bytes at a time, forms f32
-  weights in registers and FMAs them against up to 8 activation rows; a
-  fixed xor-shuffle reduction per output (no TF32, no atomics).
+  The C entry point picks the body's kernel by M: at M <= 8 (decode) lanes
+  over the K chunks with x staged in shared memory, bound by the packed
+  weight bytes (~0.59 B per weight, read once); at larger M a block
+  dequantizes a weight tile once into shared memory for 32 or 64
+  activation rows, bound by the f32 FMA rate. One summation order at
+  every M (32 slots over the K chunks, then the xor-butterfly tree), so a
+  row's bits do not depend on M (no TF32, no atomics).
 - K3 `qmm_q4_K_i8` replaces ggml_gfx906_tpu/ops/pallas/qmm.py::qmm_q4_K_i8.
   Bound on the H100: operations at large M (int8), bytes at M≈128. Design:
   64×64 output tiles; each block expands its packed weight tile to int8 in

@@ -1,13 +1,17 @@
 """Q4_0 matmul kernels K6 (f32, M < int8_min_m) and K6-i8 (int8, M >= it).
 
-Kernel source: csrc/qmm_q4_0.cu (fuller notes there).
+Kernel sources: csrc/qmm_legacy.cu (K6: the format Legacy<false, false> on
+the shared f32 body csrc/qmm_f32_tiled.cuh, beside K8's formats) and
+csrc/qmm_q4_0.cu (K6-i8); fuller notes there.
 
 - K6 `qmm_q4_0` replaces ggml_gfx906_tpu/ops/pallas/qmm.py::qmm_q4_0.
-  Bound on the H100: bytes — the weights (5 bits per weight) are read once.
-  Design: K5's — each lane reads half a 32-element block (8 qs bytes, one
-  scale) of every 512-element span, forms f32 weights (q − 8)·d in
-  registers and FMAs them against up to 8 activation rows; a fixed
-  xor-shuffle reduction per output.
+  The C entry point picks the body's kernel by M: at M <= 8 (decode) lanes
+  over the 32-element blocks with x staged in shared memory, bound by the
+  weight bytes (5 bits per weight, read once); at larger M a block forms
+  the weights (q − 8)·d of a tile once in shared memory for 32 or 64
+  activation rows, bound by the f32 FMA rate. One summation order at
+  every M (32 slots over the blocks, then the xor-butterfly tree), so a
+  row's bits do not depend on M.
 - K6-i8 `qmm_q4_0_i8` replaces ggml_gfx906_tpu/ops/pallas/qmm.py::
   qmm_q4_0_i8 (_q40_i8_kernel). K3's design: 64×64 output tiles, each block
   expands its weight tiles to int8 in shared memory, dp4a integer dots, the

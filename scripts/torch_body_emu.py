@@ -3,19 +3,22 @@ before a chip run.
 
     python3 scripts/torch_body_emu.py [--formats q4_1,q2_K,...] [--ref DIR]
 
-`csrc/qmm_f32_tiled.cuh` and the four sources on it (K4 Q6_K, K7 Q5_K, K8
-Q4_1 / Q5_0 / Q5_1, K9 Q2_K / Q3_K) are rewritten into plain C++ (one
-std::thread per CUDA thread, barriers for __syncthreads and the warp
-shuffles, synchronous copies for cp.async) and built with g++ (C++20)
-into build/emu/. Each format then runs at small shapes (K = 512, 1280 and
+`csrc/qmm_f32_tiled.cuh` and the sources on it (K1 Q4_K, K4 Q6_K, K6
+Q4_0, K7 Q5_K, K8 Q4_1 / Q5_0 / Q5_1, K9 Q2_K / Q3_K; with K3 and K6-i8,
+which share K1's and K6's files, compiled but not run) are rewritten into
+plain C++ (one std::thread per CUDA thread, barriers for __syncthreads
+and the warp shuffles, synchronous copies for cp.async) and built with
+g++ (C++20, one translation unit per source) into build/emu/. Each
+format then runs at small shapes (K = 512, 1280 and
 2816, N not a multiple of the tiles) through all three kernels (small,
 tiled and tree: the SM count the emulation reports decides between the
 last two), and the script checks, per format and shape:
 - nmse < 1e-10 against the wrapper's plain version (ops/cuda/*.py);
 - the one-order rule: every row has the same bits at every M and in every
   kernel;
-- with --ref DIR (another version of csrc/, e.g. a parent checkout's), the
-  same bits as that version at M = 1, 8 and 100.
+- with --ref DIR (another version of csrc/, e.g. a parent checkout's),
+  whether its bits equal that version's at M = 1, 8 and 100 (printed, not
+  asserted: a format whose summation order changed differs there).
 It proves nothing about the card (alignment, races between asynchronous
 copies, registers): chip_smoke.py does that. CPU only; no CUDA needed.
 """
@@ -34,11 +37,12 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from ggml_gfx906_tpu_torch.ops.cuda import (build, qmm_legacy, qmm_q5k, qmm_q6k,  # noqa: E402
-                                            qmm_q23k)
+from ggml_gfx906_tpu_torch.ops.cuda import (build, qmm, qmm_legacy, qmm_q4_0,  # noqa: E402
+                                            qmm_q5k, qmm_q6k, qmm_q23k)
 
 EMU_H = r"""
 #pragma once
+#include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
@@ -53,6 +57,9 @@ EMU_H = r"""
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __restrict__
+#define __shared__ static       // one block runs at a time
+using std::max;
+using std::min;
 struct uint4 { unsigned x, y, z, w; };
 struct uint2 { unsigned x, y; };
 struct float4 { float x, y, z, w; };
@@ -76,6 +83,11 @@ inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
 inline float fmaf_emu(float a, float b, float c) { return std::fmaf(a, b, c); }
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
+inline int __float2int_rn(float v) { return (int)std::nearbyint(v); }
+inline int __dp4a(int a, int b, int c) {
+    for (int i = 0; i < 4; ++i) c += (int)(int8_t)(a >> 8 * i) * (int)(int8_t)(b >> 8 * i);
+    return c;
+}
 inline unsigned __brev(unsigned v) {
     unsigned r = 0;
     for (int i = 0; i < 32; ++i) if (v >> i & 1) r |= 1u << (31 - i);
@@ -137,15 +149,15 @@ int emu_sms = 132;
 thread_local dim3 threadIdx, blockIdx;
 thread_local EmuBlock* emu_blk;
 extern "C" void emu_set_sms(int v) { emu_sms = v; }
-#include "qmm_q6k.cu"
-#include "qmm_q5k.cu"
-#include "qmm_legacy.cu"
-#include "qmm_q23k.cu"
 """
+SOURCES = ("qmm_q4k", "qmm_q6k", "qmm_q4_0", "qmm_q5k", "qmm_legacy", "qmm_q23k")
 
 # format → (C entry point, wrapper module, plain function, field specs:
 # name, K elements per value, kind)
 FORMATS = {
+    "q4_K": ("qmm_q4k_f32", qmm, "qmm_q4_K_plain",
+             [("qs", 2, "u8"), ("scm", 16, "u6"), ("dd", 128, "f")]),
+    "q4_0": ("qmm_q4_0_f32", qmm_q4_0, "qmm_q4_0_plain", [("qs", 2, "u8"), ("d", 32, "f")]),
     "q6_K": ("qmm_q6k_f32", qmm_q6k, "qmm_q6_K_plain",
              [("ql", 2, "u8"), ("qh", 4, "u8"), ("sc", 16, "i8"), ("d", 256, "f")]),
     "q5_K": ("qmm_q5k_f32", qmm_q5k, "qmm_q5_K_plain",
@@ -168,10 +180,10 @@ TILED, TREE = 1 << 20, 1        # reported SM counts: launch() picks tiled, or t
 
 def emulated(src: Path, out: Path) -> Path:
     """The sources of `src` rewritten for the emulation and built into
-    out/libemu.so."""
+    out/libemu.so (each source its own translation unit, compiled in
+    parallel: K3 and K6-i8 both define round_i8)."""
     out.mkdir(parents=True, exist_ok=True)
-    for f in list(src.glob("*.cuh")) + [src / f"{n}.cu" for n in
-                                         ("qmm_q6k", "qmm_q5k", "qmm_legacy", "qmm_q23k")]:
+    for f in list(src.glob("*.cuh")) + [src / f"{n}.cu" for n in SOURCES]:
         s = f.read_text().replace("#include <cuda_runtime.h>", '#include "emu.h"')
         s = re.sub(r'asm volatile\("cp\.async\.(commit|wait)_group[^"]*"[^;]*;', ";", s)
         s = re.sub(r'(void cp_async16\(void\* dst, const void\* src, bool valid\) \{).*?\n\}',
@@ -187,10 +199,16 @@ def emulated(src: Path, out: Path) -> Path:
         (out / f.name).write_text(s)
     (out / "emu.h").write_text(EMU_H)
     (out / "main.cpp").write_text(MAIN_CPP)
+    flags = ["-std=c++20", "-O2", "-ffp-contract=off", "-fPIC", "-pthread",
+             "-Wno-unknown-pragmas"]
+    units = [out / "main.cpp"] + [out / f"{n}.cu" for n in SOURCES]
+    procs = [subprocess.Popen(["g++", *flags, "-x", "c++", "-c", str(u), "-o",
+                               str(u.with_suffix(".o"))]) for u in units]
+    if any([p.wait() for p in procs]):     # wait for every one
+        raise RuntimeError("g++ failed on the emulated sources")
     lib = out / "libemu.so"
-    subprocess.run(["g++", "-std=c++20", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
-                    "-pthread", "-Wno-unknown-pragmas", str(out / "main.cpp"), "-o", str(lib)],
-                   check=True)
+    subprocess.run(["g++", "-shared", "-pthread", *(str(u.with_suffix(".o")) for u in units),
+                    "-o", str(lib)], check=True)
     return lib
 
 

@@ -4,13 +4,15 @@
 
 `csrc/qmm_f32_tiled.cuh::launch()` picks `tiled_kernel` (BM = 32 or 64) or
 `tree_kernel` for M > 8 by the grid the tree kernel would have. This script
-times each variant by itself, for every format on the body (K4 Q6_K, K7
-Q5_K, K8 Q4_1 / Q5_0 / Q5_1, K9 Q2_K / Q3_K), on the llama-7B shapes at the
-M around that choice, beside what `launch()` picks; every variant's output
-must equal `launch()`'s bit for bit (one summation order). It builds one
-library from a generated source that includes the four format sources
-(build/exp/), needs one CUDA card, prints one line per (format, shape, M)
-and writes DIR/tiled_pick.json (default build/).
+times each variant by itself, for every format on the body (K1 Q4_K, K4
+Q6_K, K6 Q4_0, K7 Q5_K, K8 Q4_1 / Q5_0 / Q5_1, K9 Q2_K / Q3_K), on the
+llama-7B shapes at the M around that choice (K1 and K6 serve M = 16..63 on
+the main path: the engine's chunks and prefill tails), beside what
+`launch()` picks; every variant's output must equal `launch()`'s bit for
+bit (one summation order). It builds one library from a generated source
+that includes the format sources (build/exp/; Q4_K is in the header, Q4_0
+in qmm_legacy.cu), needs one CUDA card, prints one line per (format,
+shape, M) and writes DIR/tiled_pick.json (default build/).
 """
 from __future__ import annotations
 
@@ -63,7 +65,9 @@ extern "C" int tiled_pick(int fmt, int v, const float* x, void* const* f, float*
         case 3: return pick<Q50>(v, x, f, y, M, N, K, stream);
         case 4: return pick<Q51>(v, x, f, y, M, N, K, stream);
         case 5: return pick<Q2K>(v, x, f, y, M, N, K, stream);
-        default: return pick<Q3K>(v, x, f, y, M, N, K, stream);
+        case 6: return pick<Q3K>(v, x, f, y, M, N, K, stream);
+        case 7: return pick<Q4K>(v, x, f, y, M, N, K, stream);
+        default: return pick<Q40>(v, x, f, y, M, N, K, stream);
     }
 }
 """
@@ -79,6 +83,8 @@ FORMATS = {
     "q5_1": (4, [("qs", 2, U8), ("qh", 8, U8), ("d", 32, F32), ("m", 32, F32)]),
     "q2_K": (5, [("qs", 4, U8), ("scales", 16, U8), ("d", 256, F32), ("dmin", 256, F32)]),
     "q3_K": (6, [("qs", 4, U8), ("hmask", 8, U8), ("sc", 16, I8), ("d", 256, F32)]),
+    "q4_K": (7, [("qs", 2, U8), None, ("scm", 16, U8), ("dd", 128, F32)]),
+    "q4_0": (8, [("qs", 2, U8), None, ("d", 32, F32), None]),
 }
 SHAPES = ((4096, 4096), (11008, 4096), (4096, 11008))
 MS = (16, 32, 33, 48, 63, 64, 65, 100, 128)

@@ -1,7 +1,7 @@
 """The port's kernel build (ops/cuda/build.py) on the CPU: the hash that
 names a library in build/torch_kernels/ changes with its source, with any
-header in csrc/ (K4, K7, K8 and K9 share qmm_f32_tiled.cuh) and with the flags, so
-an edit never reuses a stale library. nvcc itself runs only on the card's
+header in csrc/ (K1, K4, K6, K7, K8 and K9 share qmm_f32_tiled.cuh) and with
+the flags, so an edit never reuses a stale library. nvcc itself runs only on the card's
 machine (chip_smoke.py)."""
 import shutil
 
@@ -25,12 +25,24 @@ def test_digest_of_a_copy_equals_the_checkout(csrc):
     assert _digests(csrc) == {name: build.digest(name) for name in build.sources()}
 
 
-# the sources on the shared f32 body: K4, K7, K8, K9
-@pytest.mark.parametrize("name", ["qmm_q6k", "qmm_q5k", "qmm_legacy", "qmm_q23k"])
+# the sources on the shared f32 body: K1, K4, K7, K8 and K6 (qmm_legacy), K9
+@pytest.mark.parametrize("name", ["qmm_q4k", "qmm_q6k", "qmm_q5k", "qmm_legacy", "qmm_q23k"])
 def test_sources_are_the_cu_files_and_headers_are_hashed(csrc, name):
     assert name in build.sources()
     assert not any(source.endswith(".cuh") for source in build.sources())
     assert '#include "qmm_f32_tiled.cuh"' in (csrc / f"{name}.cu").read_text()
+
+
+# every f32 entry point on the body: K1, K4, K6, K7, K8 (3), K9 (2)
+@pytest.mark.parametrize("fn", ["qmm_q4k_f32", "qmm_q6k_f32", "qmm_q4_0_f32", "qmm_q5k_f32",
+                                "qmm_q4_1_f32", "qmm_q5_0_f32", "qmm_q5_1_f32", "qmm_q2k_f32",
+                                "qmm_q3k_f32"])
+def test_f32_entry_points_launch_the_body(csrc, fn):
+    text = (csrc / f"{build.SIGNATURES[fn][0]}.cu").read_text()
+    assert '#include "qmm_f32_tiled.cuh"' in text
+    body = text[text.index(f'extern "C" int {fn}('):]
+    body = body[:body.index("\n}\n")]
+    assert "qmm_tiled::launch<" in body
 
 
 @pytest.mark.parametrize("edit", [b"\n// a comment\n", b" "])

@@ -19,8 +19,8 @@ def test_no_card_no_result(argv, capsys):
     assert '"ok"' not in capsys.readouterr().out
 
 
-# the checks of the kernels on the shared f32 body: K4, K7, K8, K9
-@pytest.mark.parametrize("check", ["q6k", "q5k", "legacy", "q23k"])
+# the checks of the kernels on the shared f32 body: K1, K4, K6, K7, K8, K9
+@pytest.mark.parametrize("check", ["qmm", "q6k", "q4_0", "q5k", "legacy", "q23k"])
 def test_checks_cover_k4_and_k7_row_invariance(check):
     assert check in chip_smoke.CHECKS
     names = chip_smoke.CHECKS[check].__code__.co_names
