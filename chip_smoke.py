@@ -20,7 +20,11 @@ Phases (each failure raises, so the script exits non-zero):
      to another); the kernels on the f32 body (K1, K4, K6, K7, K8, K9)
      also row by row: on each shape the rows of one 128-row product equal,
      bit for bit, those of the same x cut to M in {1, 8, 16, 63, 100} and
-     of single rows (check_rows);
+     of single rows (check_rows), and K3 likewise; K3 in its two launches,
+     its x quantization bit for bit against split_x + quantize_x_tiles and
+     the sha256 of its product (check_k3); K2's rows bit for bit across the
+     window, N, B and the chunk split at its chunk edges
+     (check_attention_rows);
   4. a small-model check of the card's forward against the CPU's, for a
      tiny Q4_K, Q4_K_M-mixture, Q8_0, Q5_K_M-mixture, Q4_0, Q4_1, Q5_0,
      Q5_1, Q2_K-mixture and Q3_K_M-mixture model, and the Q4_K and Q3_K_M
@@ -49,7 +53,8 @@ Phases (each failure raises, so the script exits non-zero):
      types predict, and traces one decode step and one 8-slot engine decode
      step with torch.profiler for the device-busy share (and, on the
      paths of TRACE_PREFILL, one more 100-token prefill), and records a
-     sha256 of its greedy streams. The Q4_K file
+     sha256 of its greedy streams. The 32-layer Q4_K file also traces one
+     8-slot decode step at window 1024 (long_window_step). The Q4_K file
      then decodes again with qmm_pipeline="on" (K10 in place of K1),
      traced, with one step's logits held against the flag off within the
      int8 route's distance from them. The launch counts are set to 0 just
@@ -67,6 +72,7 @@ import argparse
 import dataclasses
 import functools
 import hashlib
+import inspect
 import json
 import os
 import shutil
@@ -89,6 +95,7 @@ from ggml_gfx906_tpu_torch.quant.kquants import pack_q3_scales, pack_scale_min_k
 from ggml_gfx906_tpu_torch.quant.types import (BLOCK_Q2_K, BLOCK_Q3_K, BLOCK_Q4_0, BLOCK_Q4_1,
                                                BLOCK_Q4_K, BLOCK_Q5_0, BLOCK_Q5_1, BLOCK_Q5_K,
                                                BLOCK_Q6_K, BLOCK_Q8_0, GGMLType)
+from ggml_gfx906_tpu_torch.runtime.batched_kv import BatchedKVCache
 from ggml_gfx906_tpu_torch.runtime.engine import Engine
 from ggml_gfx906_tpu_torch.utils import autotune, config
 
@@ -144,11 +151,12 @@ class Timer:
         return float(np.median(times))
 
 
-def trace_device(fn) -> dict:
+def trace_device(fn, match: tuple = ()) -> dict:
     """One call of fn under torch.profiler: the device's busy time (union of
-    its kernel and copy intervals), the number of device activities, and
-    the busiest kernel names. busy_ms is None when the trace holds no
-    device activity (the profiler could not see the card)."""
+    its kernel and copy intervals), the number of device activities, the
+    busiest kernel names and (matched_ms) the device time of the activities
+    whose name holds one of `match`. busy_ms is None when the trace holds
+    no device activity (the profiler could not see the card)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -167,8 +175,9 @@ def trace_device(fn) -> dict:
         key = name[:60]
         by_name[key] = by_name.get(key, 0.0) + (e - s)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    matched = sum(e - s for s, e, name in ev if any(m in name for m in match))
     return {"busy_ms": busy_us / 1e3 if ev else None, "device_activities": len(ev),
-            "profiled_wall_ms": wall * 1e3,
+            "profiled_wall_ms": wall * 1e3, "matched_ms": matched / 1e3,
             "top_ms": [[name, us / 1e3] for name, us in top]}
 
 
@@ -231,6 +240,61 @@ def check_i8(timer, results, label, kernel, full, prepare, launch, plain, x,
         f"ms={results[-1]['ms']:.4f}")
 
 
+# K3's M: 100, the ragged single-stream prefill; 128, a prefill chunk; 512
+K3_MS = (100, 128, 512)
+
+
+def k3_launches(qs, scm, dd):
+    """K3's two launches as (quantize x, product on its output). A tree from
+    before K3's x-quantization kernel (no `qmm.quantize_x`) prepared every
+    operand in torch (prepare_i8); taking it lets this script time and
+    digest such a tree's K3 beside this one's in one call."""
+    if hasattr(qmm, "quantize_x"):
+        return qmm.quantize_x, lambda *xo: qmm.launch_i8(qs, scm, dd, *xo)
+    return (lambda x: qmm.prepare_i8(x, scm, dd)), lambda *ops: qmm.launch_i8(qs, *ops)
+
+
+def check_k3(timer, results, quant, product, qs, scm, dd, x, w_dense, wbytes):
+    """K3 in its two launches (k3_launches): the x quantization bit for bit
+    against split_x + quantize_x_tiles, for f32 and bf16 x; the product
+    against the plain version on the same operands (prepare_i8), element-wise
+    as check_i8, and by the sha256 of its output (its dots are exact and its
+    roundings the reference's, so the digest is the same in any tree that
+    keeps them); timed with the quantization (qmm_q4_K_i8, as the main path
+    calls it), without it, and the quantization alone, beside the plain
+    version, torch.matmul on the dense weight and the bound."""
+    m, k = x.shape
+    n = w_dense.shape[0]
+    for xx in (x, x.bfloat16()):
+        xlo, xhi = qmm.split_x(xx.float())
+        want = (*qmm.quantize_x_tiles(xlo), *qmm.quantize_x_tiles(xhi))
+        if not all(torch.equal(a, b) for a, b in zip(quant(xx)[:4], want)):
+            raise AssertionError(f"K3 x quantization M={m} K={k} {xx.dtype}: differs from "
+                                 "split_x + quantize_x_tiles")
+    xo = quant(x)
+    ops = qmm.prepare_i8(x, scm, dd)
+    got, ref = product(*xo), qmm.qmm_q4_K_i8_plain(qs, *ops)
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    if not bool((err <= 1e-5 * ref.abs() + 1e-6 * ref.abs().max()).all()):
+        raise AssertionError(f"K3 M={m} N={n} K={k}: rel err "
+                             f"{float((err / ref.abs().clamp_min(1e-30)).max())}")
+    b, by = bound(wbytes + m * k * 4 + m * n * 4, 2.0 * m * n * k, "int8")
+    results.append(dict(
+        kernel=kernels.K3.name, shape=f"M={m} N={n} K={k}", nmse=nmse(got, ref),
+        max_abs_err=float(err.max()), equal_to_plain=bool(torch.equal(got, ref)),
+        sha256=hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest(),
+        ms=timer(lambda: qmm.qmm_q4_K_i8(x, qs, scm, dd)),
+        kernel_only_ms=timer(lambda: product(*xo)), quant_x_ms=timer(lambda: quant(x)),
+        plain_ms=timer(lambda: qmm.qmm_q4_K_i8_plain(qs, *qmm.prepare_i8(x, scm, dd))),
+        library_ms=timer(lambda: torch.matmul(x, w_dense.T)),
+        bound_ms=b, bound_by=by))
+    r = results[-1]
+    log(f"K3 M={m} N={n} K={k} x quantization bit-equal, equal to plain "
+        f"{r['equal_to_plain']}, sha256 {r['sha256'][:16]}, ms={r['ms']:.4f} (product "
+        f"{r['kernel_only_ms']:.4f}, x quantization {r['quant_x_ms']:.4f})")
+
+
 def random_q4k(n, k, device, gen):
     """Q4_K weights with random nibbles and 6-bit scales, plausible d."""
     nb = k // 256
@@ -243,7 +307,7 @@ def random_q4k(n, k, device, gen):
 def check_qmm(device, timer, results):
     """K1 on the 7B shapes (every matrix of the Q4_K file, the tied head
     included) at TILED_MS and Q4_EXTRA_MS, and its rows bit for bit across
-    M (check_rows); K3 at prefill M."""
+    M (check_rows); K3 at K3_MS (check_k3) and its rows across M."""
     gen = torch.Generator(device=device).manual_seed(1)
     rows = {}
     for n, k in QMM_SHAPES:
@@ -257,13 +321,12 @@ def check_qmm(device, timer, results):
                       torch.randn((m, k), device=device, generator=gen), w_dense, wbytes)
         rows[f"N={n} K={k}"] = check_rows("K1", lambda x: qmm.qmm_q4_K(x, qs, scm, dd),
                                           torch.randn((128, k), device=device, generator=gen))
-        for m in (100, 128, 512):        # 100: the ragged single-stream prefill
-            check_i8(timer, results, "K3", kernels.K3,
-                     lambda x: qmm.qmm_q4_K_i8(x, qs, scm, dd),
-                     lambda x: qmm.prepare_i8(x, scm, dd),
-                     lambda *ops: qmm.launch_i8(qs, *ops),
-                     lambda *ops: qmm.qmm_q4_K_i8_plain(qs, *ops),
+        quant, product = k3_launches(qs, scm, dd)
+        for m in K3_MS:
+            check_k3(timer, results, quant, product, qs, scm, dd,
                      torch.randn((m, k), device=device, generator=gen), w_dense, wbytes)
+        rows[f"K3 N={n} K={k}"] = check_rows("K3", lambda x: qmm.qmm_q4_K_i8(x, qs, scm, dd),
+                                             torch.randn((128, k), device=device, generator=gen))
         del w_dense
     return rows
 
@@ -591,6 +654,51 @@ def check_attention(device, timer, results):
             library_ms=timer(lib) if lib is not None else None,
             bound_ms=b, bound_by=by))
         log(f"K2 {name} nmse={e:.3e} ms={results[-1]['ms']:.4f}")
+    return {"rows": check_attention_rows(device)}
+
+
+# K2's chunk edges: a chunk holds flash_attn.CHUNK = 128 positions
+EDGE_POS = (127, 128, 129, 261)
+
+
+def check_attention_rows(device) -> dict:
+    """K2's rows bit for bit (torch.equal): a query row at each position of
+    EDGE_POS gives the bits it has with the window cut at its position + 1
+    also with the window 1024, as row 3 of a 7-row prefill, as slot 1 of 3
+    (the other slots at other positions), and with one chunk range and with
+    one per chunk (the wrapper's `_split`, where it has one), for bf16 and
+    f32 K/V with grouped heads (H = 32, KVH = 8)."""
+    gen = torch.Generator(device=device).manual_seed(12)
+    fn = flash_attn.causal_flash_attention
+    has_split = "_split" in inspect.signature(fn).parameters
+    D, H, KVH, M = 128, 32, 8, 1024
+    scale = 1.0 / D ** 0.5
+    for dt in (torch.bfloat16, torch.float32):
+        k = torch.randn((3, KVH, M, D), device=device, generator=gen).to(dt)
+        v = torch.randn((3, KVH, M, D), device=device, generator=gen).to(dt)
+        for p in EDGE_POS:
+            q = torch.randn((1, H, 1, D), device=device, generator=gen)
+            q7 = torch.randn((1, H, 7, D), device=device, generator=gen)
+            q7[:, :, 3] = q[:, :, 0]
+            q3 = torch.randn((3, H, 1, D), device=device, generator=gen)
+            q3[1] = q[0]
+            pos3 = torch.tensor([40, p, 900], dtype=torch.int32, device=device)
+            one = fn(q, k[1:2, :, :p + 1], v[1:2, :, :p + 1], p, scale)
+            got = {"window 1024": fn(q, k[1:2], v[1:2], p, scale),
+                   "row 3 of N=7": fn(q7, k[1:2], v[1:2], p - 3, scale)[:, :, 3:4],
+                   "slot 1 of B=3": fn(q3, k, v, pos3, scale)[1:2]}
+            if has_split:
+                got["split 1"] = fn(q, k[1:2], v[1:2], p, scale, _split=1)
+                got["split 8"] = fn(q, k[1:2], v[1:2], p, scale, _split=M // 128)
+            bad = [name for name, t in got.items() if not torch.equal(t, one)]
+            if bad:
+                raise AssertionError(f"K2 {dt} row at position {p}: bits differ from the "
+                                     f"window {p + 1} ones at {bad}")
+    cases = ["window 1024", "row 3 of N=7", "slot 1 of B=3"] + (
+        ["split 1", "split 8"] if has_split else [])
+    log(f"K2 rows bit-equal at positions {list(EDGE_POS)} (bf16 and f32 K/V): "
+        f"window p + 1 vs {cases}")
+    return {"positions": list(EDGE_POS), "cases": cases, "equal": True}
 
 
 # ------------------------------------------------------------- main path
@@ -1020,6 +1128,9 @@ def main_path(device, n_layer: int, recipe: str, layout: str = "kernel",
             eng.step()
         out["engine_decode_step_ms"] = (time.perf_counter() - t0) / 5 * 1e3
         out["engine_step_trace"] = trace_device(eng.step)
+        if recipe == "q4_k" and out["layout_asked"] == "kernel":
+            eng = None                   # its KV cache goes before the long-window one
+            out["long_window"] = long_window_step(device, cfg, params)
     for key, step_ms in (("decode_step_trace", out["decode_step_ms"]),
                          ("engine_step_trace", out["engine_decode_step_ms"]),
                          ("prefill_trace", out["prefill_100_s"] * 1e3)):
@@ -1045,6 +1156,45 @@ def main_path(device, n_layer: int, recipe: str, layout: str = "kernel",
     if recipe == "q4_k" and layout == "kernel":
         out["pipeline"] = pipeline_phase(device, cfg, params, n_layer)
     del params
+    torch.cuda.empty_cache()
+    return out
+
+
+# K2's kernels in a trace: this tree's (fa::fwd_kernel, fa::combine_kernel)
+# and the single-kernel design before it (flash_fwd_kernel)
+K2_TRACE_NAMES = ("fa::", "flash_fwd_kernel")
+
+
+def long_window_step(device, cfg, params) -> dict:
+    """One 8-slot `forward_batch` decode step at window 1024, as the engine
+    runs it when its longest slot holds 900-1000 positions: the slots' bf16
+    caches are filled with random K/V (the values do not change K2's work:
+    a timing trace, not a correctness check). Host-clock time of the step
+    (median of 5, synchronised) and one traced step: busy ms, K2's device
+    ms, activities, busy share."""
+    rng = np.random.default_rng(7)
+    gen = torch.Generator(device=device).manual_seed(7)
+    kv = BatchedKVCache.create(cfg.n_layer, 8, 1024, cfg.n_kv_head, cfg.head_dim,
+                               dtype=cfg.compute_dtype, device=device)
+    for t in kv.k + kv.v:
+        t.normal_(generator=gen)
+    lengths = torch.tensor(rng.integers(900, 1001, 8), dtype=torch.int32, device=device)
+    tok = torch.tensor(rng.integers(1, cfg.n_vocab, (8, 1)), device=device)
+    step = lambda: llama.forward_batch(cfg, params, tok, kv, lengths, attn_window=1024)  # noqa: E731
+    step()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out = {"window": 1024, "slot_lengths": lengths.tolist(),
+           "step_ms": float(np.median(times)),
+           "trace": trace_device(step, K2_TRACE_NAMES)}
+    busy = out["trace"]["busy_ms"]
+    out["trace"]["busy_share"] = None if busy is None else busy / out["step_ms"]
+    del kv
     torch.cuda.empty_cache()
     return out
 
@@ -1355,6 +1505,13 @@ def main(argv=None) -> int:
                 f"{ax['logits_nmse_xla_vs_k2_exact']:.3e} at f32 with the f32 kernels (K2's "
                 f"card-vs-plain distance {ax['bound']:.3e}), "
                 f"{ax['logits_nmse_xla_vs_k2_served']:.3e} as served")
+        if "long_window" in mp:
+            lw = mp["long_window"]
+            t = lw["trace"]
+            log(f"  8-slot decode step at window 1024 (slots at {lw['slot_lengths']}) "
+                f"[{label}]: {lw['step_ms']:.3f} ms unprofiled, device busy {t['busy_ms']} ms "
+                f"({t['device_activities']} activities), busy share {t['busy_share']}, K2 "
+                f"{t['matched_ms']:.3f} ms; busiest {t['top_ms'][:4]}")
         if "pipeline" in mp:
             pp = mp["pipeline"]
             t = pp["decode_step_trace"]

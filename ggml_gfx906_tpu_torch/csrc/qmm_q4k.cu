@@ -19,6 +19,7 @@
 // Every function returns the cudaError_t of its launch (0 = success).
 
 #include "qmm_f32_tiled.cuh"
+#include "qmm_i8_tiled.cuh"
 
 // ------------------------------------------------------------------ K1
 // Replaces ggml_gfx906_tpu/ops/pallas/qmm.py::qmm_q4_K (_q4k_kernel):
@@ -164,158 +165,185 @@ extern "C" int qmm_q4k_f32(const float* x, const uint8_t* qs, const uint8_t* scm
 
 // ------------------------------------------------------------------ K3
 // Replaces ggml_gfx906_tpu/ops/pallas/qmm.py::qmm_q4_K_i8 (_q4k_i8_kernel,
-// launcher _i8_call): y (M, N) f32 for M >= int8_min_m (prefill).
-// x arrives quantized per (row, 128-element tile) — qx int8 + ex f32, where
-// the lo tile of superblock t is its 128 low-nibble elements and the hi tile
-// its 128 high-nibble elements, in qs byte order. The packed Q4_K bytes are
-// expanded to int8 in shared memory with the folded scales (block scales
-// pre-divided by the per-tile bound dw): w8 = round_half_even(q*dsc' - dm'),
-// clipped to +-127, exactly as _round_i8. int8.int8 -> int32 products run on
-// __dp4a and are exact; the epilogue applies
-//   acc += ((float)p * ex[m,t]) * dw[n,t]     (lo tile, then hi tile)
-// in the reference's order.
-// Bound on the H100: operations (2*M*N*K int8 ops) at prefill sizes; this
-// first version uses dp4a on the CUDA cores, not the int8 tensor cores, so
-// it sits well above that bound (mma.sync / wgmma are a later step).
-// Design: a block owns a 64 (M) x 64 (N) output tile and walks K one
-// superblock at a time. The TPU kernel expands each weight tile once per N
-// tile and reuses it across M through its sequential grid; GPU blocks run
-// in no order, so here the expansion lives in each block's shared memory.
-// The weights stay packed in device memory (4.5 bits per weight).
+// launcher _i8_call): y (M, N) f32 for M >= int8_min_m (prefill), in two
+// launches.
+// 1. `q4k_quant_x_kernel`: x (M, K) f32 or bf16 -> qxlo, qxhi (M, K/2)
+//    int8 and exlo, exhi (M, K/256) f32: per superblock t the lo tile is
+//    its 128 elements under the low nibbles (64g + i, g < 4, i < 32) and
+//    the hi tile those under the high ones (64g + 32 + i), in qs byte
+//    order (32g + i); each tile is quantized by its amax: ex = amax / 127,
+//    q = clip(round_half_even(x * (127 / amax)), +-127) (0 when amax = 0),
+//    true divisions. The bits of split_x + quantize_x_tiles
+//    (ops/cuda/qmm.py), which replaced a dozen eager torch ops per call.
+//    One warp per (row, superblock); bound by x's bytes.
+// 2. The int8 body (qmm_i8_tiled.cuh) with the format Q4KI8 below, which
+//    reads qs, scm and dd as K1 does and folds the scales in the kernel,
+//    per (row, superblock) and half (lo: sub-blocks 0, 2, 4, 6; hi: 1, 3,
+//    5, 7): dsc = sc * d, dm = m * dmin, the bound max(|15 dsc - dm|, |dm|),
+//    its amax over the half's 4 sub-blocks, dw = amax / 127, inv = 127 /
+//    amax (0 when amax = 0), dsc' = dsc * inv, dm' = dm * inv, then
+//    w8 = clip(round_half_even(q * dsc' - dm'), +-127): every step one IEEE
+//    operation (__fmul_rn / __fsub_rn / __fdiv_rn), the bits of scale_arrays
+//    + tile_fold + expand_w8. Integer dots on the int8 tensor cores
+//    (mma.sync), then out += (acc * ex) * dw per superblock, lo then hi, as
+//    the reference and the earlier dp4a kernel sum: the output keeps their
+//    bits at every M and shape.
+// What bounded the earlier design (PERF.md): the operand preparation ran
+// as ~20 eager torch ops per call (as long as the kernel), recomputing the
+// weights' fold every call, and the dots ran on dp4a.
 
-#define K3_BM 64
-#define K3_BN 64
-#define K3_THREADS 256
-#define K3_WORDS 32      // 128 int8 per tile = 32 words
-#define K3_PAD 33        // padded row stride in words: no bank conflicts
+namespace q4k_i8 {
 
-__device__ __forceinline__ int round_i8(float v) {
-    int r = __float2int_rn(v);           // round half to even, like jnp.round
-    return min(127, max(-127, r));
-}
-
-__global__ void __launch_bounds__(K3_THREADS)
-qmm_q4k_i8_kernel(const int8_t* __restrict__ qxlo, const float* __restrict__ exlo,
-                  const int8_t* __restrict__ qxhi, const float* __restrict__ exhi,
-                  const uint8_t* __restrict__ qs,
-                  const float* __restrict__ dsclo, const float* __restrict__ dschi,
-                  const float* __restrict__ dmlo, const float* __restrict__ dmhi,
-                  const float* __restrict__ dwlo, const float* __restrict__ dwhi,
-                  float* __restrict__ y, int M, int N, int K) {
-    __shared__ int xs[2][K3_BM][K3_PAD];
-    __shared__ int ws[2][K3_BN][K3_PAD];
-    const int tid = threadIdx.x;
-    const int tx = tid & 15;      // n = tx + 16*j
-    const int ty = tid >> 4;      // m = ty + 16*i
-    const int m0 = blockIdx.y * K3_BM;
-    const int n0 = blockIdx.x * K3_BN;
-    const int nb = K / 256;
-    const size_t half = (size_t)K / 2;
-
-    float out[4][4];
+struct Q4KI8 {
+    static constexpr int TILES = 2;      // lo and hi nibbles of a superblock
+    static constexpr int SPAN = 256;
+    struct Ptrs {
+        const uint8_t* qs;
+        const uint8_t* scm;
+        const float* dd;
+    };
+    struct Raw {
+        uint4 q[2];                      // BPT (16 or 32) packed bytes
+        uint4 sc;                        // sc0..7, m0..7
+        float2 d;                        // d, dmin
+    };
+    __device__ static void zero(Raw& r) {
+        r.q[0] = r.q[1] = r.sc = make_uint4(0, 0, 0, 0);
+        r.d = make_float2(0.f, 0.f);
+    }
+    template <int BPT>
+    __device__ static void load(Raw& r, const Ptrs& p, int n, int s, int piece, int K) {
+        const uint8_t* q = p.qs + (size_t)n * (K / 2) + (size_t)s * 128 + piece * BPT;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < BPT / 16; ++i) r.q[i] = __ldg(reinterpret_cast<const uint4*>(q) + i);
+        r.sc = __ldg(reinterpret_cast<const uint4*>(p.scm + (size_t)n * (K / 16) + (size_t)s * 16));
+        r.d = __ldg(reinterpret_cast<const float2*>(p.dd + (size_t)n * (K / 128) + 2 * (size_t)s));
+    }
+    template <int BPT>
+    __device__ static void expand(const Raw& r, int piece, uint4 (&wv)[2][BPT / 16],
+                                  float (&dw)[2]) {
+        const int g = piece * BPT / 32;  // the 32-byte group: sub-blocks 2g (lo), 2g+1 (hi)
+        const uint32_t scw[4] = {r.sc.x, r.sc.y, r.sc.z, r.sc.w};
+        float amax[2] = {0.f, 0.f}, dsg[2] = {0.f, 0.f}, dmg[2] = {0.f, 0.f};
 #pragma unroll
-        for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
-
-    for (int t = 0; t < nb; ++t) {
-        __syncthreads();          // the previous tile's reads are done
-        for (int i = tid; i < 2 * K3_BM * K3_WORDS; i += K3_THREADS) {
-            const int h = i / (K3_BM * K3_WORDS);
-            const int rem = i - h * K3_BM * K3_WORDS;
-            const int r = rem / K3_WORDS;
-            const int w = rem - r * K3_WORDS;
-            const int m = m0 + r;
-            int val = 0;
-            if (m < M) {
-                const int8_t* src = (h ? qxhi : qxlo) + (size_t)m * half + (size_t)t * 128;
-                val = reinterpret_cast<const int*>(src)[w];
+        for (int sb = 0; sb < 8; ++sb) {
+            const float dsc = __fmul_rn(qmm_i8::small_float((scw[sb >> 2] >> (8 * (sb & 3))) & 0xFFu),
+                                        r.d.x);
+            const float dm = __fmul_rn(qmm_i8::small_float((scw[2 + (sb >> 2)] >> (8 * (sb & 3))) & 0xFFu),
+                                       r.d.y);
+            const float bnd = fmaxf(fabsf(__fsub_rn(__fmul_rn(15.f, dsc), dm)), fabsf(dm));
+            amax[sb & 1] = fmaxf(amax[sb & 1], bnd);
+            if ((sb >> 1) == g) {
+                dsg[sb & 1] = dsc;
+                dmg[sb & 1] = dm;
             }
-            xs[h][r][w] = val;
         }
-        for (int i = tid; i < K3_BN * K3_WORDS; i += K3_THREADS) {
-            const int r = i / K3_WORDS;
-            const int w = i - r * K3_WORDS;
-            const int n = n0 + r;
-            uint32_t lo_word = 0, hi_word = 0;
-            if (n < N) {
-                const uint32_t q4 = reinterpret_cast<const uint32_t*>(
-                    qs + (size_t)n * half + (size_t)t * 128)[w];
-                const int g = w >> 3;                  // 32 bytes per group
-                const size_t si = (size_t)n * nb * 4 + (size_t)t * 4 + g;
-                const float sl = dsclo[si], ml = dmlo[si];
-                const float sh = dschi[si], mh = dmhi[si];
-#pragma unroll
-                for (int b = 0; b < 4; ++b) {
-                    const uint32_t byte = (q4 >> (8 * b)) & 0xFFu;
-                    const int vl = round_i8(__fsub_rn(__fmul_rn((float)(byte & 0xFu), sl), ml));
-                    const int vh = round_i8(__fsub_rn(__fmul_rn((float)(byte >> 4), sh), mh));
-                    lo_word |= ((uint32_t)(vl & 0xFF)) << (8 * b);
-                    hi_word |= ((uint32_t)(vh & 0xFF)) << (8 * b);
-                }
-            }
-            ws[0][r][w] = (int)lo_word;
-            ws[1][r][w] = (int)hi_word;
-        }
-        __syncthreads();
-
+        float ds[2], dmf[2];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-            int acc[4][4];
+            dw[h] = __fdiv_rn(amax[h], 127.f);
+            const float inv = amax[h] > 0.f ? __fdiv_rn(127.f, amax[h]) : 0.f;
+            ds[h] = __fmul_rn(dsg[h], inv);
+            dmf[h] = __fmul_rn(dmg[h], inv);
+        }
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < BPT / 16; ++i) {
+            const uint32_t qw[4] = {r.q[i].x, r.q[i].y, r.q[i].z, r.q[i].w};
+            uint32_t lo[4], hi[4];
 #pragma unroll
-                for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-#pragma unroll 8
-            for (int w = 0; w < K3_WORDS; ++w) {
-                int a[4], b[4];
+            for (int k = 0; k < 4; ++k) {
+                lo[k] = hi[k] = 0;
 #pragma unroll
-                for (int i = 0; i < 4; ++i) a[i] = xs[h][ty + 16 * i][w];
-#pragma unroll
-                for (int j = 0; j < 4; ++j) b[j] = ws[h][tx + 16 * j][w];
-#pragma unroll
-                for (int i = 0; i < 4; ++i)
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-            }
-            const float* ex = h ? exhi : exlo;
-            const float* dw = h ? dwhi : dwlo;
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const int m = m0 + ty + 16 * i;
-                const float exv = m < M ? ex[(size_t)m * nb + t] : 0.f;
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    const int n = n0 + tx + 16 * j;
-                    const float dwv = n < N ? dw[(size_t)n * nb + t] : 0.f;
-                    out[i][j] = __fadd_rn(out[i][j],
-                                          __fmul_rn(__fmul_rn((float)acc[i][j], exv), dwv));
+                for (int b = 0; b < 4; ++b) {
+                    const uint32_t byte = (qw[k] >> (8 * b)) & 0xFFu;
+                    const float vl = __fsub_rn(__fmul_rn(qmm_i8::small_float(byte & 0xFu), ds[0]), dmf[0]);
+                    const float vh = __fsub_rn(__fmul_rn(qmm_i8::small_float(byte >> 4), ds[1]), dmf[1]);
+                    lo[k] |= qmm_i8::round_i8_byte(vl) << (8 * b);
+                    hi[k] |= qmm_i8::round_i8_byte(vh) << (8 * b);
                 }
             }
+            wv[0][i] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+            wv[1][i] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
         }
     }
+};
 
+template <typename T> __device__ __forceinline__ void load8(const T* p, float* v);
+template <> __device__ __forceinline__ void load8<float>(const float* p, float* v) {
+    const float4 a = reinterpret_cast<const float4*>(p)[0];
+    const float4 b = reinterpret_cast<const float4*>(p)[1];
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+template <> __device__ __forceinline__ void load8<uint16_t>(const uint16_t* p, float* v) {
+    const uint4 a = reinterpret_cast<const uint4*>(p)[0];      // 8 bf16
+    const uint32_t w[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-        const int m = m0 + ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int n = n0 + tx + 16 * j;
-            if (m < M && n < N) y[(size_t)m * N + n] = out[i][j];
-        }
+        v[2 * i] = __uint_as_float(w[i] << 16);
+        v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
     }
 }
 
-extern "C" int qmm_q4k_i8(const int8_t* qxlo, const float* exlo,
-                          const int8_t* qxhi, const float* exhi,
-                          const uint8_t* qs,
-                          const float* dsclo, const float* dschi,
-                          const float* dmlo, const float* dmhi,
-                          const float* dwlo, const float* dwhi,
-                          float* y, int M, int N, int K, void* stream) {
-    dim3 grid((N + K3_BN - 1) / K3_BN, (M + K3_BM - 1) / K3_BM);
-    qmm_q4k_i8_kernel<<<grid, K3_THREADS, 0, (cudaStream_t)stream>>>(
-        qxlo, exlo, qxhi, exhi, qs, dsclo, dschi, dmlo, dmhi, dwlo, dwhi,
-        y, M, N, K);
+// One warp per (row m, superblock t); lane l holds elements 8l .. 8l+7 of
+// the superblock: group g = l / 8, lo tile (bit 2 of l clear) or hi.
+template <typename T>
+__global__ void __launch_bounds__(256)
+q4k_quant_x_kernel(const T* __restrict__ x, int8_t* __restrict__ qxlo, float* __restrict__ exlo,
+                   int8_t* __restrict__ qxhi, float* __restrict__ exhi, int M, int K) {
+    const int nb = K / 256;
+    const int wid = blockIdx.x * 8 + (threadIdx.x >> 5);
+    if (wid >= M * nb) return;                 // the whole warp
+    const int lane = threadIdx.x & 31;
+    const int m = wid / nb;
+    const int t = wid - m * nb;
+    float v[8];
+    load8<T>(x + (size_t)m * K + (size_t)t * 256 + 8 * lane, v);
+    float a = 0.f;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) a = fmaxf(a, fabsf(v[u]));
+    // the 16 lanes of one tile differ in bits 0, 1, 3, 4 of the lane
+    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, 1));
+    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, 2));
+    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, 8));
+    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, 16));
+    const float ex = __fdiv_rn(a, 127.f);
+    const float inv = a > 0.f ? __fdiv_rn(127.f, a) : 0.f;
+    uint32_t w[2] = {0, 0};
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+        const int qv = min(127, max(-127, __float2int_rn(__fmul_rn(v[u], inv))));
+        w[u >> 2] |= ((uint32_t)qv & 0xFFu) << (8 * (u & 3));
+    }
+    const bool hi = (lane >> 2) & 1;
+    int8_t* dst = (hi ? qxhi : qxlo) + (size_t)m * (K / 2) + (size_t)t * 128 + 32 * (lane >> 3) +
+                  8 * (lane & 3);
+    *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+    if ((lane & ~4) == 0) (hi ? exhi : exlo)[(size_t)m * nb + t] = ex;   // lanes 0 and 4
+}
+
+}  // namespace q4k_i8
+
+// K3's x quantization: x (M, K) f32 (x_bf16 = 0) or bf16 (1), 16-byte aligned.
+extern "C" int qmm_q4k_i8_quant_x(const void* x, int x_bf16, int8_t* qxlo, float* exlo,
+                                  int8_t* qxhi, float* exhi, int M, int K, void* stream) {
+    if (M < 1 || K % 256 != 0) return (int)cudaErrorInvalidValue;
+    const int warps = M * (K / 256);
+    const dim3 grid((warps + 7) / 8);
+    if (x_bf16)
+        q4k_i8::q4k_quant_x_kernel<uint16_t><<<grid, 256, 0, (cudaStream_t)stream>>>(
+            (const uint16_t*)x, qxlo, exlo, qxhi, exhi, M, K);
+    else
+        q4k_i8::q4k_quant_x_kernel<float><<<grid, 256, 0, (cudaStream_t)stream>>>(
+            (const float*)x, qxlo, exlo, qxhi, exhi, M, K);
     return (int)cudaGetLastError();
+}
+
+// K3's product on quantized x: qxlo/qxhi (M, K/2) int8, exlo/exhi (M, K/256)
+// f32, the Q4_K weights as K1 takes them.
+extern "C" int qmm_q4k_i8(const int8_t* qxlo, const float* exlo, const int8_t* qxhi,
+                          const float* exhi, const uint8_t* qs, const uint8_t* scm,
+                          const float* dd, float* y, int M, int N, int K, void* stream) {
+    qmm_i8::XOps<2> x = {{qxlo, qxhi}, {exlo, exhi}};
+    return qmm_i8::launch<q4k_i8::Q4KI8>(x, {qs, scm, dd}, y, M, N, K, (cudaStream_t)stream);
 }

@@ -31,7 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "qmm_q4k_f32": ("qmm_q4k", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "qmm_q4k_i8": ("qmm_q4k", [_P] * 12 + [_I, _I, _I, _P]),
+    "qmm_q4k_i8_quant_x": ("qmm_q4k", [_P, _I] + [_P] * 4 + [_I, _I, _P]),
+    "qmm_q4k_i8": ("qmm_q4k", [_P] * 8 + [_I, _I, _I, _P]),
     "qmm_q6k_f32": ("qmm_q6k", [_P] * 6 + [_I, _I, _I, _P]),
     "qmm_q8_0_f32": ("qmm_q8_0", [_P] * 4 + [_I, _I, _I, _P]),
     "qmm_q8_0_i8": ("qmm_q8_0", [_P] * 6 + [_I, _I, _I, _P]),
@@ -44,8 +45,8 @@ SIGNATURES = {
     "qmm_q2k_f32": ("qmm_q23k", [_P] * 6 + [_I, _I, _I, _P]),
     "qmm_q3k_f32": ("qmm_q23k", [_P] * 6 + [_I, _I, _I, _P]),
     "qmm_q4k_pipe": ("qmm_q4k_pipe", [_P] * 5 + [_I, _I, _P]),
-    "flash_attn_fwd": ("flash_attn", [_P] * 7 + [_I] * 6 + [_L, _L]
-                       + [_F, _F, _F, _I, _P]),
+    "flash_attn_fwd": ("flash_attn", [_P] * 8 + [_I] * 6 + [_L, _L]
+                       + [_F, _F, _F, _I, _I, _P]),
     "dma_copy_f32": ("dma_copy", [_P, _P, _L, _P]),
 }
 

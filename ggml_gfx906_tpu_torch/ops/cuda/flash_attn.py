@@ -3,21 +3,30 @@
 Replaces ggml_gfx906_tpu/ops/pallas/flash_attn.py::causal_flash_attention.
 Kernel source: csrc/flash_attn.cu (fuller notes there). Bound on the H100:
 bytes at decode (the K/V stream), operations for long prefill chunks.
-Design: one block per (batch·KV head, tile of GQA-folded query rows), a
-loop over KV tiles inside the block up to the last unmasked one, f32 online
-softmax in shared memory. The KV tile size is fixed and the ragged last
-tile is masked, so any cache or window length M is taken (the reference
-gates on M % 128 == 0) and a row's result does not depend on M.
+Design: a row's causal range is cut into chunks of CHUNK positions at fixed
+absolute places; each chunk's softmax partial is summed in an order fixed
+by the chunk alone and a row's result is the left fold of its chunks, so
+it does not depend on M (the window), N, B, its neighbours or the split.
+Blocks take (batch·KV head, tile of GQA-folded rows, range of chunks); K/V
+tiles stream by cp.async through a 4-deep ring. With more than one range
+per row tile the blocks write per-chunk partials to a buffer allocated
+here and a second kernel folds them; the wrapper picks the number of
+ranges to fill the SMs. Any cache or window length M is taken (the
+reference gates on M % 128 == 0).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.nn.functional as F
 
 from . import K2, build
 
 # finite "minus infinity": exp(NEG_INF - NEG_INF) stays defined
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 MAX_D = 256
+CHUNK = 128          # positions per chunk: csrc/flash_attn.cu FA_C
 _KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
@@ -74,15 +83,51 @@ def _slab_strides(t, name):
     return t.stride(1)
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def splits(blocks: int, nchunk: int, sms: int) -> int:
+    """Chunk ranges per row tile: 1 when the (batch·KV head, row tile)
+    blocks alone give two per SM, else enough for about eight per SM, at
+    most one per chunk. No bit depends on it."""
+    if blocks >= 2 * sms:
+        return 1
+    return max(1, min(nchunk, -(-8 * sms // blocks)))
+
+
+def _kernel_operands(q, k, v, kv_stride):
+    """q as contiguous f32 and K/V as the kernel reads them: D · element
+    size a multiple of 16 bytes and 16-byte aligned slabs. Otherwise K/V
+    are copied, with D zero-padded to that multiple where it falls short
+    (zeros add nothing to a dot and the output is cut back)."""
+    es = k.element_size()
+    D = q.shape[-1]
+    dp = -(-D // (16 // es)) * (16 // es)
+    qf = q.float().contiguous()
+    if dp == D and (kv_stride * es) % 16 == 0 and k.data_ptr() % 16 == 0 \
+            and v.data_ptr() % 16 == 0:
+        return qf, k, v, kv_stride, D
+    if dp > D:
+        pad = (0, dp - D)
+        k, v, qf = F.pad(k, pad), F.pad(v, pad), F.pad(qf, pad)
+    else:
+        k, v = (t.clone(memory_format=torch.contiguous_format) for t in (k, v))
+    return qf, k, v, k.stride(1), dp
+
+
 def causal_flash_attention(q, k, v, pos, scale: float | None = None,
                            logit_softcap: float = 0.0, k_scale=None,
-                           v_scale=None):
+                           v_scale=None, *, _split: int | None = None):
     """softmax(q·kᵀ·scale + causal mask)·v with online softmax.
 
     q (B, H, N, D); k/v (B, KVH, M, D) f32/bf16, or int8 with k_scale/v_scale
     (B, KVH, M) f32. pos (B,) int32 or scalar: the absolute position of each
     batch's first query row; query row n attends to cache positions ≤ pos+n.
-    Returns (B, H, N, D) in q.dtype."""
+    Returns (B, H, N, D) in q.dtype. `_split` forces the number of chunk
+    ranges per row tile (checks only; the result's bits do not depend on
+    it)."""
     B, H, N, D = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D \
             or H % k.shape[1]:
@@ -115,14 +160,24 @@ def causal_flash_attention(q, k, v, pos, scale: float | None = None,
         if _slab_strides(v_scale, "v_scale") != sc_stride:
             raise ValueError("k_scale and v_scale strides differ")
         kd_ptr, vd_ptr = k_scale.data_ptr(), v_scale.data_ptr()
-    qf = q.float().contiguous()
+    qf, k, v, kv_stride, dk = _kernel_operands(q, k, v, kv_stride)
     posd = _pos(pos, B, q.device)
-    out = torch.empty((B, H, N, D), dtype=torch.float32, device=q.device)
+    out = torch.empty((B, H, N, dk), dtype=torch.float32, device=q.device)
+    rows = N * (H // KVH)
+    nchunk = -(-M // CHUNK)
+    blocks = B * KVH * -(-rows // (4 if rows <= 4 else 16))
+    split = splits(blocks, nchunk, _sm_count(q.device.index or 0)) if _split is None \
+        else max(1, min(int(_split), nchunk))
+    part = (torch.empty(B * KVH * rows * nchunk * (dk + 2), dtype=torch.float32,
+                        device=q.device) if split > 1 else None)
     softcap = float(logit_softcap)
     build.call("flash_attn_fwd", qf.data_ptr(), k.data_ptr(), v.data_ptr(),
                kd_ptr, vd_ptr, posd.data_ptr(), out.data_ptr(),
-               B, H, KVH, N, M, D, kv_stride, sc_stride,
+               None if part is None else part.data_ptr(),
+               B, H, KVH, N, M, dk, kv_stride, sc_stride,
                _f32(scale), _f32(softcap), _f32(1.0 / softcap) if softcap else 0.0,
-               _KV_TYPES[k.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+               _KV_TYPES[k.dtype], split, torch.cuda.current_stream(q.device).cuda_stream)
     K2.launches += 1
+    if dk != D:
+        out = out[..., :D].contiguous()
     return out.to(q.dtype)

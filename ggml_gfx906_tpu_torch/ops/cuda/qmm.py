@@ -15,13 +15,15 @@ on the shared f32 body csrc/qmm_f32_tiled.cuh.
   every M (32 slots over the K chunks, then the xor-butterfly tree), so a
   row's bits do not depend on M (no TF32, no atomics).
 - K3 `qmm_q4_K_i8` replaces ggml_gfx906_tpu/ops/pallas/qmm.py::qmm_q4_K_i8.
-  Bound on the H100: operations at large M (int8), bytes at M≈128. Design:
-  64×64 output tiles; each block expands its packed weight tile to int8 in
-  shared memory (the TPU reused it through its sequential grid), dp4a
-  integer dots, the reference's f32 epilogue order. Its operand preparation — the activation split and per-tile int8
-  quantization (`quantize_x_tiles`) and the folding of block scales by the
-  per-tile bound (`tile_fold`) — runs as plain torch ops around the kernel,
-  as it ran as XLA ops around the Pallas kernel.
+  Bound on the H100: operations at large M (int8), the weight bytes and
+  their expansion at M≈128. Two launches per call: one kernel quantizes x
+  per (row, 128-element tile) (the bits of `split_x` + `quantize_x_tiles`),
+  then the int8 body (csrc/qmm_i8_tiled.cuh, format Q4KI8) folds the block
+  scales by the per-tile bound and expands the packed weights to int8 in
+  shared memory (the bits of `scale_arrays` + `tile_fold` + `expand_w8`),
+  takes the integer dots on the int8 tensor cores (mma.sync) and adds the
+  f32 epilogue in the reference's order. So its output has the bits of
+  its plain version's order of operations at every M.
 
 Weight layout (ggml wire order, struct of arrays; see ops/quantized.py):
 qs (N, K/2) u8, scm (N, K/16) u8 = unpacked [sc0..7 | m0..7] per
@@ -251,31 +253,49 @@ def qmm_q4_K_i8_plain(qs, qxlo, exlo, qxhi, exhi, dsclo_f, dschi_f, dmlo_f,
     return acc
 
 
+def quantize_x(x):
+    """x (M, K) → (qxlo, exlo, qxhi, exhi), K3's activation operands: on
+    the card one kernel, on the CPU `split_x` + `quantize_x_tiles` (the
+    same bits)."""
+    m, k = check_x(x, 256)
+    if not x.is_cuda:
+        xlo, xhi = split_x(x.float())
+        return (*quantize_x_tiles(xlo), *quantize_x_tiles(xhi))
+    if x.dtype != torch.bfloat16:
+        x = x.float()
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    qx = torch.empty((2, m, k // 2), dtype=torch.int8, device=x.device)
+    exlo, exhi = (torch.empty((m, k // 256), dtype=torch.float32, device=x.device)
+                  for _ in range(2))
+    build.call("qmm_q4k_i8_quant_x", x.data_ptr(), int(x.dtype == torch.bfloat16),
+               qx[0].data_ptr(), exlo.data_ptr(), qx[1].data_ptr(), exhi.data_ptr(),
+               m, k, torch.cuda.current_stream(x.device).cuda_stream)
+    return qx[0], exlo, qx[1], exhi
+
+
 def qmm_q4_K_i8(x, qs, scm, dd):
     """Integer Q4_K matmul (prefill route): x (M, K) → (M, N) f32."""
     _, k = check_x(x, 256)
     check_q4k_weights(qs, scm, dd, k)
-    ops = prepare_i8(x, scm, dd)
     if not qs.is_cuda:
-        return qmm_q4_K_i8_plain(qs, *ops)
-    return launch_i8(qs, *ops)
+        return qmm_q4_K_i8_plain(qs, *prepare_i8(x, scm, dd))
+    return launch_i8(qs, scm, dd, *quantize_x(x))
 
 
-def launch_i8(qs, qxlo, exlo, qxhi, exhi, dsclo_f, dschi_f, dmlo_f, dmhi_f,
-              dwlo, dwhi):
-    """Launch K3 on prepared operands (CUDA tensors)."""
-    ops = [t.contiguous() for t in (qxlo, exlo, qxhi, exhi, dsclo_f, dschi_f,
-                                    dmlo_f, dmhi_f, dwlo, dwhi)]
-    check_cuda(qs, *ops)
-    m = ops[0].shape[0]
-    n = qs.shape[0]
-    k = qs.shape[1] * 2
+def launch_i8(qs, scm, dd, qxlo, exlo, qxhi, exhi):
+    """Launch K3's product on quantized x (CUDA tensors; quantize_x's
+    output) and the Q4_K weights as K1 takes them."""
+    m, n, k = qxlo.shape[0], qs.shape[0], qs.shape[1] * 2
+    check_q4k_weights(qs, scm, dd, k)
+    check_shapes({"qxlo": (qxlo, (m, k // 2), torch.int8), "qxhi": (qxhi, (m, k // 2), torch.int8),
+                  "exlo": (exlo, (m, k // 256), torch.float32),
+                  "exhi": (exhi, (m, k // 256), torch.float32)})
+    check_cuda(qs, scm, dd, qxlo, exlo, qxhi, exhi)
     y = torch.empty((m, n), dtype=torch.float32, device=qs.device)
-    qxlo, exlo, qxhi, exhi, dsclo_f, dschi_f, dmlo_f, dmhi_f, dwlo, dwhi = ops
     build.call("qmm_q4k_i8", qxlo.data_ptr(), exlo.data_ptr(), qxhi.data_ptr(),
-               exhi.data_ptr(), qs.data_ptr(), dsclo_f.data_ptr(),
-               dschi_f.data_ptr(), dmlo_f.data_ptr(), dmhi_f.data_ptr(),
-               dwlo.data_ptr(), dwhi.data_ptr(), y.data_ptr(), m, n, k,
-               torch.cuda.current_stream(qs.device).cuda_stream)
+               exhi.data_ptr(), qs.data_ptr(), scm.data_ptr(), dd.data_ptr(), y.data_ptr(),
+               m, n, k, torch.cuda.current_stream(qs.device).cuda_stream)
     K3.launches += 1
     return y

@@ -46,12 +46,36 @@ def test_f32_entry_points_launch_the_body(csrc, fn):
 
 
 @pytest.mark.parametrize("edit", [b"\n// a comment\n", b" "])
-def test_a_header_edit_changes_every_digest(csrc, edit):
+@pytest.mark.parametrize("name", ["qmm_f32_tiled.cuh", "qmm_i8_tiled.cuh"])
+def test_a_header_edit_changes_every_digest(csrc, edit, name):
     before = _digests(csrc)
-    header = csrc / "qmm_f32_tiled.cuh"
+    header = csrc / name
     header.write_bytes(header.read_bytes() + edit)
     after = _digests(csrc)
     assert all(after[name] != before[name] for name in before)
+
+
+# K3's two entry points: the x quantization and the product on the int8
+# body csrc/qmm_i8_tiled.cuh; (entry point, C arguments)
+@pytest.mark.parametrize("fn,nargs", [("qmm_q4k_i8_quant_x", 9), ("qmm_q4k_i8", 12)])
+def test_k3_entry_points_are_bound_and_the_product_launches_the_int8_body(csrc, fn, nargs):
+    source, argtypes = build.SIGNATURES[fn]
+    assert source == "qmm_q4k" and len(argtypes) == nargs
+    text = (csrc / "qmm_q4k.cu").read_text()
+    assert '#include "qmm_i8_tiled.cuh"' in text
+    body = text[text.index(f'extern "C" int {fn}('):]
+    body = body[:body.index("\n}\n")]
+    assert ("qmm_i8::launch<" in body) == (fn == "qmm_q4k_i8")
+
+
+def test_k2_entry_point_takes_the_partials_and_the_split(csrc):
+    """flash_attn_fwd: q, k, v, kd, vd, pos, out, the partials; six ints;
+    the two slab strides; scale, softcap, 1/softcap; the K/V type, the
+    split and the stream."""
+    source, argtypes = build.SIGNATURES["flash_attn_fwd"]
+    assert source == "flash_attn" and len(argtypes) == 22
+    text = (csrc / "flash_attn.cu").read_text()
+    assert "float* out, float* part," in text and "int kv_type, int split, void* stream" in text
 
 
 def test_a_new_header_changes_every_digest(csrc):

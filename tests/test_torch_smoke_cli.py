@@ -27,3 +27,28 @@ def test_checks_cover_k4_and_k7_row_invariance(check):
     assert "TILED_MS" in names and "check_rows" in names
     assert chip_smoke.TILED_MS[-1] == 128 and 100 in chip_smoke.TILED_MS
     assert set(chip_smoke.ROW_MS) == {1, 8, 16, 63, 100}
+
+
+def test_attention_check_holds_k2_rows_at_the_chunk_edges():
+    """K2's check ends with its rows bit for bit across the window, N, B and
+    the split, at positions C - 1, C, C + 1 and 2C + 5 of its chunk C."""
+    from ggml_gfx906_tpu_torch.ops.cuda import flash_attn
+    c = flash_attn.CHUNK
+    assert chip_smoke.EDGE_POS == (c - 1, c, c + 1, 2 * c + 5)
+    assert "check_attention_rows" in chip_smoke.CHECKS["attention"].__code__.co_names
+    assert "_split" in str(chip_smoke.check_attention_rows.__code__.co_consts)
+
+
+def test_qmm_check_takes_k3_in_its_two_launches_with_digests_and_rows():
+    """K3: the x quantization bit for bit at K3_MS, the product against its
+    plain version and by sha256, and its rows across M (check_rows)."""
+    names = chip_smoke.CHECKS["qmm"].__code__.co_names
+    assert {"check_k3", "k3_launches", "K3_MS", "check_rows"} <= set(names)
+    assert chip_smoke.K3_MS == (100, 128, 512)
+    k3 = chip_smoke.check_k3.__code__.co_names
+    assert {"quantize_x_tiles", "split_x", "sha256", "qmm_q4_K_i8_plain"} <= set(k3)
+
+
+def test_q4_k_path_traces_the_long_window_engine_step():
+    assert "long_window_step" in chip_smoke.main_path.__code__.co_names
+    assert {"BatchedKVCache", "trace_device"} <= set(chip_smoke.long_window_step.__code__.co_names)
