@@ -20,10 +20,13 @@ Phases (each failure raises, so the script exits non-zero):
      to another); the kernels on the f32 body (K1, K4, K6, K7, K8, K9)
      also row by row: on each shape the rows of one 128-row product equal,
      bit for bit, those of the same x cut to M in {1, 8, 16, 63, 100} and
-     of single rows (check_rows), and K3 likewise; K3 in its two launches,
-     its x quantization bit for bit against split_x + quantize_x_tiles and
-     the sha256 of its product (check_k3); K2's rows bit for bit across the
-     window, N, B and the chunk split at its chunk edges
+     of single rows (check_rows), and K3 likewise; the int8 kernels K3,
+     K5-i8 and K6-i8 in their two launches (check_i8), the x quantization
+     bit for bit against the plain x operands, the product against the
+     plain version and by the sha256 of its output, timed with and without
+     the x quantization, and their rows bit for bit across M (K5-i8 and
+     K6-i8 at M in {64, 100, 128} against a 512-row product); K2's rows bit
+     for bit across the window, N, B and the chunk split at its chunk edges
      (check_attention_rows);
   4. a small-model check of the card's forward against the CPU's, for a
      tiny Q4_K, Q4_K_M-mixture, Q8_0, Q5_K_M-mixture, Q4_0, Q4_1, Q5_0,
@@ -52,7 +55,8 @@ Phases (each failure raises, so the script exits non-zero):
      times per decode step and per 128-token prefill chunk as its tensor
      types predict, and traces one decode step and one 8-slot engine decode
      step with torch.profiler for the device-busy share (and, on the
-     paths of TRACE_PREFILL, one more 100-token prefill), and records a
+     paths of TRACE_PREFILL, one more 100-token prefill, with the device
+     time of the file's int8 kernels), and records a
      sha256 of its greedy streams. The 32-layer Q4_K file also traces one
      8-slot decode step at window 1024 (long_window_step). The Q4_K file
      then decodes again with qmm_pipeline="on" (K10 in place of K1),
@@ -211,88 +215,102 @@ def check_f32(timer, results, label, kernel, fn, plain, x, w_dense, wbytes):
     log(f"{label} M={m} N={n} K={k} nmse={e:.3e} ms={results[-1]['ms']:.4f}")
 
 
-def check_i8(timer, results, label, kernel, full, prepare, launch, plain, x,
-             w_dense, wbytes):
-    """Hold an int8 matmul kernel launch(*prepare(x)) against its plain
-    version on the same prepared operands, element-wise within 1e-5
-    relative plus 1e-6 of the largest output (both sum exact integer dots;
-    only the f32 epilogue may round differently), and time it with the
-    operand preparation (full(x)) and without, beside its plain version,
-    torch.matmul on the dense weight and the bound."""
-    m, k = x.shape
+@dataclasses.dataclass
+class I8Kernel:
+    """An int8 kernel (K3, K5-i8, K6-i8) in its two launches, as check_i8
+    holds it: quant(x) quantizes x, product(*quant(x)) is the product;
+    prepare(x) forms the plain version's operands in plain torch, whose
+    first nx are the x operands that quant's first nx must equal bit for
+    bit; plain(*prepare(x)) is the plain version, full(x) the entry point as
+    the main path calls it."""
+    label: str
+    kernel: object
+    nx: int
+    quant: object
+    product: object
+    prepare: object
+    plain: object
+    full: object
+
+
+def i8_launches(label, kernel, nx, module, prepare, plain, full, *weights) -> I8Kernel:
+    """The I8Kernel of `module`'s int8 kernel on `weights`. A tree from
+    before the kernel's x-quantization kernel (no `quantize_x` in its
+    module) prepared every operand in torch (prepare_i8) and its launch_i8
+    took them all after qs; taking that interface too lets this script time
+    and digest such a tree's kernel beside this one's in one call."""
+    if hasattr(module, "quantize_x"):
+        return I8Kernel(label, kernel, nx, module.quantize_x,
+                        lambda *xo: module.launch_i8(*weights, *xo), prepare, plain, full)
+    return I8Kernel(label, kernel, nx, prepare,
+                    lambda *ops: module.launch_i8(weights[0], *ops), prepare, plain, full)
+
+
+def k3_launches(qs, scm, dd) -> I8Kernel:
+    return i8_launches("K3", kernels.K3, 4, qmm, lambda x: qmm.prepare_i8(x, scm, dd),
+                       lambda *ops: qmm.qmm_q4_K_i8_plain(qs, *ops),
+                       lambda x: qmm.qmm_q4_K_i8(x, qs, scm, dd), qs, scm, dd)
+
+
+def k5_i8_launches(qs, d) -> I8Kernel:
+    return i8_launches("K5-i8", kernels.K5_I8, 2, qmm_q8_0, lambda x: qmm_q8_0.prepare_i8(x, d),
+                       lambda *ops: qmm_q8_0.qmm_q8_0_i8_plain(qs, *ops),
+                       lambda x: qmm_q8_0.qmm_q8_0_i8(x, qs, d), qs, d)
+
+
+def k6_i8_launches(qs, d) -> I8Kernel:
+    return i8_launches("K6-i8", kernels.K6_I8, 4, qmm_q4_0, lambda x: qmm_q4_0.prepare_i8(x, d),
+                       lambda *ops: qmm_q4_0.qmm_q4_0_i8_plain(qs, *ops),
+                       lambda x: qmm_q4_0.qmm_q4_0_i8(x, qs, d), qs, d)
+
+
+def check_i8(timer, results, k: I8Kernel, x, w_dense, wbytes):
+    """An int8 kernel in its two launches (I8Kernel): its x quantization
+    bit for bit against the plain x operands (split_x + quantize_x_tiles,
+    or quantize_x_tiles alone for K5-i8), for f32 and bf16 x; the product
+    against the plain version on prepare_i8's operands, element-wise within
+    1e-5 relative plus 1e-6 of the largest output (both sum exact integer
+    dots), whether it equals it bit for bit, and the sha256 of its output
+    (its dots are exact and its roundings the reference's, so the digest is
+    the same in any tree that keeps them); timed with the quantization (as
+    the main path calls it), without it, and the quantization alone, beside
+    the plain version, torch.matmul on the dense weight and the bound."""
+    m, kk = x.shape
     n = w_dense.shape[0]
-    ops = prepare(x)
-    got, ref = launch(*ops), plain(*ops)
+    for xx in (x, x.bfloat16()):
+        want = k.prepare(xx.float())[:k.nx]
+        if not all(torch.equal(a, b) for a, b in zip(k.quant(xx)[:k.nx], want)):
+            raise AssertionError(f"{k.label} x quantization M={m} K={kk} {xx.dtype}: differs "
+                                 "from the plain x operands")
+    xo = k.quant(x)
+    ops = k.prepare(x)
+    got, ref = k.product(*xo), k.plain(*ops)
     torch.cuda.synchronize()
     err = (got - ref).abs()
     if not bool((err <= 1e-5 * ref.abs() + 1e-6 * ref.abs().max()).all()):
-        raise AssertionError(f"{label} M={m} N={n} K={k}: rel err "
+        raise AssertionError(f"{k.label} M={m} N={n} K={kk}: rel err "
                              f"{float((err / ref.abs().clamp_min(1e-30)).max())}")
-    b, by = bound(wbytes + m * k * 4 + m * n * 4, 2.0 * m * n * k, "int8")
+    b, by = bound(wbytes + m * kk * 4 + m * n * 4, 2.0 * m * n * kk, "int8")
     results.append(dict(
-        kernel=kernel.name, shape=f"M={m} N={n} K={k}", nmse=nmse(got, ref),
-        max_abs_err=float(err.max()),
-        ms=timer(lambda: full(x)), kernel_only_ms=timer(lambda: launch(*ops)),
-        plain_ms=timer(lambda: plain(*prepare(x))),
+        kernel=k.kernel.name, shape=f"M={m} N={n} K={kk}", nmse=nmse(got, ref),
+        max_abs_err=float(err.max()), equal_to_plain=bool(torch.equal(got, ref)),
+        sha256=hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest(),
+        ms=timer(lambda: k.full(x)),
+        kernel_only_ms=timer(lambda: k.product(*xo)), quant_x_ms=timer(lambda: k.quant(x)),
+        plain_ms=timer(lambda: k.plain(*k.prepare(x))),
         library_ms=timer(lambda: torch.matmul(x, w_dense.T)),
         bound_ms=b, bound_by=by))
-    log(f"{label} M={m} N={n} K={k} nmse={results[-1]['nmse']:.3e} "
-        f"ms={results[-1]['ms']:.4f}")
+    r = results[-1]
+    log(f"{k.label} M={m} N={n} K={kk} x quantization bit-equal, equal to plain "
+        f"{r['equal_to_plain']}, sha256 {r['sha256'][:16]}, ms={r['ms']:.4f} (product "
+        f"{r['kernel_only_ms']:.4f}, x quantization {r['quant_x_ms']:.4f})")
 
 
 # K3's M: 100, the ragged single-stream prefill; 128, a prefill chunk; 512
 K3_MS = (100, 128, 512)
-
-
-def k3_launches(qs, scm, dd):
-    """K3's two launches as (quantize x, product on its output). A tree from
-    before K3's x-quantization kernel (no `qmm.quantize_x`) prepared every
-    operand in torch (prepare_i8); taking it lets this script time and
-    digest such a tree's K3 beside this one's in one call."""
-    if hasattr(qmm, "quantize_x"):
-        return qmm.quantize_x, lambda *xo: qmm.launch_i8(qs, scm, dd, *xo)
-    return (lambda x: qmm.prepare_i8(x, scm, dd)), lambda *ops: qmm.launch_i8(qs, *ops)
-
-
-def check_k3(timer, results, quant, product, qs, scm, dd, x, w_dense, wbytes):
-    """K3 in its two launches (k3_launches): the x quantization bit for bit
-    against split_x + quantize_x_tiles, for f32 and bf16 x; the product
-    against the plain version on the same operands (prepare_i8), element-wise
-    as check_i8, and by the sha256 of its output (its dots are exact and its
-    roundings the reference's, so the digest is the same in any tree that
-    keeps them); timed with the quantization (qmm_q4_K_i8, as the main path
-    calls it), without it, and the quantization alone, beside the plain
-    version, torch.matmul on the dense weight and the bound."""
-    m, k = x.shape
-    n = w_dense.shape[0]
-    for xx in (x, x.bfloat16()):
-        xlo, xhi = qmm.split_x(xx.float())
-        want = (*qmm.quantize_x_tiles(xlo), *qmm.quantize_x_tiles(xhi))
-        if not all(torch.equal(a, b) for a, b in zip(quant(xx)[:4], want)):
-            raise AssertionError(f"K3 x quantization M={m} K={k} {xx.dtype}: differs from "
-                                 "split_x + quantize_x_tiles")
-    xo = quant(x)
-    ops = qmm.prepare_i8(x, scm, dd)
-    got, ref = product(*xo), qmm.qmm_q4_K_i8_plain(qs, *ops)
-    torch.cuda.synchronize()
-    err = (got - ref).abs()
-    if not bool((err <= 1e-5 * ref.abs() + 1e-6 * ref.abs().max()).all()):
-        raise AssertionError(f"K3 M={m} N={n} K={k}: rel err "
-                             f"{float((err / ref.abs().clamp_min(1e-30)).max())}")
-    b, by = bound(wbytes + m * k * 4 + m * n * 4, 2.0 * m * n * k, "int8")
-    results.append(dict(
-        kernel=kernels.K3.name, shape=f"M={m} N={n} K={k}", nmse=nmse(got, ref),
-        max_abs_err=float(err.max()), equal_to_plain=bool(torch.equal(got, ref)),
-        sha256=hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest(),
-        ms=timer(lambda: qmm.qmm_q4_K_i8(x, qs, scm, dd)),
-        kernel_only_ms=timer(lambda: product(*xo)), quant_x_ms=timer(lambda: quant(x)),
-        plain_ms=timer(lambda: qmm.qmm_q4_K_i8_plain(qs, *qmm.prepare_i8(x, scm, dd))),
-        library_ms=timer(lambda: torch.matmul(x, w_dense.T)),
-        bound_ms=b, bound_by=by))
-    r = results[-1]
-    log(f"K3 M={m} N={n} K={k} x quantization bit-equal, equal to plain "
-        f"{r['equal_to_plain']}, sha256 {r['sha256'][:16]}, ms={r['ms']:.4f} (product "
-        f"{r['kernel_only_ms']:.4f}, x quantization {r['quant_x_ms']:.4f})")
+# K5-i8's and K6-i8's: K3's and the smallest M of the int8 route
+# (int8_min_m = 64); their rows are checked across these M
+I8_MS = (64,) + K3_MS
 
 
 def random_q4k(n, k, device, gen):
@@ -307,7 +325,7 @@ def random_q4k(n, k, device, gen):
 def check_qmm(device, timer, results):
     """K1 on the 7B shapes (every matrix of the Q4_K file, the tied head
     included) at TILED_MS and Q4_EXTRA_MS, and its rows bit for bit across
-    M (check_rows); K3 at K3_MS (check_k3) and its rows across M."""
+    M (check_rows); K3 at K3_MS (check_i8) and its rows across M."""
     gen = torch.Generator(device=device).manual_seed(1)
     rows = {}
     for n, k in QMM_SHAPES:
@@ -321,10 +339,10 @@ def check_qmm(device, timer, results):
                       torch.randn((m, k), device=device, generator=gen), w_dense, wbytes)
         rows[f"N={n} K={k}"] = check_rows("K1", lambda x: qmm.qmm_q4_K(x, qs, scm, dd),
                                           torch.randn((128, k), device=device, generator=gen))
-        quant, product = k3_launches(qs, scm, dd)
+        k3 = k3_launches(qs, scm, dd)
         for m in K3_MS:
-            check_k3(timer, results, quant, product, qs, scm, dd,
-                     torch.randn((m, k), device=device, generator=gen), w_dense, wbytes)
+            check_i8(timer, results, k3, torch.randn((m, k), device=device, generator=gen),
+                     w_dense, wbytes)
         rows[f"K3 N={n} K={k}"] = check_rows("K3", lambda x: qmm.qmm_q4_K_i8(x, qs, scm, dd),
                                              torch.randn((128, k), device=device, generator=gen))
         del w_dense
@@ -343,19 +361,19 @@ ROW_MS = (1, 8, 16, 63, 100)
 ROW_IS = (0, 37, 99, 127)
 
 
-def check_rows(label, fn, x) -> dict:
-    """Invariant of the tiled f32 kernels: a row's bits do not depend on M.
-    fn(x)[:m] must equal fn(x[:m]) for m in ROW_MS, and fn(x)[i] must equal
+def check_rows(label, fn, x, ms=ROW_MS) -> dict:
+    """Invariant of the tiled kernels: a row's bits do not depend on M.
+    fn(x)[:m] must equal fn(x[:m]) for m in ms, and fn(x)[i] must equal
     fn(x[i:i+1])[0] for the rows in ROW_IS, bit for bit (torch.equal)."""
     full = fn(x)
-    bad = [m for m in ROW_MS if not torch.equal(full[:m], fn(x[:m]))]
+    bad = [m for m in ms if not torch.equal(full[:m], fn(x[:m]))]
     bad += [f"row {i}" for i in ROW_IS if not torch.equal(full[i], fn(x[i:i + 1])[0])]
     if bad:
         raise AssertionError(f"{label} N={full.shape[1]} K={x.shape[1]}: the rows of a "
                              f"{x.shape[0]}-row product differ from those at M = {bad}")
     log(f"{label} N={full.shape[1]} K={x.shape[1]}: rows bit-equal at M = "
-        f"{list(ROW_MS) + [x.shape[0]]} and rows {list(ROW_IS)} alone")
-    return {"ms": list(ROW_MS) + [x.shape[0]], "rows": list(ROW_IS), "equal": True}
+        f"{list(ms) + [x.shape[0]]} and rows {list(ROW_IS)} alone")
+    return {"ms": list(ms) + [x.shape[0]], "rows": list(ROW_IS), "equal": True}
 
 
 def check_q6k(device, timer, results):
@@ -385,9 +403,11 @@ def check_q6k(device, timer, results):
 
 
 def check_q8_0(device, timer, results):
-    """K5 at decode and short-chunk M, K5-i8 at prefill M, on the 7B
-    shapes (every matrix of a Q8_0 file)."""
+    """K5 at decode and short-chunk M, K5-i8 at I8_MS (check_i8) and its
+    rows across M (check_rows), on the 7B shapes (every matrix of a Q8_0
+    file)."""
     gen = torch.Generator(device=device).manual_seed(5)
+    rows = {}
     for n, k in QMM_SHAPES:
         qs = torch.randint(-128, 128, (n, k), dtype=torch.int8, device=device, generator=gen)
         d = torch.rand((n, k // 32), device=device, generator=gen) * 1e-3
@@ -398,20 +418,21 @@ def check_q8_0(device, timer, results):
                       lambda x: qmm_q8_0.qmm_q8_0(x, qs, d),
                       lambda x: qmm_q8_0.qmm_q8_0_plain(x, qs, d),
                       torch.randn((m, k), device=device, generator=gen), w_dense, wbytes)
-        for m in (64, 100, 128, 512):
-            check_i8(timer, results, "K5-i8", kernels.K5_I8,
-                     lambda x: qmm_q8_0.qmm_q8_0_i8(x, qs, d),
-                     lambda x: qmm_q8_0.prepare_i8(x, d),
-                     lambda *ops: qmm_q8_0.launch_i8(qs, *ops),
-                     lambda *ops: qmm_q8_0.qmm_q8_0_i8_plain(qs, *ops),
-                     torch.randn((m, k), device=device, generator=gen), w_dense, wbytes)
+        k5 = k5_i8_launches(qs, d)
+        for m in I8_MS:
+            check_i8(timer, results, k5, torch.randn((m, k), device=device, generator=gen),
+                     w_dense, wbytes)
+        rows[f"K5-i8 N={n} K={k}"] = check_rows(
+            "K5-i8", k5.full, torch.randn((I8_MS[-1], k), device=device, generator=gen),
+            I8_MS[:-1])
         del w_dense
+    return rows
 
 
 def check_q4_0(device, timer, results):
     """K6 at TILED_MS and Q4_EXTRA_MS and its rows bit for bit across M
-    (check_rows), K6-i8 at prefill M, on the 7B shapes (every matrix of a
-    Q4_0 file but its Q6_K head; the 11008-wide ffn_down has 43 spans of
+    (check_rows), K6-i8 at I8_MS (check_i8) and its rows, on the 7B shapes
+    (every matrix of a Q4_0 file but its Q6_K head; the 11008-wide ffn_down has 43 spans of
     256 and 344 blocks, which 32 slots do not divide)."""
     gen = torch.Generator(device=device).manual_seed(6)
     rows = {}
@@ -427,13 +448,13 @@ def check_q4_0(device, timer, results):
                       torch.randn((m, k), device=device, generator=gen), w_dense, wbytes)
         rows[f"N={n} K={k}"] = check_rows("K6", lambda x: qmm_q4_0.qmm_q4_0(x, qs, d),
                                           torch.randn((128, k), device=device, generator=gen))
-        for m in (64, 100, 128, 512):
-            check_i8(timer, results, "K6-i8", kernels.K6_I8,
-                     lambda x: qmm_q4_0.qmm_q4_0_i8(x, qs, d),
-                     lambda x: qmm_q4_0.prepare_i8(x, d),
-                     lambda *ops: qmm_q4_0.launch_i8(qs, *ops),
-                     lambda *ops: qmm_q4_0.qmm_q4_0_i8_plain(qs, *ops),
-                     torch.randn((m, k), device=device, generator=gen), w_dense, wbytes)
+        k6 = k6_i8_launches(qs, d)
+        for m in I8_MS:
+            check_i8(timer, results, k6, torch.randn((m, k), device=device, generator=gen),
+                     w_dense, wbytes)
+        rows[f"K6-i8 N={n} K={k}"] = check_rows(
+            "K6-i8", k6.full, torch.randn((I8_MS[-1], k), device=device, generator=gen),
+            I8_MS[:-1])
         del w_dense
     return rows
 
@@ -791,8 +812,15 @@ FULL_DEPTH = ("q4_k",)
 SHORT_LAYERS = 8
 # the recipes whose 100-token prefill is traced too: those whose prefill
 # products run on the f32 body (K4, K7, K8, K9; K3 takes the Q4_K_M file's
-# Q4_K ones and some of the Q3_K_M file's)
-TRACE_PREFILL = ("q4_k_m", "q5_k_m", "q4_1", "q5_0", "q5_1", "q2_k", "q3_k_m")
+# Q4_K ones and some of the Q3_K_M file's) or on K5-i8 (Q8_0) and K6-i8
+# (Q4_0); with the kernel names whose device time the trace sums
+# (matched_ms): the int8 kernels, their x quantization and the earlier
+# dp4a kernels' names, so that a parent tree's trace reads the same
+K3_TRACE_NAMES = ("Q4KI8", "XQ4K", "q4k_quant_x")
+TRACE_PREFILL = {"q4_k_m": K3_TRACE_NAMES, "q5_k_m": (), "q4_1": (), "q5_0": (), "q5_1": (),
+                 "q2_k": (), "q3_k_m": K3_TRACE_NAMES,
+                 "q8_0": ("Q80I8", "XQ80", "qmm_q8_0_i8_kernel"),
+                 "q4_0": ("Q40I8", "XQ40", "qmm_q4_0_i8_kernel")}
 # the kernel each (type, route) takes (ops/cuda/dispatch.py)
 KERNEL_OF = {(GGMLType.Q4_K, "f32"): kernels.K1, (GGMLType.Q4_K, "i8"): kernels.K3,
              (GGMLType.Q6_K, "f32"): kernels.K4, (GGMLType.Q8_0, "f32"): kernels.K5,
@@ -1060,7 +1088,8 @@ def main_path(device, n_layer: int, recipe: str, layout: str = "kernel",
         assert logits.shape == (100, cfg.n_vocab) and bool(torch.isfinite(logits).all())
         if recipe in TRACE_PREFILL:
             out["prefill_trace"] = trace_device(lambda: llama.forward(
-                cfg, params, toks, llama.make_cache(cfg, 1024, device=device), 0))
+                cfg, params, toks, llama.make_cache(cfg, 1024, device=device), 0),
+                TRACE_PREFILL[recipe])
         stream = prompt + [int(logits[-1].argmax())]
         per_step = {}
         t0 = time.perf_counter()
@@ -1433,9 +1462,12 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     log(f"build {build_s:.1f} s")
     for name, info in build.BUILD_LOG.items():
+        entry = ""
         for line in info["ptxas"].splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
             if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+                log(f"  {name} {entry}: {line.strip()}")
 
     timer = Timer(device)
     results = []
@@ -1497,7 +1529,8 @@ def main(argv=None) -> int:
             log(f"  {key} [{label}]: step {mp[step]:.3f} ms unprofiled, device busy "
                 f"{t['busy_ms']} ms ({t['device_activities']} activities; "
                 f"profiled wall {t['profiled_wall_ms']:.3f} ms), busy share "
-                f"{t['busy_share']}; busiest {t['top_ms'][:5]}")
+                f"{t['busy_share']}; int8 kernels with their x quantization "
+                f"{t['matched_ms']:.3f} ms; busiest {t['top_ms'][:5]}")
         if "attn_xla" in mp:
             ax = mp["attn_xla"]
             log(f"  attn_impl=xla [{label}]: launches per decode step "

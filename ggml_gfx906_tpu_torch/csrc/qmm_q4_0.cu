@@ -9,164 +9,140 @@
 //                     and element 32*b + 16 + j in its high nibble
 //   d  (N, K/32) f32: one scale per block
 //
-// The kernel is deterministic: each output element is summed by one thread
-// in an order fixed by K alone, never by M, by the row's place in its tile,
-// or by the launch shape. No atomics, no split-K.
+// The kernel is deterministic: each output element is summed in an order
+// fixed by K alone, never by M, by the row's place in its tile, or by the
+// launch shape. No atomics, no split-K.
 //
-// Returns the cudaError_t of its launch (0 = success).
+// Every function returns the cudaError_t of its launch (0 = success).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "qmm_i8_tiled.cuh"
 
 // ------------------------------------------------------------------ K6-i8
 // Replaces ggml_gfx906_tpu/ops/pallas/qmm.py::qmm_q4_0_i8 (_q40_i8_kernel,
-// launcher _i8_call): y (M, N) f32 for M >= int8_min_m (prefill).
-// Each 256-element span t gives two 128-element int8 tiles: (lo, t) holds
-// the first 16 elements of each of its 8 blocks, (hi, t) their last 16 —
-// the low and the high nibbles of qs bytes [128t, 128t + 128), here in qs
-// byte order (the reference's q40_split_x groups the same elements). x
-// arrives quantized per (row, tile) — qx int8 + ex f32. The packed bytes
-// are expanded to int8 in shared memory with the folded scales (block
-// scales pre-divided by the per-span bound dw, which both tiles share):
-// w8 = round_half_even((q - 8) * dsc'), clipped to +-127, exactly as
-// _round_i8. int8.int8 -> int32 products run on __dp4a and are exact; the
-// epilogue applies
-//   acc += ((float)p * ex[m,t]) * dw[n,t]     (lo tile, then hi tile)
-// in the reference's order.
-// Bound on the H100: bytes at M≈128 (the 5-bit weights), operations
-// (2*M*N*K int8 ops) at larger M; this first version uses dp4a on the CUDA
-// cores, not the int8 tensor cores, so it sits well above both (mma.sync /
-// wgmma are a later step).
-// Design: K3's (csrc/qmm_q4k.cu): a block owns a 64 (M) x 64 (N) output
-// tile and walks K one 256-element span at a time. The TPU kernel expands
-// each weight tile once per N tile and reuses it across M through its
-// sequential grid; GPU blocks run in no order, so here the expansion lives
-// in each block's shared memory. The weights stay packed in device memory.
+// launcher _i8_call): y (M, N) f32 for M >= int8_min_m (prefill), in two
+// launches. Each 256-element span t gives two 128-element int8 tiles:
+// (lo, t) holds the first 16 elements of each of its 8 blocks, (hi, t)
+// their last 16 — the low and the high nibbles of qs bytes [128t, 128t +
+// 128), here in qs byte order (the reference's q40_split_x groups the same
+// elements).
+// 1. `qmm_i8::quant_x` with the map XQ40 (qmm_i8_tiled.cuh, shared with K3
+//    and K5-i8): x (M, K) f32 or bf16 -> qxlo, qxhi (M, K/2) int8 and
+//    exlo, exhi (M, K/256) f32, the bits of split_x + quantize_x_tiles.
+//    Bound by x's bytes.
+// 2. The int8 body (qmm_i8_tiled.cuh) with the format Q40I8 below: per
+//    (row, span) the fold of the 8 block scales by the span bound, shared
+//    by both tiles (_q40_i8_kernel): 8 |d| per block, its amax, dw = amax /
+//    127, inv = 127 / amax (0 when amax = 0), d' = d * inv, then w8 =
+//    clip(round_half_even((q - 8) * d'), +-127): every step one IEEE
+//    operation (__fmul_rn / __fdiv_rn), the bits of tile_fold(d, None, 8,
+//    8) + expand_w8. Integer dots on the int8 tensor cores (mma.sync), then
+//    out += (acc * ex) * dw per span, lo then hi, as the reference and the
+//    earlier dp4a kernel sum: the output keeps their bits at every M and
+//    shape.
+// Bound on the H100: the weight bytes (0.625 B per weight) at M = 64..128,
+// operations (2*M*N*K int8) at larger M; the expansion on the CUDA cores
+// (two nibble masks per word, then a byte permute, a subtraction, a product
+// and the rounding per weight, once per block row of 128 activation rows)
+// sets the pace between them: K3's work without its min term.
+// What bounded the earlier design (PERF.md): the operand preparation ran
+// as eager torch ops per call, the weights' fold recomputed every call,
+// and the dots ran on dp4a with no load in flight.
 
-#define K6I_BM 64
-#define K6I_BN 64
-#define K6I_THREADS 256
-#define K6I_WORDS 32     // 128 int8 per tile = 32 words
-#define K6I_PAD 33       // padded row stride in words: no bank conflicts
+namespace q40_i8 {
 
-__device__ __forceinline__ int round_i8(float v) {
-    int r = __float2int_rn(v);           // round half to even, like jnp.round
-    return min(127, max(-127, r));
-}
-
-__global__ void __launch_bounds__(K6I_THREADS)
-qmm_q4_0_i8_kernel(const int8_t* __restrict__ qxlo, const float* __restrict__ exlo,
-                   const int8_t* __restrict__ qxhi, const float* __restrict__ exhi,
-                   const uint8_t* __restrict__ qs, const float* __restrict__ dsc,
-                   const float* __restrict__ dw, float* __restrict__ y,
-                   int M, int N, int K) {
-    __shared__ int xs[2][K6I_BM][K6I_PAD];
-    __shared__ int ws[2][K6I_BN][K6I_PAD];
-    const int tid = threadIdx.x;
-    const int tx = tid & 15;      // n = tx + 16*j
-    const int ty = tid >> 4;      // m = ty + 16*i
-    const int m0 = blockIdx.y * K6I_BM;
-    const int n0 = blockIdx.x * K6I_BN;
-    const int kt = K / 256;
-    const size_t half = (size_t)K / 2;
-
-    float out[4][4];
+struct Q40I8 {
+    static constexpr int TILES = 2;      // lo and hi nibbles of a span
+    static constexpr int SPAN = 256;
+    struct Ptrs {
+        const uint8_t* qs;
+        const float* d;
+    };
+    // 16 bytes of a span are the nibbles of one block. BN = 64 (BPT = 32,
+    // two blocks a thread): d[0].x, .y are the thread's blocks' scales, and
+    // the span's amax meets in an xor butterfly over the row's 4 lanes (max
+    // is exact: any order). BN = 32 (BPT = 16, one block): d holds the
+    // span's 8 scales; there a butterfly over 8 lanes took longer than the
+    // loads it saves (one block per SM, latency-bound).
+    struct Raw {
+        uint4 q[2];                      // BPT (16 or 32) packed bytes
+        float4 d[2];
+    };
+    __device__ static void zero(Raw& r) {
+        r.q[0] = r.q[1] = make_uint4(0, 0, 0, 0);
+        r.d[0] = r.d[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    template <int BPT>
+    __device__ static void load(Raw& r, const Ptrs& p, int n, int s, int piece, int K) {
+        const uint8_t* q = p.qs + (size_t)n * (K / 2) + (size_t)s * 128 + piece * BPT;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
-
-    for (int t = 0; t < kt; ++t) {
-        __syncthreads();          // the previous tile's reads are done
-        for (int i = tid; i < 2 * K6I_BM * K6I_WORDS; i += K6I_THREADS) {
-            const int h = i / (K6I_BM * K6I_WORDS);
-            const int rem = i - h * K6I_BM * K6I_WORDS;
-            const int r = rem / K6I_WORDS;
-            const int w = rem - r * K6I_WORDS;
-            const int m = m0 + r;
-            int val = 0;
-            if (m < M) {
-                const int8_t* src = (h ? qxhi : qxlo) + (size_t)m * half + (size_t)t * 128;
-                val = reinterpret_cast<const int*>(src)[w];
-            }
-            xs[h][r][w] = val;
-        }
-        for (int i = tid; i < K6I_BN * K6I_WORDS; i += K6I_THREADS) {
-            const int r = i / K6I_WORDS;
-            const int w = i - r * K6I_WORDS;
-            const int n = n0 + r;
-            uint32_t lo_word = 0, hi_word = 0;
-            if (n < N) {
-                const uint32_t q4 = reinterpret_cast<const uint32_t*>(
-                    qs + (size_t)n * half + (size_t)t * 128)[w];
-                // word w holds bytes 4w..4w+3 of the span: block w/4 (16 bytes each)
-                const float s = dsc[(size_t)n * (K / 32) + (size_t)t * 8 + (w >> 2)];
-#pragma unroll
-                for (int b = 0; b < 4; ++b) {
-                    const uint32_t byte = (q4 >> (8 * b)) & 0xFFu;
-                    const int vl = round_i8(__fmul_rn((float)((int)(byte & 0xFu) - 8), s));
-                    const int vh = round_i8(__fmul_rn((float)((int)(byte >> 4) - 8), s));
-                    lo_word |= ((uint32_t)(vl & 0xFF)) << (8 * b);
-                    hi_word |= ((uint32_t)(vh & 0xFF)) << (8 * b);
-                }
-            }
-            ws[0][r][w] = (int)lo_word;
-            ws[1][r][w] = (int)hi_word;
-        }
-        __syncthreads();
-
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            int acc[4][4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-#pragma unroll 8
-            for (int w = 0; w < K6I_WORDS; ++w) {
-                int a[4], b[4];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) a[i] = xs[h][ty + 16 * i][w];
-#pragma unroll
-                for (int j = 0; j < 4; ++j) b[j] = ws[h][tx + 16 * j][w];
-#pragma unroll
-                for (int i = 0; i < 4; ++i)
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-            }
-            const float* ex = h ? exhi : exlo;
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const int m = m0 + ty + 16 * i;
-                const float exv = m < M ? ex[(size_t)m * kt + t] : 0.f;
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    const int n = n0 + tx + 16 * j;
-                    const float dwv = n < N ? dw[(size_t)n * kt + t] : 0.f;
-                    out[i][j] = __fadd_rn(out[i][j],
-                                          __fmul_rn(__fmul_rn((float)acc[i][j], exv), dwv));
-                }
-            }
+        for (int i = 0; i < BPT / 16; ++i) r.q[i] = __ldg(reinterpret_cast<const uint4*>(q) + i);
+        const float* d = p.d + (size_t)n * (K / 32) + 8 * (size_t)s;
+        if constexpr (BPT == 32) {
+            const float2 v = __ldg(reinterpret_cast<const float2*>(d) + piece);
+            r.d[0].x = v.x;
+            r.d[0].y = v.y;
+        } else {
+            r.d[0] = __ldg(reinterpret_cast<const float4*>(d));
+            r.d[1] = __ldg(reinterpret_cast<const float4*>(d) + 1);
         }
     }
-
+    template <int BPT>
+    __device__ static void expand(const Raw& r, int piece, uint4 (&wv)[2][BPT / 16],
+                                  float (&dw)[2]) {
+        float amax, d[2];
+        if constexpr (BPT == 32) {
+            d[0] = r.d[0].x;
+            d[1] = r.d[0].y;
+            amax = fmaxf(__fmul_rn(8.f, fabsf(d[0])), __fmul_rn(8.f, fabsf(d[1])));
+            amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+            amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
+        } else {
+            const float d8[8] = {r.d[0].x, r.d[0].y, r.d[0].z, r.d[0].w,
+                                 r.d[1].x, r.d[1].y, r.d[1].z, r.d[1].w};
+            amax = 0.f;
+            d[0] = d[1] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int m = m0 + ty + 16 * i;
+            for (int b = 0; b < 8; ++b) {
+                amax = fmaxf(amax, __fmul_rn(8.f, fabsf(d8[b])));
+                if (b == piece) d[0] = d8[b];
+            }
+        }
+        dw[0] = dw[1] = __fdiv_rn(amax, 127.f);
+        const float inv = amax > 0.f ? __fdiv_rn(127.f, amax) : 0.f;
+        // a nibble's float minus 2^23 + 8 is q - 8
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int n = n0 + tx + 16 * j;
-            if (m < M && n < N) y[(size_t)m * N + n] = out[i][j];
+        for (int i = 0; i < BPT / 16; ++i) {
+            const float ds = __fmul_rn(d[i], inv);
+            const uint32_t qw[4] = {r.q[i].x, r.q[i].y, r.q[i].z, r.q[i].w};
+            uint32_t lo[4], hi[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                lo[k] = qmm_i8::expand4(qw[k] & 0x0F0F0F0Fu, 8388616.f, ds);
+                hi[k] = qmm_i8::expand4((qw[k] >> 4) & 0x0F0F0F0Fu, 8388616.f, ds);
+            }
+            wv[0][i] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+            wv[1][i] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
         }
     }
+};
+
+}  // namespace q40_i8
+
+// K6-i8's x quantization: x (M, K) f32 (x_bf16 = 0) or bf16 (1), 16-byte
+// aligned, K % 256 == 0 -> qxlo, qxhi (M, K/2) int8, exlo, exhi (M, K/256)
+// f32.
+extern "C" int qmm_q4_0_i8_quant_x(const void* x, int x_bf16, int8_t* qxlo, float* exlo,
+                                   int8_t* qxhi, float* exhi, int M, int K, void* stream) {
+    if (K % 256 != 0) return (int)cudaErrorInvalidValue;
+    const qmm_i8::XOut o = {{qxlo, qxhi}, {exlo, exhi}, K / 2, 128, K / 256, 1};
+    return qmm_i8::quant_x<qmm_i8::XQ40>(x, x_bf16, o, M, K, (cudaStream_t)stream);
 }
 
-extern "C" int qmm_q4_0_i8(const int8_t* qxlo, const float* exlo,
-                           const int8_t* qxhi, const float* exhi,
-                           const uint8_t* qs, const float* dsc, const float* dw,
-                           float* y, int M, int N, int K, void* stream) {
-    dim3 grid((N + K6I_BN - 1) / K6I_BN, (M + K6I_BM - 1) / K6I_BM);
-    qmm_q4_0_i8_kernel<<<grid, K6I_THREADS, 0, (cudaStream_t)stream>>>(
-        qxlo, exlo, qxhi, exhi, qs, dsc, dw, y, M, N, K);
-    return (int)cudaGetLastError();
+// K6-i8's product on quantized x: qxlo/qxhi (M, K/2) int8, exlo/exhi
+// (M, K/256) f32, the Q4_0 weights as K6 takes them.
+extern "C" int qmm_q4_0_i8(const int8_t* qxlo, const float* exlo, const int8_t* qxhi,
+                           const float* exhi, const uint8_t* qs, const float* d, float* y,
+                           int M, int N, int K, void* stream) {
+    qmm_i8::XOps<2> x = {{qxlo, qxhi}, {exlo, exhi}};
+    return qmm_i8::launch<q40_i8::Q40I8>(x, {qs, d}, y, M, N, K, (cudaStream_t)stream);
 }

@@ -167,8 +167,9 @@ extern "C" int qmm_q4k_f32(const float* x, const uint8_t* qs, const uint8_t* scm
 // Replaces ggml_gfx906_tpu/ops/pallas/qmm.py::qmm_q4_K_i8 (_q4k_i8_kernel,
 // launcher _i8_call): y (M, N) f32 for M >= int8_min_m (prefill), in two
 // launches.
-// 1. `q4k_quant_x_kernel`: x (M, K) f32 or bf16 -> qxlo, qxhi (M, K/2)
-//    int8 and exlo, exhi (M, K/256) f32: per superblock t the lo tile is
+// 1. `qmm_i8::quant_x` with the map XQ4K (qmm_i8_tiled.cuh, shared with
+//    K5-i8 and K6-i8): x (M, K) f32 or bf16 -> qxlo, qxhi (M, K/2) int8
+//    and exlo, exhi (M, K/256) f32: per superblock t the lo tile is
 //    its 128 elements under the low nibbles (64g + i, g < 4, i < 32) and
 //    the hi tile those under the high ones (64g + 32 + i), in qs byte
 //    order (32g + i); each tile is quantized by its amax: ex = amax / 127,
@@ -268,75 +269,15 @@ struct Q4KI8 {
     }
 };
 
-template <typename T> __device__ __forceinline__ void load8(const T* p, float* v);
-template <> __device__ __forceinline__ void load8<float>(const float* p, float* v) {
-    const float4 a = reinterpret_cast<const float4*>(p)[0];
-    const float4 b = reinterpret_cast<const float4*>(p)[1];
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-template <> __device__ __forceinline__ void load8<uint16_t>(const uint16_t* p, float* v) {
-    const uint4 a = reinterpret_cast<const uint4*>(p)[0];      // 8 bf16
-    const uint32_t w[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        v[2 * i] = __uint_as_float(w[i] << 16);
-        v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
-    }
-}
-
-// One warp per (row m, superblock t); lane l holds elements 8l .. 8l+7 of
-// the superblock: group g = l / 8, lo tile (bit 2 of l clear) or hi.
-template <typename T>
-__global__ void __launch_bounds__(256)
-q4k_quant_x_kernel(const T* __restrict__ x, int8_t* __restrict__ qxlo, float* __restrict__ exlo,
-                   int8_t* __restrict__ qxhi, float* __restrict__ exhi, int M, int K) {
-    const int nb = K / 256;
-    const int wid = blockIdx.x * 8 + (threadIdx.x >> 5);
-    if (wid >= M * nb) return;                 // the whole warp
-    const int lane = threadIdx.x & 31;
-    const int m = wid / nb;
-    const int t = wid - m * nb;
-    float v[8];
-    load8<T>(x + (size_t)m * K + (size_t)t * 256 + 8 * lane, v);
-    float a = 0.f;
-#pragma unroll
-    for (int u = 0; u < 8; ++u) a = fmaxf(a, fabsf(v[u]));
-    // the 16 lanes of one tile differ in bits 0, 1, 3, 4 of the lane
-    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, 1));
-    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, 2));
-    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, 8));
-    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, 16));
-    const float ex = __fdiv_rn(a, 127.f);
-    const float inv = a > 0.f ? __fdiv_rn(127.f, a) : 0.f;
-    uint32_t w[2] = {0, 0};
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-        const int qv = min(127, max(-127, __float2int_rn(__fmul_rn(v[u], inv))));
-        w[u >> 2] |= ((uint32_t)qv & 0xFFu) << (8 * (u & 3));
-    }
-    const bool hi = (lane >> 2) & 1;
-    int8_t* dst = (hi ? qxhi : qxlo) + (size_t)m * (K / 2) + (size_t)t * 128 + 32 * (lane >> 3) +
-                  8 * (lane & 3);
-    *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
-    if ((lane & ~4) == 0) (hi ? exhi : exlo)[(size_t)m * nb + t] = ex;   // lanes 0 and 4
-}
-
 }  // namespace q4k_i8
 
-// K3's x quantization: x (M, K) f32 (x_bf16 = 0) or bf16 (1), 16-byte aligned.
+// K3's x quantization: x (M, K) f32 (x_bf16 = 0) or bf16 (1), 16-byte aligned,
+// K % 256 == 0.
 extern "C" int qmm_q4k_i8_quant_x(const void* x, int x_bf16, int8_t* qxlo, float* exlo,
                                   int8_t* qxhi, float* exhi, int M, int K, void* stream) {
-    if (M < 1 || K % 256 != 0) return (int)cudaErrorInvalidValue;
-    const int warps = M * (K / 256);
-    const dim3 grid((warps + 7) / 8);
-    if (x_bf16)
-        q4k_i8::q4k_quant_x_kernel<uint16_t><<<grid, 256, 0, (cudaStream_t)stream>>>(
-            (const uint16_t*)x, qxlo, exlo, qxhi, exhi, M, K);
-    else
-        q4k_i8::q4k_quant_x_kernel<float><<<grid, 256, 0, (cudaStream_t)stream>>>(
-            (const float*)x, qxlo, exlo, qxhi, exhi, M, K);
-    return (int)cudaGetLastError();
+    if (K % 256 != 0) return (int)cudaErrorInvalidValue;
+    const qmm_i8::XOut o = {{qxlo, qxhi}, {exlo, exhi}, K / 2, 128, K / 256, 1};
+    return qmm_i8::quant_x<qmm_i8::XQ4K>(x, x_bf16, o, M, K, (cudaStream_t)stream);
 }
 
 // K3's product on quantized x: qxlo/qxhi (M, K/2) int8, exlo/exhi (M, K/256)

@@ -5,14 +5,13 @@
 //   d  (N, K/32) f32: one scale per 32-element block
 // w = q * d, exact in f32.
 //
-// Both kernels are deterministic: each output element is summed by one warp
-// or one thread in an order fixed by K alone, never by M, by the row's place
-// in its tile, or by the launch shape. No atomics, no split-K.
+// Both kernels are deterministic: each output element is summed in an order
+// fixed by K alone, never by M, by the row's place in its tile, or by the
+// launch shape. No atomics, no split-K.
 //
 // Every function returns the cudaError_t of its launch (0 = success).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "qmm_i8_tiled.cuh"
 
 // ------------------------------------------------------------------ K5
 // Replaces ggml_gfx906_tpu/ops/pallas/qmm.py::qmm_q8_0 (_q8_kernel):
@@ -131,134 +130,107 @@ extern "C" int qmm_q8_0_f32(const float* x, const int8_t* qs, const float* d,
 // ------------------------------------------------------------------ K5-i8
 // Replaces ggml_gfx906_tpu/ops/pallas/qmm.py::qmm_q8_0_i8 (_qd_i8_kernel
 // with nblk=4, launcher _i8_call): y (M, N) f32 for M >= int8_min_m
-// (prefill).
-// x arrives quantized per (row, 128-element tile) — qx int8 + ex f32 (M,
-// K/128). The weights are expanded to int8 in shared memory with the
-// folded scales (block scales pre-divided by the per-tile bound dw, N x
-// K/128): w8 = round_half_even(q * dsc'), clipped to +-127, exactly as
-// _round_i8. int8.int8 -> int32 products run on __dp4a and are exact; the
-// epilogue applies
-//   acc += ((float)p * ex[m,t]) * dw[n,t]
-// in the reference's order.
-// Bound on the H100: bytes at M≈128 (the 9-bit weights), operations (2*M*N*K
-// int8 ops) at larger M; this first version uses dp4a on the CUDA cores,
-// not the int8 tensor cores, so it sits well above both (mma.sync / wgmma
-// are a later step).
-// Design: K3's (csrc/qmm_q4k.cu) with one 128-element tile per step: a
-// block owns a 64 (M) x 64 (N) output tile and walks K one tile at a time.
-// The TPU kernel expands each weight tile once per N tile and reuses it
-// across M through its sequential grid; GPU blocks run in no order, so
-// here the expansion lives in each block's shared memory.
+// (prefill), in two launches.
+// 1. `qmm_i8::quant_x` with the map XQ80 (qmm_i8_tiled.cuh, shared with K3
+//    and K6-i8): x (M, K) f32 or bf16 -> qx (M, K) int8 and ex (M, K/128)
+//    f32 per (row, natural 128-element tile), the bits of quantize_x_tiles
+//    (the reference's q8_split_x only permutes lanes inside a tile). Bound
+//    by x's bytes.
+// 2. The int8 body (qmm_i8_tiled.cuh) with the format Q80I8 below, one
+//    tile per step: per (row, tile) the fold of the 4 block scales by the
+//    tile bound, 127 |d| per block, its amax, dw = amax / 127, inv = 127 /
+//    amax (0 when amax = 0), d' = d * inv, then w8 = clip(round_half_even(
+//    q * d'), +-127) (q = -128 clips at -127): every step one IEEE
+//    operation (__fmul_rn / __fdiv_rn), the bits of tile_fold(d, None, 4,
+//    127) + expand_w8. Integer dots on the int8 tensor cores (mma.sync),
+//    then out += (acc * ex) * dw per tile in ascending order, as the
+//    reference and the earlier dp4a kernel sum: the output keeps their bits
+//    at every M and shape.
+// Bound on the H100: the weight bytes (1.125 B per weight) at M = 64..128,
+// operations (2*M*N*K int8) at larger M; the expansion on the CUDA cores
+// (a byte permute, a subtraction, a product and the rounding per weight,
+// once per block row of 128 activation rows) sets the pace between them.
+// What bounded the earlier design (PERF.md): the operand preparation ran
+// as eager torch ops per call, the weights' fold recomputed every call,
+// and the dots ran on dp4a with no load in flight.
 
-#define K5I_BM 64
-#define K5I_BN 64
-#define K5I_THREADS 256
-#define K5I_WORDS 32     // 128 int8 per tile = 32 words
-#define K5I_PAD 33       // padded row stride in words: no bank conflicts
+namespace q80_i8 {
 
-__device__ __forceinline__ int round_i8(float v) {
-    int r = __float2int_rn(v);           // round half to even, like jnp.round
-    return min(127, max(-127, r));
-}
-
-__global__ void __launch_bounds__(K5I_THREADS)
-qmm_q8_0_i8_kernel(const int8_t* __restrict__ qx, const float* __restrict__ ex,
-                   const int8_t* __restrict__ qs, const float* __restrict__ dsc,
-                   const float* __restrict__ dw, float* __restrict__ y,
-                   int M, int N, int K) {
-    __shared__ int xs[K5I_BM][K5I_PAD];
-    __shared__ int ws[K5I_BN][K5I_PAD];
-    const int tid = threadIdx.x;
-    const int tx = tid & 15;      // n = tx + 16*j
-    const int ty = tid >> 4;      // m = ty + 16*i
-    const int m0 = blockIdx.y * K5I_BM;
-    const int n0 = blockIdx.x * K5I_BN;
-    const int kt = K / 128;
-
-    float out[4][4];
+struct Q80I8 {
+    static constexpr int TILES = 1;
+    static constexpr int SPAN = 128;
+    struct Ptrs {
+        const int8_t* qs;
+        const float* d;
+    };
+    // BN = 64 (BPT = 32, one block a thread): d.x is the thread's block's
+    // scale, and the tile's amax meets in an xor butterfly over the row's 4
+    // lanes (max is exact: any order). BN = 32 (BPT = 16, half a block):
+    // d holds the tile's 4 scales; there a butterfly over 8 lanes took
+    // longer than the loads it saves (one block per SM, latency-bound).
+    struct Raw {
+        uint4 q[2];                      // BPT (16 or 32) quants
+        float4 d;
+    };
+    __device__ static void zero(Raw& r) {
+        r.q[0] = r.q[1] = make_uint4(0, 0, 0, 0);
+        r.d = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    template <int BPT>
+    __device__ static void load(Raw& r, const Ptrs& p, int n, int s, int piece, int K) {
+        const int8_t* q = p.qs + (size_t)n * K + (size_t)s * 128 + piece * BPT;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < BPT / 16; ++i) r.q[i] = __ldg(reinterpret_cast<const uint4*>(q) + i);
+        const float* d = p.d + (size_t)n * (K / 32) + 4 * (size_t)s;
+        if constexpr (BPT == 32) r.d.x = __ldg(d + piece);
+        else r.d = __ldg(reinterpret_cast<const float4*>(d));
+    }
+    template <int BPT>
+    __device__ static void expand(const Raw& r, int piece, uint4 (&wv)[1][BPT / 16],
+                                  float (&dw)[1]) {
+        float amax, db;
+        if constexpr (BPT == 32) {
+            db = r.d.x;
+            amax = __fmul_rn(127.f, fabsf(db));
+            amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+            amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
+        } else {
+            const float d[4] = {r.d.x, r.d.y, r.d.z, r.d.w};
+            amax = 0.f;
+            db = 0.f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
-
-    for (int t = 0; t < kt; ++t) {
-        __syncthreads();          // the previous tile's reads are done
-        for (int i = tid; i < K5I_BM * K5I_WORDS; i += K5I_THREADS) {
-            const int r = i / K5I_WORDS;
-            const int w = i - r * K5I_WORDS;
-            const int m = m0 + r;
-            xs[r][w] = m < M ? reinterpret_cast<const int*>(
-                                   qx + (size_t)m * K + (size_t)t * 128)[w]
-                             : 0;
-        }
-        for (int i = tid; i < K5I_BN * K5I_WORDS; i += K5I_THREADS) {
-            const int r = i / K5I_WORDS;
-            const int w = i - r * K5I_WORDS;
-            const int n = n0 + r;
-            uint32_t word = 0;
-            if (n < N) {
-                const uint32_t q4 = reinterpret_cast<const uint32_t*>(
-                    qs + (size_t)n * K + (size_t)t * 128)[w];
-                // word w holds elements 4w..4w+3 of the tile: block w/8
-                const float s = dsc[(size_t)n * (K / 32) + (size_t)t * 4 + (w >> 3)];
-#pragma unroll
-                for (int b = 0; b < 4; ++b) {
-                    const int q = (int)(int8_t)((q4 >> (8 * b)) & 0xFFu);
-                    const int v = round_i8(__fmul_rn((float)q, s));
-                    word |= ((uint32_t)(v & 0xFF)) << (8 * b);
-                }
-            }
-            ws[r][w] = (int)word;
-        }
-        __syncthreads();
-
-        int acc[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-#pragma unroll 8
-        for (int w = 0; w < K5I_WORDS; ++w) {
-            int a[4], b[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) a[i] = xs[ty + 16 * i][w];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) b[j] = ws[tx + 16 * j][w];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int m = m0 + ty + 16 * i;
-            const float exv = m < M ? ex[(size_t)m * kt + t] : 0.f;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int n = n0 + tx + 16 * j;
-                const float dwv = n < N ? dw[(size_t)n * kt + t] : 0.f;
-                out[i][j] = __fadd_rn(out[i][j],
-                                      __fmul_rn(__fmul_rn((float)acc[i][j], exv), dwv));
+            for (int b = 0; b < 4; ++b) {
+                amax = fmaxf(amax, __fmul_rn(127.f, fabsf(d[b])));
+                if (b == piece / 2) db = d[b];
             }
         }
+        dw[0] = __fdiv_rn(amax, 127.f);
+        const float inv = amax > 0.f ? __fdiv_rn(127.f, amax) : 0.f;
+        const float ds = __fmul_rn(db, inv);
+        // q + 128 in each byte: its float minus 2^23 + 128 is q
+#pragma unroll
+        for (int i = 0; i < BPT / 16; ++i)
+            wv[0][i] = make_uint4(qmm_i8::expand4(r.q[i].x ^ 0x80808080u, 8388736.f, ds),
+                                  qmm_i8::expand4(r.q[i].y ^ 0x80808080u, 8388736.f, ds),
+                                  qmm_i8::expand4(r.q[i].z ^ 0x80808080u, 8388736.f, ds),
+                                  qmm_i8::expand4(r.q[i].w ^ 0x80808080u, 8388736.f, ds));
     }
+};
 
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int m = m0 + ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int n = n0 + tx + 16 * j;
-            if (m < M && n < N) y[(size_t)m * N + n] = out[i][j];
-        }
-    }
+}  // namespace q80_i8
+
+// K5-i8's x quantization: x (M, K) f32 (x_bf16 = 0) or bf16 (1), 16-byte
+// aligned, K % 128 == 0 -> qx (M, K) int8, ex (M, K/128) f32.
+extern "C" int qmm_q8_0_i8_quant_x(const void* x, int x_bf16, int8_t* qx, float* ex,
+                                   int M, int K, void* stream) {
+    const qmm_i8::XOut o = {{qx, qx + 128}, {ex, ex + 1}, K, 256, K / 128, 2};
+    return qmm_i8::quant_x<qmm_i8::XQ80>(x, x_bf16, o, M, K, (cudaStream_t)stream);
 }
 
+// K5-i8's product on quantized x: qx (M, K) int8, ex (M, K/128) f32, the
+// Q8_0 weights as K5 takes them.
 extern "C" int qmm_q8_0_i8(const int8_t* qx, const float* ex, const int8_t* qs,
-                           const float* dsc, const float* dw, float* y,
-                           int M, int N, int K, void* stream) {
-    dim3 grid((N + K5I_BN - 1) / K5I_BN, (M + K5I_BM - 1) / K5I_BM);
-    qmm_q8_0_i8_kernel<<<grid, K5I_THREADS, 0, (cudaStream_t)stream>>>(
-        qx, ex, qs, dsc, dw, y, M, N, K);
-    return (int)cudaGetLastError();
+                           const float* d, float* y, int M, int N, int K, void* stream) {
+    qmm_i8::XOps<1> x = {{qx}, {ex}};
+    return qmm_i8::launch<q80_i8::Q80I8>(x, {qs, d}, y, M, N, K, (cudaStream_t)stream);
 }

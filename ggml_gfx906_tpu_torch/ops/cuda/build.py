@@ -35,9 +35,11 @@ SIGNATURES = {
     "qmm_q4k_i8": ("qmm_q4k", [_P] * 8 + [_I, _I, _I, _P]),
     "qmm_q6k_f32": ("qmm_q6k", [_P] * 6 + [_I, _I, _I, _P]),
     "qmm_q8_0_f32": ("qmm_q8_0", [_P] * 4 + [_I, _I, _I, _P]),
-    "qmm_q8_0_i8": ("qmm_q8_0", [_P] * 6 + [_I, _I, _I, _P]),
+    "qmm_q8_0_i8_quant_x": ("qmm_q8_0", [_P, _I, _P, _P, _I, _I, _P]),
+    "qmm_q8_0_i8": ("qmm_q8_0", [_P] * 5 + [_I, _I, _I, _P]),
     "qmm_q4_0_f32": ("qmm_legacy", [_P] * 4 + [_I, _I, _I, _P]),
-    "qmm_q4_0_i8": ("qmm_q4_0", [_P] * 8 + [_I, _I, _I, _P]),
+    "qmm_q4_0_i8_quant_x": ("qmm_q4_0", [_P, _I] + [_P] * 4 + [_I, _I, _P]),
+    "qmm_q4_0_i8": ("qmm_q4_0", [_P] * 7 + [_I, _I, _I, _P]),
     "qmm_q5k_f32": ("qmm_q5k", [_P] * 6 + [_I, _I, _I, _P]),
     "qmm_q4_1_f32": ("qmm_legacy", [_P] * 5 + [_I, _I, _I, _P]),
     "qmm_q5_0_f32": ("qmm_legacy", [_P] * 5 + [_I, _I, _I, _P]),

@@ -85,6 +85,15 @@ def aligned_x(x):
     return x.clone() if x.data_ptr() % 16 else x
 
 
+def kernel_x(x):
+    """x as the x-quantization kernels take it: bf16 or f32, contiguous, at
+    a 16-byte aligned address."""
+    if x.dtype != torch.bfloat16:
+        x = x.float()
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
 def check_cuda(*ts):
     for t in ts:
         if not t.is_cuda:
@@ -261,11 +270,7 @@ def quantize_x(x):
     if not x.is_cuda:
         xlo, xhi = split_x(x.float())
         return (*quantize_x_tiles(xlo), *quantize_x_tiles(xhi))
-    if x.dtype != torch.bfloat16:
-        x = x.float()
-    x = x.contiguous()
-    if x.data_ptr() % 16:
-        x = x.clone()
+    x = kernel_x(x)
     qx = torch.empty((2, m, k // 2), dtype=torch.int8, device=x.device)
     exlo, exhi = (torch.empty((m, k // 256), dtype=torch.float32, device=x.device)
                   for _ in range(2))

@@ -13,13 +13,19 @@ csrc/qmm_q4_0.cu (K6-i8); fuller notes there.
   every M (32 slots over the blocks, then the xor-butterfly tree), so a
   row's bits do not depend on M.
 - K6-i8 `qmm_q4_0_i8` replaces ggml_gfx906_tpu/ops/pallas/qmm.py::
-  qmm_q4_0_i8 (_q40_i8_kernel). K3's design: 64×64 output tiles, each block
-  expands its weight tiles to int8 in shared memory, dp4a integer dots, the
-  reference's f32 epilogue order. Operand preparation — the activation
-  split, per-(row, 128-tile) int8 activations (`quantize_x_tiles`) and the
-  block scales folded by the per-span bound (`tile_fold` with dm None, 8
-  blocks per tile, qmax 8) — runs as plain torch ops around the kernel, as
-  it ran as XLA ops around the Pallas kernel.
+  qmm_q4_0_i8 (_q40_i8_kernel). Bound on the H100: the weight bytes at
+  M≈128, operations (int8) at large M, with the weights' expansion on the
+  CUDA cores between them. Two launches per call, as K3's (qmm.py): one
+  kernel splits and quantizes x per (row, 128-element tile) (the bits of
+  `split_x` + `quantize_x_tiles`), then the int8 body
+  (csrc/qmm_i8_tiled.cuh, format Q40I8) folds the block scales by the
+  per-span bound and expands the nibbles to int8 in shared memory (the
+  bits of `tile_fold` with dm None, 8 blocks per tile, qmax 8, and
+  `expand_w8`), takes the integer dots on the int8 tensor cores
+  (mma.sync) and adds the f32 epilogue in the reference's order. So its
+  output has the bits of its plain version's order of operations at every
+  M. `prepare_i8` forms the same operands in plain torch for the plain
+  version.
 
 Weight layout (ggml wire order, struct of arrays; see ops/quantized.py):
 qs (N, K/2) u8, d (N, K/32) f32.
@@ -37,7 +43,7 @@ import torch
 
 from ...quant.dequant_math import dequant_q4_0
 from . import K6, K6_I8, build
-from .qmm import (aligned_x, check_cuda, check_shapes, check_x,
+from .qmm import (aligned_x, check_cuda, check_shapes, check_x, kernel_x,
                   quantize_x_tiles, tile_fold)
 
 
@@ -88,8 +94,9 @@ def split_x(x):
 
 
 def prepare_i8(x, d):
-    """The operands K6-i8 takes besides qs: (qxlo, exlo, qxhi, exhi,
-    dsc_f, dw)."""
+    """The plain version's operands besides qs, in plain torch: (qxlo,
+    exlo, qxhi, exhi, dsc_f, dw); on the card the kernels form the same
+    bits themselves."""
     xlo, xhi = split_x(x.float())
     qxlo, exlo = quantize_x_tiles(xlo)
     qxhi, exhi = quantize_x_tiles(xhi)
@@ -124,26 +131,45 @@ def qmm_q4_0_i8_plain(qs, qxlo, exlo, qxhi, exhi, dsc_f, dw):
     return acc
 
 
+def quantize_x(x):
+    """x (M, K) → (qxlo, exlo, qxhi, exhi), K6-i8's activation operands: on
+    the card one kernel, on the CPU `split_x` + `quantize_x_tiles` (the
+    same bits)."""
+    m, k = check_x(x, 256)
+    if not x.is_cuda:
+        xlo, xhi = split_x(x.float())
+        return (*quantize_x_tiles(xlo), *quantize_x_tiles(xhi))
+    x = kernel_x(x)
+    qx = torch.empty((2, m, k // 2), dtype=torch.int8, device=x.device)
+    exlo, exhi = (torch.empty((m, k // 256), dtype=torch.float32, device=x.device)
+                  for _ in range(2))
+    build.call("qmm_q4_0_i8_quant_x", x.data_ptr(), int(x.dtype == torch.bfloat16),
+               qx[0].data_ptr(), exlo.data_ptr(), qx[1].data_ptr(), exhi.data_ptr(),
+               m, k, torch.cuda.current_stream(x.device).cuda_stream)
+    return qx[0], exlo, qx[1], exhi
+
+
 def qmm_q4_0_i8(x, qs, d):
     """Integer Q4_0 matmul (prefill route): x (M, K) → (M, N) f32."""
     _, k = check_x(x, 256)
     _check_weights(qs, d, k)
-    ops = prepare_i8(x, d)
     if not qs.is_cuda:
-        return qmm_q4_0_i8_plain(qs, *ops)
-    return launch_i8(qs, *ops)
+        return qmm_q4_0_i8_plain(qs, *prepare_i8(x, d))
+    return launch_i8(qs, d, *quantize_x(x))
 
 
-def launch_i8(qs, qxlo, exlo, qxhi, exhi, dsc_f, dw):
-    """Launch K6-i8 on prepared operands (CUDA tensors)."""
-    ops = [t.contiguous() for t in (qxlo, exlo, qxhi, exhi, dsc_f, dw)]
-    check_cuda(qs, *ops)
-    qxlo, exlo, qxhi, exhi, dsc_f, dw = ops
+def launch_i8(qs, d, qxlo, exlo, qxhi, exhi):
+    """Launch K6-i8's product on quantized x (CUDA tensors; quantize_x's
+    output) and the Q4_0 weights as K6 takes them."""
     m, n, k = qxlo.shape[0], qs.shape[0], qs.shape[1] * 2
+    _check_weights(qs, d, k)
+    check_shapes({"qxlo": (qxlo, (m, k // 2), torch.int8), "qxhi": (qxhi, (m, k // 2), torch.int8),
+                  "exlo": (exlo, (m, k // 256), torch.float32),
+                  "exhi": (exhi, (m, k // 256), torch.float32)})
+    check_cuda(qs, d, qxlo, exlo, qxhi, exhi)
     y = torch.empty((m, n), dtype=torch.float32, device=qs.device)
     build.call("qmm_q4_0_i8", qxlo.data_ptr(), exlo.data_ptr(), qxhi.data_ptr(),
-               exhi.data_ptr(), qs.data_ptr(), dsc_f.data_ptr(), dw.data_ptr(),
-               y.data_ptr(), m, n, k,
+               exhi.data_ptr(), qs.data_ptr(), d.data_ptr(), y.data_ptr(), m, n, k,
                torch.cuda.current_stream(qs.device).cuda_stream)
     K6_I8.launches += 1
     return y

@@ -9,13 +9,18 @@ Kernel source: csrc/qmm_q8_0.cu (fuller notes there).
   against up to 8 activation rows; a fixed xor-shuffle reduction per
   output.
 - K5-i8 `qmm_q8_0_i8` replaces ggml_gfx906_tpu/ops/pallas/qmm.py::
-  qmm_q8_0_i8 (_qd_i8_kernel with nblk=4). K3's design for one 128-element
-  tile per step: 64×64 output tiles, each block expands its weight tile to
-  int8 in shared memory, dp4a integer dots, the reference's f32 epilogue
-  order. Operand preparation — per-(row, 128-tile) int8 activations
-  (`quantize_x_tiles`) and the block scales folded by the per-tile bound
-  (`tile_fold` with dm None, qmax 127) — runs as plain torch ops around the
-  kernel, as it ran as XLA ops around the Pallas kernel.
+  qmm_q8_0_i8 (_qd_i8_kernel with nblk=4). Bound on the H100: the weight
+  bytes at M≈128, operations (int8) at large M, with the weights'
+  expansion on the CUDA cores between them. Two launches per call, as K3's
+  (qmm.py): one kernel quantizes x per (row, 128-element tile) (the bits
+  of `quantize_x_tiles`), then the int8 body (csrc/qmm_i8_tiled.cuh,
+  format Q80I8) folds the block scales by the per-tile bound and expands
+  the quants to int8 in shared memory (the bits of `tile_fold` with dm
+  None, qmax 127, and `expand_w8`), takes the integer dots on the int8
+  tensor cores (mma.sync) and adds the f32 epilogue in the reference's
+  order. So its output has the bits of its plain version's order of
+  operations at every M. `prepare_i8` forms the same operands in plain
+  torch for the plain version.
 
 Weight layout (ggml wire order, struct of arrays; see ops/quantized.py):
 qs (N, K) i8, d (N, K/32) f32. The int8 tiles are the natural 128-element
@@ -29,7 +34,7 @@ import torch
 
 from ...quant.dequant_math import dequant_q8_0
 from . import K5, K5_I8, build
-from .qmm import (aligned_x, check_cuda, check_shapes, check_x,
+from .qmm import (aligned_x, check_cuda, check_shapes, check_x, kernel_x,
                   quantize_x_tiles, tile_fold)
 
 
@@ -71,7 +76,8 @@ def qmm_q8_0(x, qs, d):
 # ------------------------------------------------------------------ K5-i8
 
 def prepare_i8(x, d):
-    """The operands K5-i8 takes besides qs: (qx, ex, dsc_f, dw)."""
+    """The plain version's operands besides qs, in plain torch: (qx, ex,
+    dsc_f, dw); on the card the kernels form the same bits themselves."""
     qx, ex = quantize_x_tiles(x.float())
     dsc_f, _, dw = tile_fold(d, None, 4, 127.0)
     return qx, ex, dsc_f, dw
@@ -99,24 +105,40 @@ def qmm_q8_0_i8_plain(qs, qx, ex, dsc_f, dw):
     return acc
 
 
+def quantize_x(x):
+    """x (M, K) → (qx, ex), K5-i8's activation operands: on the card one
+    kernel, on the CPU `quantize_x_tiles` (the same bits)."""
+    m, k = check_x(x, 128)
+    if not x.is_cuda:
+        return quantize_x_tiles(x.float())
+    x = kernel_x(x)
+    qx = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    ex = torch.empty((m, k // 128), dtype=torch.float32, device=x.device)
+    build.call("qmm_q8_0_i8_quant_x", x.data_ptr(), int(x.dtype == torch.bfloat16),
+               qx.data_ptr(), ex.data_ptr(), m, k,
+               torch.cuda.current_stream(x.device).cuda_stream)
+    return qx, ex
+
+
 def qmm_q8_0_i8(x, qs, d):
     """Integer Q8_0 matmul (prefill route): x (M, K) → (M, N) f32."""
     _, k = check_x(x, 128)
     _check_weights(qs, d, k)
-    ops = prepare_i8(x, d)
     if not qs.is_cuda:
-        return qmm_q8_0_i8_plain(qs, *ops)
-    return launch_i8(qs, *ops)
+        return qmm_q8_0_i8_plain(qs, *prepare_i8(x, d))
+    return launch_i8(qs, d, *quantize_x(x))
 
 
-def launch_i8(qs, qx, ex, dsc_f, dw):
-    """Launch K5-i8 on prepared operands (CUDA tensors)."""
-    qx, ex, dsc_f, dw = (t.contiguous() for t in (qx, ex, dsc_f, dw))
-    check_cuda(qs, qx, ex, dsc_f, dw)
+def launch_i8(qs, d, qx, ex):
+    """Launch K5-i8's product on quantized x (CUDA tensors; quantize_x's
+    output) and the Q8_0 weights as K5 takes them."""
     m, (n, k) = qx.shape[0], qs.shape
+    _check_weights(qs, d, k)
+    check_shapes({"qx": (qx, (m, k), torch.int8),
+                  "ex": (ex, (m, k // 128), torch.float32)})
+    check_cuda(qs, d, qx, ex)
     y = torch.empty((m, n), dtype=torch.float32, device=qs.device)
-    build.call("qmm_q8_0_i8", qx.data_ptr(), ex.data_ptr(), qs.data_ptr(),
-               dsc_f.data_ptr(), dw.data_ptr(), y.data_ptr(), m, n, k,
-               torch.cuda.current_stream(qs.device).cuda_stream)
+    build.call("qmm_q8_0_i8", qx.data_ptr(), ex.data_ptr(), qs.data_ptr(), d.data_ptr(),
+               y.data_ptr(), m, n, k, torch.cuda.current_stream(qs.device).cuda_stream)
     K5_I8.launches += 1
     return y

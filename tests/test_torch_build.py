@@ -55,17 +55,32 @@ def test_a_header_edit_changes_every_digest(csrc, edit, name):
     assert all(after[name] != before[name] for name in before)
 
 
-# K3's two entry points: the x quantization and the product on the int8
-# body csrc/qmm_i8_tiled.cuh; (entry point, C arguments)
-@pytest.mark.parametrize("fn,nargs", [("qmm_q4k_i8_quant_x", 9), ("qmm_q4k_i8", 12)])
+# the int8 kernels' entry points, two each (K3, K5-i8, K6-i8): the x
+# quantization (qmm_i8::quant_x) and the product on the int8 body
+# csrc/qmm_i8_tiled.cuh (qmm_i8::launch); (entry point, C arguments)
+I8_ENTRY_POINTS = [("qmm_q4k_i8_quant_x", 9), ("qmm_q4k_i8", 12),
+                   ("qmm_q8_0_i8_quant_x", 7), ("qmm_q8_0_i8", 9),
+                   ("qmm_q4_0_i8_quant_x", 9), ("qmm_q4_0_i8", 11)]
+
+
+@pytest.mark.parametrize("fn,nargs", I8_ENTRY_POINTS)
 def test_k3_entry_points_are_bound_and_the_product_launches_the_int8_body(csrc, fn, nargs):
+    src = fn.removesuffix("_quant_x").removesuffix("_i8")      # qmm_q4k, qmm_q8_0, qmm_q4_0
     source, argtypes = build.SIGNATURES[fn]
-    assert source == "qmm_q4k" and len(argtypes) == nargs
-    text = (csrc / "qmm_q4k.cu").read_text()
+    assert source == src and len(argtypes) == nargs
+    text = (csrc / f"{src}.cu").read_text()
     assert '#include "qmm_i8_tiled.cuh"' in text
     body = text[text.index(f'extern "C" int {fn}('):]
     body = body[:body.index("\n}\n")]
-    assert ("qmm_i8::launch<" in body) == (fn == "qmm_q4k_i8")
+    quant = fn.endswith("_quant_x")
+    assert ("qmm_i8::launch<" in body) != quant
+    assert ("qmm_i8::quant_x<" in body) == quant
+
+
+def test_the_int8_kernels_keep_no_dp4a_kernel(csrc):
+    """K5-i8 and K6-i8 left their dp4a kernels for the int8 body."""
+    for src in ("qmm_q8_0", "qmm_q4_0"):
+        assert "__dp4a" not in (csrc / f"{src}.cu").read_text()
 
 
 def test_k2_entry_point_takes_the_partials_and_the_split(csrc):

@@ -39,14 +39,57 @@ def test_attention_check_holds_k2_rows_at_the_chunk_edges():
     assert "_split" in str(chip_smoke.check_attention_rows.__code__.co_consts)
 
 
+def _names(code) -> set:
+    """The global and attribute names a function uses, its lambdas' too."""
+    out = set(code.co_names)
+    for c in code.co_consts:
+        if hasattr(c, "co_names"):
+            out |= _names(c)
+    return out
+
+
 def test_qmm_check_takes_k3_in_its_two_launches_with_digests_and_rows():
     """K3: the x quantization bit for bit at K3_MS, the product against its
     plain version and by sha256, and its rows across M (check_rows)."""
     names = chip_smoke.CHECKS["qmm"].__code__.co_names
-    assert {"check_k3", "k3_launches", "K3_MS", "check_rows"} <= set(names)
+    assert {"check_i8", "k3_launches", "K3_MS", "check_rows"} <= set(names)
     assert chip_smoke.K3_MS == (100, 128, 512)
-    k3 = chip_smoke.check_k3.__code__.co_names
-    assert {"quantize_x_tiles", "split_x", "sha256", "qmm_q4_K_i8_plain"} <= set(k3)
+    k3 = _names(chip_smoke.k3_launches.__code__)
+    assert {"prepare_i8", "qmm_q4_K_i8_plain", "qmm_q4_K_i8"} <= k3
+    assert {"sha256", "equal", "bfloat16"} <= set(chip_smoke.check_i8.__code__.co_names)
+
+
+# the int8 kernels: (check, its launches, the plain version)
+I8 = [("qmm", "k3_launches", "qmm_q4_K_i8_plain"),
+      ("q8_0", "k5_i8_launches", "qmm_q8_0_i8_plain"),
+      ("q4_0", "k6_i8_launches", "qmm_q4_0_i8_plain")]
+
+
+@pytest.mark.parametrize("check,launches,plain", I8)
+def test_int8_kernels_are_held_in_their_two_launches(check, launches, plain):
+    """K3, K5-i8 and K6-i8 go through check_i8 (x quantization against the
+    plain x operands, product against the plain version on prepare_i8's,
+    sha256) and check_rows; the launches take quantize_x + launch_i8."""
+    assert {"check_i8", launches, "check_rows"} <= set(chip_smoke.CHECKS[check].__code__.co_names)
+    assert {"prepare_i8", plain} <= _names(getattr(chip_smoke, launches).__code__)
+    assert {"quantize_x", "launch_i8"} <= _names(chip_smoke.i8_launches.__code__)
+    assert chip_smoke.I8_MS == (64, 100, 128, 512)
+
+
+# (file recipe, its int8 format struct, its x-quantization map)
+I8_TRACES = [("q4_k_m", "Q4KI8", "XQ4K"), ("q3_k_m", "Q4KI8", "XQ4K"),
+             ("q8_0", "Q80I8", "XQ80"), ("q4_0", "Q40I8", "XQ40")]
+
+
+@pytest.mark.parametrize("recipe,fmt,xmap", I8_TRACES)
+def test_int8_prefills_are_traced_with_their_kernels_device_time(recipe, fmt, xmap):
+    """The prefills that take an int8 kernel are traced, summing the device
+    time of the kernel names that csrc/ defines for it."""
+    from ggml_gfx906_tpu_torch.ops.cuda import build
+    src = "".join(f.read_text() for f in sorted(build.CSRC.iterdir()))
+    assert recipe in chip_smoke.RECIPES
+    assert {fmt, xmap} <= set(chip_smoke.TRACE_PREFILL[recipe])
+    assert f"struct {fmt} {{" in src and f"struct {xmap} {{" in src
 
 
 def test_q4_k_path_traces_the_long_window_engine_step():
