@@ -17,8 +17,8 @@ Phases (each failure raises, so the script exits non-zero):
      with CUDA events beside its plain version, its library yardstick and
      its bound, and a sha256 of every f32 kernel's output (fixed seeds: a
      kernel that keeps its summation order keeps its digests from one tree
-     to another); the kernels on the f32 body (K1, K4, K6, K7, K8, K9)
-     also row by row: on each shape the rows of one 128-row product equal,
+     to another); the kernels on the f32 body (K1, K4, K5, K6, K7, K8,
+     K9) also row by row: on each shape the rows of one 128-row product equal,
      bit for bit, those of the same x cut to M in {1, 8, 16, 63, 100} and
      of single rows (check_rows), and K3 likewise; the int8 kernels K3,
      K5-i8 and K6-i8 in their two launches (check_i8), the x quantization
@@ -27,7 +27,8 @@ Phases (each failure raises, so the script exits non-zero):
      the x quantization, and their rows bit for bit across M (K5-i8 and
      K6-i8 at M in {64, 100, 128} against a 512-row product); K2's rows bit
      for bit across the window, N, B and the chunk split at its chunk edges
-     (check_attention_rows);
+     (check_attention_rows); K10 and K1 at M = 1 also in a chain of 56
+     decode products, 8 layers' seven, one CUDA-event interval (chain_ms);
   4. a small-model check of the card's forward against the CPU's, for a
      tiny Q4_K, Q4_K_M-mixture, Q8_0, Q5_K_M-mixture, Q4_0, Q4_1, Q5_0,
      Q5_1, Q2_K-mixture and Q3_K_M-mixture model, and the Q4_K and Q3_K_M
@@ -403,9 +404,9 @@ def check_q6k(device, timer, results):
 
 
 def check_q8_0(device, timer, results):
-    """K5 at decode and short-chunk M, K5-i8 at I8_MS (check_i8) and its
-    rows across M (check_rows), on the 7B shapes (every matrix of a Q8_0
-    file)."""
+    """K5 at decode and short-chunk M and its rows bit for bit across M
+    (check_rows), K5-i8 at I8_MS (check_i8) and its rows across M, on the
+    7B shapes (every matrix of a Q8_0 file)."""
     gen = torch.Generator(device=device).manual_seed(5)
     rows = {}
     for n, k in QMM_SHAPES:
@@ -418,6 +419,8 @@ def check_q8_0(device, timer, results):
                       lambda x: qmm_q8_0.qmm_q8_0(x, qs, d),
                       lambda x: qmm_q8_0.qmm_q8_0_plain(x, qs, d),
                       torch.randn((m, k), device=device, generator=gen), w_dense, wbytes)
+        rows[f"N={n} K={k}"] = check_rows("K5", lambda x: qmm_q8_0.qmm_q8_0(x, qs, d),
+                                          torch.randn((128, k), device=device, generator=gen))
         k5 = k5_i8_launches(qs, d)
         for m in I8_MS:
             check_i8(timer, results, k5, torch.randn((m, k), device=device, generator=gen),
@@ -559,9 +562,35 @@ def check_q23k(device, timer, results):
     return rows
 
 
+# (N, K) of a llama-7B layer's seven products, in the order a layer runs
+# them: wq, wk, wv, wo, w_gate, w_up, w_down
+LAYER_PRODUCTS = ((4096, 4096),) * 4 + ((11008, 4096),) * 2 + ((4096, 11008),)
+CHAIN_LAYERS = 8
+
+
+def chain_ms(fn, reps: int = 10) -> float:
+    """Median device ms of fn(), a chain of launches like a decode step's
+    products, each run as one CUDA-event interval behind a spin kernel (L2
+    not flushed: a step's products follow one another). At M = 1 this
+    ranks kernels as a step does; flushed per-call times do not."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(Timer.SPIN_CYCLES)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
 def check_pipe(device, timer, results):
     """K10 at M = 1 on every matrix shape of the Q4_K file (the head tied to
-    token_embd included), x in f32 so that its bf16 rounding is exercised."""
+    token_embd included), x in f32 so that its bf16 rounding is exercised;
+    then K10 and K1 (M = 1) each in a chain of CHAIN_LAYERS layers' seven
+    products with weights of their own (chain_ms)."""
     gen = torch.Generator(device=device).manual_seed(10)
     for n, k in QMM_SHAPES:
         qs, scm, dd = random_q4k(n, k, device, gen)
@@ -572,6 +601,17 @@ def check_pipe(device, timer, results):
                   torch.randn((1, k), device=device, generator=gen), w_dense,
                   n * k * 4.75 / 8)
         del w_dense
+    ws = [random_q4k(n, k, device, gen) for _ in range(CHAIN_LAYERS) for n, k in LAYER_PRODUCTS]
+    xs = {k: torch.randn((1, k), device=device, generator=gen) for k in (4096, 11008)}
+    chain = {"layers": CHAIN_LAYERS, "products": len(ws),
+             "bound_ms": bound(sum(w[0].shape[0] * w[0].shape[1] * 2 * 4.75 / 8 for w in ws),
+                               2.0 * sum(w[0].shape[0] * w[0].shape[1] * 2 for w in ws), "f32")[0]}
+    for name, fn in (("K10", qmm_pipe.qmm_q4_K_pipelined), ("K1", qmm.qmm_q4_K)):
+        chain[f"{name}_ms"] = chain_ms(lambda fn=fn: [fn(xs[w[0].shape[1] * 2], *w) for w in ws])
+    log(f"K10 in a chain of {len(ws)} decode products ({CHAIN_LAYERS} layers) "
+        f"{chain['K10_ms']:.4f} ms, K1 at M = 1 {chain['K1_ms']:.4f} ms, bound "
+        f"{chain['bound_ms']:.4f} ms")
+    return {"chain": chain}
 
 
 def check_dma(device, timer, results):

@@ -3,7 +3,8 @@
 // Q8_0 weight layout (ggml wire order, struct of arrays, per row n of N):
 //   qs (N, K)    i8 : the quants, in element order
 //   d  (N, K/32) f32: one scale per 32-element block
-// w = q * d, exact in f32.
+// w = q * d, exact in f32: an 8-bit quant times an f16-born d (11-bit
+// significand) has at most 19 significant bits.
 //
 // Both kernels are deterministic: each output element is summed in an order
 // fixed by K alone, never by M, by the row's place in its tile, or by the
@@ -11,120 +12,86 @@
 //
 // Every function returns the cudaError_t of its launch (0 = success).
 
+#include "qmm_f32_tiled.cuh"
 #include "qmm_i8_tiled.cuh"
 
 // ------------------------------------------------------------------ K5
 // Replaces ggml_gfx906_tpu/ops/pallas/qmm.py::qmm_q8_0 (_q8_kernel):
 // y (M, N) f32 = x (M, K) f32 . W^T, for M < int8_min_m (decode, short
 // prefill chunks).
-// Bound on the H100: bytes. The weight stream is 1.125 B per weight
-// (1 qs + 1/8 d) and is read once; the FMAs are 2*M flops per weight, far
-// below the 67 TFLOP/s f32 rate at M <= 63.
-// Design: K1's (csrc/qmm_q4k.cu). One warp owns K5_ROWS weight rows and
-// walks K in 512-element spans, K5_SPANS at a time; lane l owns elements
-// 16l..16l+15 of every span (half a block: one 16-byte load of each row,
-// one scale), so one warp-wide 16-byte load of x touches 16 cache lines,
-// as K1's do (a lane owning a whole 32-element block made it 32 lines, and
-// the kernel 1.5x slower at M=8). Each lane forms its f32 weights in registers and FMAs them
-// against up to K5_MT activation rows; lanes then reduce with a fixed
-// xor-shuffle butterfly. FP32 FMA on the CUDA cores, never TF32: the
-// reference dot is HIGHEST precision.
+// The body is qmm_f32_tiled.cuh's, shared with K1, K4, K6, K7, K8 and K9,
+// with the format Q80 below; launch() picks its kernel by M (fuller notes
+// there):
+// - M <= 8 (decode, M = 1 included), `small_kernel`. Bound: the weight
+//   bytes, 1.125 B per weight (1 qs + 1/8 d), read once: 0.0152 ms for
+//   11008 x 4096 on the H100; then loads issued and their latency.
+// - M > 8 (the engine's chunks, prefill tails), `tiled_kernel` or
+//   `tree_kernel`. Bound: the f32 FMA rate (2*M*N*K flops at 67 TFLOP/s),
+//   then shared memory and the L2 traffic of x. Each weight is read and
+//   dequantized once per block row of activations.
+// A block is one body chunk: chunk c = block c, its lo run the block's
+// quants 0..15 (the chunk's 16 "packed" bytes, qptr) and its hi run quants
+// 16..31 (its 16 "high-bit" bytes, hptr: HBYTES = 16, so every kernel of
+// the body hands dequant4 the word of the hi run beside that of the lo
+// run). dequant4 takes the word of its run and turns each signed byte into
+// a float without an I2F: the xor with 0x80 makes it q + 128, and
+// byte_minus takes 2^23 + 128 off the float 2^23 + q + 128.
+// Reduction order: the body's, 32 slots over the blocks (block c in slot c
+// mod 32, ascending, its 16 low then 16 high elements), then the
+// xor-butterfly tree; fixed by K alone, so a row's bits do not depend on M
+// or on the kernel and the engine's streams equal `generate`'s. The earlier
+// K5 (lanes over half blocks of 512-element spans) summed in another
+// order, so its results differ from these in the last bits. FP32 FMA on
+// the CUDA cores, never TF32: the reference dot is HIGHEST precision.
 
-#define K5_WARPS 4
-#define K5_ROWS 2
-#define K5_MT 8
-#define K5_SPANS 2       // 512-element spans whose weights are loaded at once
+namespace qmm_tiled {
 
-__global__ void __launch_bounds__(K5_WARPS * 32)
-qmm_q8_0_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
-                    const float* __restrict__ d, float* __restrict__ y,
-                    int M, int N, int K) {
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int n0 = (blockIdx.x * K5_WARPS + warp) * K5_ROWS;
-    const int m0 = blockIdx.y * K5_MT;
-    const int chunks = K / 16;          // 16-element chunks per row
-    const int nblk = K / 32;
-
-    float acc[K5_ROWS][K5_MT];
-#pragma unroll
-    for (int r = 0; r < K5_ROWS; ++r)
-#pragma unroll
-        for (int m = 0; m < K5_MT; ++m) acc[r][m] = 0.f;
-
-    for (int c0 = lane; c0 < chunks; c0 += 32 * K5_SPANS) {
-        // all weight loads of this group of spans first, then the arithmetic
-        uint4 q16[K5_ROWS][K5_SPANS];
-        float dv[K5_ROWS][K5_SPANS];
-#pragma unroll
-        for (int j = 0; j < K5_SPANS; ++j) {
-            const int c = c0 + 32 * j;
-#pragma unroll
-            for (int r = 0; r < K5_ROWS; ++r) {
-                const int n = n0 + r;
-                const bool ok = n < N && c < chunks;
-                q16[r][j] = ok ? *reinterpret_cast<const uint4*>(qs + (size_t)n * K + (size_t)c * 16)
-                               : make_uint4(0u, 0u, 0u, 0u);
-                dv[r][j] = ok ? d[(size_t)n * nblk + (c >> 1)] : 0.f;
-            }
-        }
-#pragma unroll
-        for (int j = 0; j < K5_SPANS; ++j) {
-            const int c = c0 + 32 * j;
-            if (c < chunks) {
-                float w[K5_ROWS][16];
-#pragma unroll
-                for (int r = 0; r < K5_ROWS; ++r) {
-                    const uint32_t words[4] = {q16[r][j].x, q16[r][j].y, q16[r][j].z, q16[r][j].w};
-#pragma unroll
-                    for (int i = 0; i < 16; ++i)
-                        w[r][i] = __fmul_rn(
-                            (float)(int)(int8_t)((words[i >> 2] >> (8 * (i & 3))) & 0xFFu),
-                            dv[r][j]);
-                }
-#pragma unroll
-                for (int m = 0; m < K5_MT; ++m) {
-                    if (m0 + m < M) {
-                        const float* xr = x + (size_t)(m0 + m) * K + (size_t)c * 16;
-#pragma unroll
-                        for (int v = 0; v < 4; ++v) {
-                            const float4 xv = *reinterpret_cast<const float4*>(xr + 4 * v);
-#pragma unroll
-                            for (int r = 0; r < K5_ROWS; ++r) {
-                                acc[r][m] = fmaf(xv.x, w[r][4 * v + 0], acc[r][m]);
-                                acc[r][m] = fmaf(xv.y, w[r][4 * v + 1], acc[r][m]);
-                                acc[r][m] = fmaf(xv.z, w[r][4 * v + 2], acc[r][m]);
-                                acc[r][m] = fmaf(xv.w, w[r][4 * v + 3], acc[r][m]);
-                            }
-                        }
-                    }
-                }
-            }
-        }
+struct Q80 {
+    struct Ptrs {
+        const int8_t* qs;
+        const float* d;
+    };
+    struct Sraw {
+        float d;
+    };
+    static constexpr int HBYTES = 16;
+    static __device__ __forceinline__ int run(int c, int half) { return 32 * c + 16 * half; }
+    static __device__ __forceinline__ const uint8_t* qptr(const Ptrs& p, int n, int c, int K) {
+        return reinterpret_cast<const uint8_t*>(p.qs + (size_t)n * K + (size_t)c * 32);
     }
-
-#pragma unroll
-    for (int r = 0; r < K5_ROWS; ++r) {
-#pragma unroll
-        for (int m = 0; m < K5_MT; ++m) {
-            float v = acc[r][m];
-            // butterfly: every lane ends with the same bits (a+b == b+a)
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-                v += __shfl_xor_sync(0xffffffffu, v, off);
-            const int n = n0 + r;
-            if (lane == 0 && n < N && m0 + m < M) y[(size_t)(m0 + m) * N + n] = v;
-        }
+    static __device__ __forceinline__ const uint8_t* hptr(const Ptrs& p, int n, int c, int K) {
+        return qptr(p, n, c, K) + 16;
     }
-}
+    static __device__ __forceinline__ Sraw sload(const Ptrs& p, int n, int c, int K) {
+        return {p.d[(size_t)n * (K / 32) + c]};
+    }
+    // sload's bytes by cp.async into a 16-byte slot: d
+    static __device__ __forceinline__ void copy_sraw(uint8_t* dst, const Ptrs& p, int n, int c,
+                                                     int K) {
+        cp_async_small<4>(dst, p.d + (size_t)n * (K / 32) + c);
+    }
+    static __device__ __forceinline__ Sraw sraw_of(const uint8_t* src, int) {
+        return {*reinterpret_cast<const float*>(src)};
+    }
+    static __device__ __forceinline__ Scale scale(const Sraw& r, int) { return {r.d, 0.f}; }
+    static __device__ __forceinline__ uint32_t hword(uint32_t h, int) { return h; }
+    // the 4 quants of packed word j of the run: the lo run's word (q), or
+    // the hi run's (h)
+    static __device__ __forceinline__ float4 dequant4(uint32_t q, uint32_t h, int, int half,
+                                                      const Scale& s) {
+        const uint32_t b4 = (half ? h : q) ^ 0x80808080u;
+        float w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) w[i] = __fmul_rn(byte_minus(b4, i, 8388736.f), s.mul);
+        return make_float4(w[0], w[1], w[2], w[3]);
+    }
+};
 
-extern "C" int qmm_q8_0_f32(const float* x, const int8_t* qs, const float* d,
-                            float* y, int M, int N, int K, void* stream) {
-    dim3 grid((N + K5_WARPS * K5_ROWS - 1) / (K5_WARPS * K5_ROWS),
-              (M + K5_MT - 1) / K5_MT);
-    qmm_q8_0_f32_kernel<<<grid, K5_WARPS * 32, 0, (cudaStream_t)stream>>>(
-        x, qs, d, y, M, N, K);
-    return (int)cudaGetLastError();
+}  // namespace qmm_tiled
+
+extern "C" int qmm_q8_0_f32(const float* x, const int8_t* qs, const float* d, float* y,
+                            int M, int N, int K, void* stream) {
+    return qmm_tiled::launch<qmm_tiled::Q80>(x, {qs, d}, y, M, N, K, stream);
 }
 
 // ------------------------------------------------------------------ K5-i8

@@ -4,10 +4,16 @@ Kernel source: csrc/qmm_q4k_pipe.cu (fuller notes there).
 
 - K10 `qmm_q4_K_pipelined` replaces ggml_gfx906_tpu/ops/pallas/qmm.py::
   qmm_q4_K_pipelined. Bound on the H100: bytes — the packed weights (~0.59
-  B per weight) are read once. Design: each block stages x once in shared
-  memory as bf16, in qs byte order, with its 16-element f32 sums; each warp
-  streams two rows at a time with 16-byte loads, four per row in flight,
-  and applies the scales to per-(row, group) partial sums.
+  B per weight) are read once. Design: the counterpart of the reference's
+  DMA ring. One persistent block per SM owns a contiguous, even share of
+  the rows; a producer warp streams them in tiles of 16 rows (8 from K =
+  10240, 2 above K = 16896), three 1-D bulk copies a tile (qs, scm, dd), into a
+  two-stage ring in shared memory guarded by mbarriers; consumer warps, two
+  rows each (one in the 2-row tiles), sum from there against x, staged once
+  per block as bf16 values in f32 with its 16-element f32 sums, and apply
+  the scales to per-(row, group) partial sums, in the order of the
+  earlier register-load design (the same bits). On the card N must be
+  even and K at most 34816.
 
 It is not K1's function: x is rounded to bf16 (round half to even) for the
 sums of nibble · x, as the reference's MXU dots take it, and the min term
@@ -62,8 +68,10 @@ def qmm_q4_K_pipelined(x, qs, scm, dd):
     check_q4k_weights(qs, scm, dd, k)
     if not qs.is_cuda:
         return qmm_q4_K_pipelined_plain(x, qs, scm, dd)
-    x = aligned_x(x)
     n = qs.shape[0]
+    if n % 2:
+        raise ValueError(f"the pipelined decode matvec streams row pairs, got N={n}")
+    x = aligned_x(x)
     y = torch.empty((1, n), dtype=torch.float32, device=qs.device)
     check_cuda(x, qs, scm, dd)
     build.call("qmm_q4k_pipe", x.data_ptr(), qs.data_ptr(), scm.data_ptr(),

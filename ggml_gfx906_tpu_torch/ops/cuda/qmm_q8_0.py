@@ -3,11 +3,12 @@
 Kernel source: csrc/qmm_q8_0.cu (fuller notes there).
 
 - K5 `qmm_q8_0` replaces ggml_gfx906_tpu/ops/pallas/qmm.py::qmm_q8_0.
-  Bound on the H100: bytes — the weights (9 bits per weight) are read once.
-  Design: K1's — each lane reads 16 elements of a row (half a 32-element
-  block) at a time, forms f32 weights q·d in registers and FMAs them
-  against up to 8 activation rows; a fixed xor-shuffle reduction per
-  output.
+  Bound on the H100: bytes at decode (the weights, 9 bits per weight, are
+  read once), the f32 FMA rate at larger M. Design: the format `Q80` on the
+  shared f32 body (csrc/qmm_f32_tiled.cuh, as K1, K4, K6, K7, K8 and K9): a
+  32-element block is one body chunk, its quants 0..15 the lo run and
+  16..31 the hi run; the body picks its kernel by M and sums every output
+  in one order fixed by K alone, so a row's bits do not depend on M.
 - K5-i8 `qmm_q8_0_i8` replaces ggml_gfx906_tpu/ops/pallas/qmm.py::
   qmm_q8_0_i8 (_qd_i8_kernel with nblk=4). Bound on the H100: the weight
   bytes at M≈128, operations (int8) at large M, with the weights'

@@ -1,14 +1,16 @@
-"""Run the f32 matmul body's CUDA kernels on the CPU, emulated, to check them
-before a chip run.
+"""Run the f32 matmul body's CUDA kernels and K10 on the CPU, emulated, to
+check them before a chip run.
 
-    python3 scripts/torch_body_emu.py [--formats q4_1,q2_K,...] [--ref DIR]
+    python3 scripts/torch_body_emu.py [--formats q4_1,q2_K,...,k10] [--ref DIR]
 
-`csrc/qmm_f32_tiled.cuh` and the sources on it (K1 Q4_K, K4 Q6_K, K6
-Q4_0, K7 Q5_K, K8 Q4_1 / Q5_0 / Q5_1, K9 Q2_K / Q3_K; with K3 and K6-i8,
-which share K1's and K6's files, compiled but not run) are rewritten into
+`csrc/qmm_f32_tiled.cuh` and the sources on it (K1 Q4_K, K4 Q6_K, K5
+Q8_0, K6 Q4_0, K7 Q5_K, K8 Q4_1 / Q5_0 / Q5_1, K9 Q2_K / Q3_K; with K3,
+K5-i8 and K6-i8, which share K1's, K5's and K6's files, compiled but not
+run) are rewritten into
 plain C++ (one std::thread per CUDA thread, barriers for __syncthreads
-and the warp shuffles, synchronous copies for cp.async) and built with
-g++ (C++20, one translation unit per source) into build/emu/. Each
+and the warp shuffles, synchronous copies for cp.async; the int8 tensor
+core dot aborts if it is reached) and built with g++ (C++20, one
+translation unit per source) into build/emu/. Each
 format then runs at small shapes (K = 512, 1280 and
 2816, N not a multiple of the tiles) through all three kernels (small,
 tiled and tree: the SM count the emulation reports decides between the
@@ -19,6 +21,12 @@ last two), and the script checks, per format and shape:
 - with --ref DIR (another version of csrc/, e.g. a parent checkout's),
   whether its bits equal that version's at M = 1, 8 and 100 (printed, not
   asserted: a format whose summation order changed differs there).
+"k10" in --formats (the default takes it) runs K10, csrc/qmm_q4k_pipe.cu,
+with its mbarriers emulated (a phase bit, pending arrivals and a byte
+count per barrier, under one lock) and each bulk copy as a memcpy that
+then counts its bytes off the barrier: at shapes that take each of its
+three tile shapes and wrap its ring, against qmm_q4_K_pipelined_plain
+(nmse < 1e-10), and with --ref whether its bits equal that version's.
 It proves nothing about the card (alignment, races between asynchronous
 copies, registers): chip_smoke.py does that. CPU only; no CUDA needed.
 """
@@ -37,18 +45,22 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from ggml_gfx906_tpu_torch.ops.cuda import (build, qmm, qmm_legacy, qmm_q4_0,  # noqa: E402
-                                            qmm_q5k, qmm_q6k, qmm_q23k)
+from ggml_gfx906_tpu_torch.ops.cuda import (build, qmm, qmm_legacy, qmm_pipe,  # noqa: E402
+                                            qmm_q4_0, qmm_q5k, qmm_q6k, qmm_q8_0, qmm_q23k)
 
 EMU_H = r"""
 #pragma once
 #include <algorithm>
 #include <barrier>
 #include <cmath>
+#include <condition_variable>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <functional>
+#include <map>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 #define __device__
@@ -68,21 +80,48 @@ struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c 
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
 inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline float2 make_float2(float a, float b) { return {a, b}; }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-const int cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 1,
-          cudaDevAttrMultiProcessorCount = 2;
+typedef int cudaDeviceAttr;
+const int cudaSuccess = 0, cudaErrorInvalidValue = 1,
+          cudaFuncAttributeMaxDynamicSharedMemorySize = 1,
+          cudaDevAttrMultiProcessorCount = 2, cudaDevAttrMaxSharedMemoryPerBlockOptin = 3;
 template <class T> inline cudaError_t cudaFuncSetAttribute(T, int, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
 extern int emu_sms;
-inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = emu_sms; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, int a, int) {
+    *v = a == cudaDevAttrMultiProcessorCount ? emu_sms : 232448;     // the H100's opt-in
+    return 0;
+}
+template <class T> inline T __ldg(const T* p) { return *p; }
+struct __nv_bfloat16 { uint16_t x; };
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+    uint32_t u;
+    std::memcpy(&u, &f, 4);
+    if ((u & 0x7FFFFFFFu) > 0x7F800000u) return {(uint16_t)((u >> 16) | 0x40)};   // NaN
+    u += 0x7FFFu + ((u >> 16) & 1u);
+    return {(uint16_t)(u >> 16)};
+}
+inline float __bfloat162float(__nv_bfloat16 b) {
+    const uint32_t u = (uint32_t)b.x << 16;
+    float f;
+    std::memcpy(&f, &u, 4);
+    return f;
+}
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
+    return {__float2bfloat16_rn(a), __float2bfloat16_rn(b)};
+}
+inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
 inline float fmaf_emu(float a, float b, float c) { return std::fmaf(a, b, c); }
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
+inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
 inline int __float2int_rn(float v) { return (int)std::nearbyint(v); }
 inline int __dp4a(int a, int b, int c) {
     for (int i = 0; i < 4; ++i) c += (int)(int8_t)(a >> 8 * i) * (int)(int8_t)(b >> 8 * i);
@@ -105,9 +144,48 @@ struct EmuBlock {
     std::vector<std::vector<float>> shfl;
     char* smem;
 };
-extern thread_local dim3 threadIdx, blockIdx;
+extern thread_local dim3 threadIdx, blockIdx, gridDim, blockDim;
 extern thread_local EmuBlock* emu_blk;
 inline void __syncthreads() { emu_blk->bar->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+    emu_blk->warp_bar[threadIdx.x >> 5]->arrive_and_wait();
+}
+// an mbarrier: the parity of its current phase, the arrivals it still waits
+// for in that phase, and the bytes still to come (expect_tx less complete_tx)
+struct EmuMbar { int count, pending; long long tx; unsigned phase; };
+inline std::mutex emu_mb_mu;
+inline std::condition_variable emu_mb_cv;
+inline std::map<const void*, EmuMbar> emu_mb;
+inline void emu_mb_step(EmuMbar& b) {      // under emu_mb_mu
+    if (b.pending == 0 && b.tx == 0) {
+        b.phase ^= 1u;
+        b.pending = b.count;
+        emu_mb_cv.notify_all();
+    }
+}
+inline void emu_mbar_init(const void* p, int count) {
+    std::lock_guard<std::mutex> g(emu_mb_mu);
+    emu_mb[p] = {count, count, 0, 0};
+}
+inline void emu_mbar_arrive(const void* p, long long tx) {
+    std::lock_guard<std::mutex> g(emu_mb_mu);
+    EmuMbar& b = emu_mb.at(p);
+    b.tx += tx;
+    b.pending -= 1;
+    emu_mb_step(b);
+}
+inline void emu_mbar_wait(const void* p, unsigned parity) {
+    std::unique_lock<std::mutex> g(emu_mb_mu);
+    emu_mb_cv.wait(g, [&] { return emu_mb.at(p).phase != parity; });
+}
+inline void emu_bulk_copy(void* dst, const void* src, unsigned bytes, const void* p) {
+    if ((uintptr_t)dst % 16 || (uintptr_t)src % 16 || bytes % 16) std::abort();
+    std::memcpy(dst, src, bytes);
+    std::lock_guard<std::mutex> g(emu_mb_mu);
+    EmuMbar& b = emu_mb.at(p);
+    b.tx -= bytes;
+    emu_mb_step(b);
+}
 inline float __shfl_xor_sync(unsigned, float v, int off) {
     const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
     auto& b = *emu_blk->warp_bar[w];
@@ -136,7 +214,9 @@ inline void emu_launch(dim3 grid, unsigned threads, size_t smem, std::function<v
             std::vector<std::thread> ts;
             for (unsigned t = 0; t < threads; ++t)
                 ts.emplace_back([&, t] {
-                    threadIdx = dim3(t); blockIdx = dim3(bx, by); emu_blk = &blk; fn();
+                    threadIdx = dim3(t); blockIdx = dim3(bx, by); gridDim = grid;
+                    blockDim = dim3(threads);
+                    emu_blk = &blk; fn();
                 });
             for (auto& th : ts) th.join();
         }
@@ -146,11 +226,29 @@ inline void emu_launch(dim3 grid, unsigned threads, size_t smem, std::function<v
 MAIN_CPP = r"""
 #include "emu.h"
 int emu_sms = 132;
-thread_local dim3 threadIdx, blockIdx;
+thread_local dim3 threadIdx, blockIdx, gridDim, blockDim;
 thread_local EmuBlock* emu_blk;
 extern "C" void emu_set_sms(int v) { emu_sms = v; }
 """
-SOURCES = ("qmm_q4k", "qmm_q6k", "qmm_q4_0", "qmm_q5k", "qmm_legacy", "qmm_q23k")
+SOURCES = ("qmm_q4k", "qmm_q6k", "qmm_q8_0", "qmm_q4_0", "qmm_q5k", "qmm_legacy",
+           "qmm_q23k", "qmm_q4k_pipe")
+# K10's PTX helpers (the region between its "---- PTX" and "---- end of PTX"
+# lines) as the emulation's barriers and copies
+EMU_PTX = r"""
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) { emu_mbar_init(bar, count); }
+__device__ __forceinline__ void mbar_fence_init() {}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) { emu_mbar_arrive(bar, 0); }
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+    emu_mbar_arrive(bar, bytes);
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    emu_mbar_wait(bar, parity);
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+    emu_bulk_copy(dst, src, bytes, bar);
+}
+"""
 
 # format → (C entry point, wrapper module, plain function, field specs:
 # name, K elements per value, kind)
@@ -158,6 +256,7 @@ FORMATS = {
     "q4_K": ("qmm_q4k_f32", qmm, "qmm_q4_K_plain",
              [("qs", 2, "u8"), ("scm", 16, "u6"), ("dd", 128, "f")]),
     "q4_0": ("qmm_q4_0_f32", qmm_q4_0, "qmm_q4_0_plain", [("qs", 2, "u8"), ("d", 32, "f")]),
+    "q8_0": ("qmm_q8_0_f32", qmm_q8_0, "qmm_q8_0_plain", [("qs", 1, "i8"), ("d", 32, "f")]),
     "q6_K": ("qmm_q6k_f32", qmm_q6k, "qmm_q6_K_plain",
              [("ql", 2, "u8"), ("qh", 4, "u8"), ("sc", 16, "i8"), ("d", 256, "f")]),
     "q5_K": ("qmm_q5k_f32", qmm_q5k, "qmm_q5_K_plain",
@@ -176,22 +275,29 @@ FORMATS = {
 SHAPES = ((100, 2816), (48, 512), (64, 1280))
 MS = (1, 3, 8, 9, 33, 64, 100)
 TILED, TREE = 1 << 20, 1        # reported SM counts: launch() picks tiled, or tree at M > 32
+# K10's (N, K, reported SM count): its <8, 2> tiles, 19 a block through its
+# two stages, the last one ragged; its <4, 2> tiles, 4 or 5 a block; its
+# <2, 1> tiles, 5 in one block
+PIPE_SHAPES = ((600, 512, 2), (100, 11008, 3), (10, 28672, 1))
 
 
-def emulated(src: Path, out: Path) -> Path:
-    """The sources of `src` rewritten for the emulation and built into
+def emulated(src: Path, out: Path, sources=SOURCES) -> Path:
+    """The `sources` of `src` rewritten for the emulation and built into
     out/libemu.so (each source its own translation unit, compiled in
     parallel: K3 and K6-i8 both define round_i8)."""
     out.mkdir(parents=True, exist_ok=True)
-    for f in list(src.glob("*.cuh")) + [src / f"{n}.cu" for n in SOURCES]:
+    for f in list(src.glob("*.cuh")) + [src / f"{n}.cu" for n in sources]:
         s = f.read_text().replace("#include <cuda_runtime.h>", '#include "emu.h"')
+        s = s.replace("#include <cuda_bf16.h>", '#include "emu.h"')
+        s = re.sub(r'// ---- PTX[^\n]*\n.*?// ---- end of PTX\n', lambda _: EMU_PTX, s, flags=re.S)
+        s = re.sub(r'(void mma_s8\(.*?\) \{).*?\n\}', r'\1 std::abort(); }', s, flags=re.S)
         s = re.sub(r'asm volatile\("cp\.async\.(commit|wait)_group[^"]*"[^;]*;', ";", s)
         s = re.sub(r'(void cp_async16\(void\* dst, const void\* src, bool valid\) \{).*?\n\}',
                    r'\1 if (valid) std::memcpy(dst, src, 16); else std::memset(dst, 0, 16); }',
                    s, flags=re.S)
         s = re.sub(r'(void cp_async_small\(void\* dst, const void\* src\) \{).*?\n\}',
                    r'\1 std::memcpy(dst, src, BYTES); }', s, flags=re.S)
-        s = re.sub(r'extern __shared__ __align__\(16\) (\w+) (\w+)\[\];',
+        s = re.sub(r'extern __shared__ __align__\(16\) (\w+(?: \w+)?) (\w+)\[\];',
                    r'\1* \2 = (\1*)emu_smem();', s)
         s = re.sub(r'(\w+(?:<[^<>]*>)?)<<<([^,]+), ([^,]+), ([^,]+), ([^>]+)>>>\(([^;]*)\);',
                    r'emu_launch(\2, \3, \4, [=] { \1(\6); });', s)
@@ -201,7 +307,7 @@ def emulated(src: Path, out: Path) -> Path:
     (out / "main.cpp").write_text(MAIN_CPP)
     flags = ["-std=c++20", "-O2", "-ffp-contract=off", "-fPIC", "-pthread",
              "-Wno-unknown-pragmas"]
-    units = [out / "main.cpp"] + [out / f"{n}.cu" for n in SOURCES]
+    units = [out / "main.cpp"] + [out / f"{n}.cu" for n in sources]
     procs = [subprocess.Popen(["g++", *flags, "-x", "c++", "-c", str(u), "-o",
                                str(u.with_suffix(".o"))]) for u in units]
     if any([p.wait() for p in procs]):     # wait for every one
@@ -215,8 +321,9 @@ def emulated(src: Path, out: Path) -> Path:
 def load(lib: Path) -> ctypes.CDLL:
     dll = ctypes.CDLL(str(lib))
     dll.emu_set_sms.argtypes = [ctypes.c_int]
-    for fn, *_ in FORMATS.values():
-        getattr(dll, fn).restype = ctypes.c_int
+    for fn in [f[0] for f in FORMATS.values()] + ["qmm_q4k_pipe"]:
+        if hasattr(dll, fn):
+            getattr(dll, fn).restype = ctypes.c_int
     return dll
 
 
@@ -250,9 +357,34 @@ def nmse(a, b):
     return float(((a - b) ** 2).mean() / (b ** 2).mean())
 
 
+def check_pipe(dll, ref, gen):
+    """K10 at PIPE_SHAPES against its plain version, and its bits against
+    --ref's."""
+    for n, k, sms in PIPE_SHAPES:
+        t0 = time.perf_counter()
+        qs, scm, dd = weights([("qs", 2, "u8"), ("scm", 16, "u6"), ("dd", 128, "f")], n, k, gen)
+        x = torch.randn((1, k), generator=gen)
+
+        def run(lib):
+            lib.emu_set_sms(sms)
+            y = torch.full((1, n), float("nan"))
+            args = [ctypes.c_void_p(t.data_ptr()) for t in (x, qs, scm, dd, y)]
+            if lib.qmm_q4k_pipe(*args, n, k, None):
+                raise RuntimeError(f"qmm_q4k_pipe N={n} K={k}: launch error")
+            return y
+
+        y = run(dll)
+        e = nmse(y, qmm_pipe.qmm_q4_K_pipelined_plain(x, qs, scm, dd))
+        if not e < 1e-10:
+            raise AssertionError(f"k10 N={n} K={k}: nmse {e}")
+        same = f"; bits equal to --ref's: {torch.equal(run(ref), y)}" if ref is not None else ""
+        print(f"k10 N={n} K={k}: plain nmse {e:.2e}{same} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--formats", default=",".join(FORMATS))
+    ap.add_argument("--formats", default=",".join(list(FORMATS) + ["k10"]))
     ap.add_argument("--ref", type=Path, default=None,
                     help="another csrc/ directory whose kernels must give the same bits")
     args = ap.parse_args(argv)
@@ -260,6 +392,9 @@ def main(argv=None) -> int:
     ref = load(emulated(args.ref, ROOT / "build" / "emu" / "ref")) if args.ref else None
     gen = torch.Generator().manual_seed(0)
     for name in args.formats.split(","):
+        if name == "k10":
+            check_pipe(dll, ref, gen)
+            continue
         fn, mod, plain_name, spec = FORMATS[name]
         plain = getattr(mod, plain_name)
         for n, k in SHAPES:

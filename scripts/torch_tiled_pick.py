@@ -1,17 +1,18 @@
 """Time the kernels of the port's f32 matmul body against each other on the card.
 
-    python3 scripts/torch_tiled_pick.py [--out DIR]
+    python3 scripts/torch_tiled_pick.py [--formats q8_0,q4_K,...] [--out DIR]
 
 `csrc/qmm_f32_tiled.cuh::launch()` picks `tiled_kernel` (BM = 32 or 64) or
 `tree_kernel` for M > 8 by the grid the tree kernel would have. This script
 times each variant by itself, for every format on the body (K1 Q4_K, K4
-Q6_K, K6 Q4_0, K7 Q5_K, K8 Q4_1 / Q5_0 / Q5_1, K9 Q2_K / Q3_K), on the
-llama-7B shapes at the M around that choice (K1 and K6 serve M = 16..63 on
-the main path: the engine's chunks and prefill tails), beside what
+Q6_K, K5 Q8_0, K6 Q4_0, K7 Q5_K, K8 Q4_1 / Q5_0 / Q5_1, K9 Q2_K / Q3_K), or
+those that --formats names, on the llama-7B shapes at the M around that
+choice (K1, K5 and K6 serve M = 16..63 on the main path: the engine's
+chunks and prefill tails), beside what
 `launch()` picks; every variant's output must equal `launch()`'s bit for
 bit (one summation order). It builds one library from a generated source
 that includes the format sources (build/exp/; Q4_K is in the header, Q4_0
-in qmm_legacy.cu), needs one CUDA card, prints one line per (format,
+in qmm_legacy.cu, Q8_0 in qmm_q8_0.cu), needs one CUDA card, prints one line per (format,
 shape, M) and writes DIR/tiled_pick.json (default build/).
 """
 from __future__ import annotations
@@ -38,12 +39,13 @@ SOURCE = r"""
 #include "qmm_q5k.cu"
 #include "qmm_legacy.cu"
 #include "qmm_q23k.cu"
+#include "qmm_q8_0.cu"
 
 namespace qmm_tiled {
 template <class F>
 int pick(int v, const float* x, void* const* f, float* y, int M, int N, int K, void* stream) {
     typename F::Ptrs p;
-    static_assert(sizeof(p) == 4 * sizeof(void*), "every format has four arrays");
+    static_assert(sizeof(p) <= 4 * sizeof(void*), "a format has at most four arrays");
     memcpy(&p, f, sizeof(p));
     const cudaStream_t st = (cudaStream_t)stream;
     switch (v) {
@@ -67,13 +69,15 @@ extern "C" int tiled_pick(int fmt, int v, const float* x, void* const* f, float*
         case 5: return pick<Q2K>(v, x, f, y, M, N, K, stream);
         case 6: return pick<Q3K>(v, x, f, y, M, N, K, stream);
         case 7: return pick<Q4K>(v, x, f, y, M, N, K, stream);
+        case 9: return pick<Q80>(v, x, f, y, M, N, K, stream);
         default: return pick<Q40>(v, x, f, y, M, N, K, stream);
     }
 }
 """
 
-# format → (index in tiled_pick, its four arrays in Ptrs order: name, K
-# elements per value, dtype; None for an array the format does not have)
+# format → (index in tiled_pick, four pointer slots, its arrays in Ptrs
+# order: name, K elements per value, dtype; None for a slot the format does
+# not fill)
 U8, I8, F32 = torch.uint8, torch.int8, torch.float32
 FORMATS = {
     "q6_K": (0, [("ql", 2, U8), ("qh", 4, U8), ("sc", 16, I8), ("d", 256, F32)]),
@@ -85,6 +89,7 @@ FORMATS = {
     "q3_K": (6, [("qs", 4, U8), ("hmask", 8, U8), ("sc", 16, I8), ("d", 256, F32)]),
     "q4_K": (7, [("qs", 2, U8), None, ("scm", 16, U8), ("dd", 128, F32)]),
     "q4_0": (8, [("qs", 2, U8), None, ("d", 32, F32), None]),
+    "q8_0": (9, [("qs", 1, I8), ("d", 32, F32), None, None]),
 }
 SHAPES = ((4096, 4096), (11008, 4096), (4096, 11008))
 MS = (16, 32, 33, 48, 63, 64, 65, 100, 128)
@@ -130,6 +135,7 @@ def arrays(spec, n, k, device, gen):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--formats", default=",".join(FORMATS))
     ap.add_argument("--out", type=Path, default=ROOT / "build")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -143,7 +149,8 @@ def main(argv=None) -> int:
     timer = Timer(device)
     gen = torch.Generator(device=device).manual_seed(12)
     rows = []
-    for name, (fmt, spec) in FORMATS.items():
+    for name in args.formats.split(","):
+        fmt, spec = FORMATS[name]
         for n, k in SHAPES:
             ws = arrays(spec, n, k, device, gen)
             ptrs = (ctypes.c_void_p * 4)(*[0 if w is None else w.data_ptr() for w in ws])
