@@ -76,6 +76,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import gc
 import hashlib
 import inspect
 import json
@@ -114,6 +115,9 @@ CFG_7B = dict(n_vocab=32000, n_ctx=2048, n_embd=4096, n_head=32, n_kv_head=32,
 QMM_SHAPES = ((4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096))
 PARITY_LENS = (16, 24, 32, 64, 80, 96, 112, 128)
 N_NEW = 32
+# whether this tree decodes on CUDA graphs (a parent tree's comparison run
+# with this smoke, cut by --paths, skips the graph checks)
+HAS_GRAPHS = hasattr(llama, "decode_chunk")
 
 
 def nmse(got, ref) -> float:
@@ -1162,29 +1166,44 @@ def main_path(device, n_layer: int, recipe: str, layout: str = "kernel",
         prompts = [[int(t) for t in rng.integers(1, cfg.n_vocab, n)] for n in PARITY_LENS]
         long_prompt = [int(t) for t in rng.integers(1, cfg.n_vocab, 300)]
         eng = Engine(llama, cfg, params, max_batch=8, max_seq=1024, device=device)
-        rids = [eng.submit(p, N_NEW) for p in prompts]
-        eng.submit(long_prompt, N_NEW)
+        out["engine_depth"] = int(config.get("engine_harvest_depth"))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        done = {r.rid: r for r in eng.run()}
+        done = serve(eng, prompts + [long_prompt], N_NEW)
         torch.cuda.synchronize()
-        out["engine_s"] = time.perf_counter() - t0
-        out["engine_tokens"] = sum(len(r.out) for r in done.values())
-        out["engine_steps"] = len(eng.window_log)
+        out["engine_first_run_s"] = time.perf_counter() - t0     # the captures included
         mismatches = []
-        for rid, p in zip(rids, prompts):
+        for p, got in zip(prompts, done):
             ref = llama.generate(cfg, params, p, N_NEW, max_seq=1024, device=device)
-            if p + done[rid].out != ref:
+            if p + got != ref:
                 mismatches.append(len(p))
         if mismatches:
             raise AssertionError(f"{recipe}: engine streams differ from generate for "
                                  f"prompt lengths {mismatches}")
+        # the same requests again on the same engine (its graphs captured)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = serve(eng, prompts + [long_prompt], N_NEW)
+        torch.cuda.synchronize()
+        out["engine_s"] = time.perf_counter() - t0
+        if again != done:
+            raise AssertionError(f"{recipe}: the engine's second run differs from its first")
+        out["engine_tokens"] = sum(map(len, again))
+        out["engine_steps"] = len(eng.window_log)
+        out["engine_window_tokens"] = [n for _, n in eng.window_log]
+        out["engine_graphs"] = graph_stats(getattr(eng, "graphs", None))
         # the greedy streams, to compare two trees' paths token for token
         out["streams_sha256"] = hashlib.sha256(json.dumps(
-            [stream] + [done[rid].out for rid in rids]).encode()).hexdigest()
+            [stream] + done[:len(prompts)]).encode()).hexdigest()
+        if recipe == "q4_k" and out["layout_asked"] == "kernel" and HAS_GRAPHS:
+            del eng
+            gc.collect()
+            out["engine_depths"] = depth_checks(device, cfg, params, prompts, long_prompt, done)
+            eng = None
 
         # engine decode steps at steady state: 8 active slots, no admission
         del eng                          # one engine's KV cache at a time
+        gc.collect()                     # (an engine and its graphs' closures form a cycle)
         eng = Engine(llama, cfg, params, max_batch=8, max_seq=1024, device=device)
         for p in prompts:
             eng.submit(p, 64)
@@ -1197,8 +1216,11 @@ def main_path(device, n_layer: int, recipe: str, layout: str = "kernel",
             eng.step()
         out["engine_decode_step_ms"] = (time.perf_counter() - t0) / 5 * 1e3
         out["engine_step_trace"] = trace_device(eng.step)
+        if HAS_GRAPHS:
+            out["scan_window"] = scan_window(eng)
         if recipe == "q4_k" and out["layout_asked"] == "kernel":
             eng = None                   # its KV cache goes before the long-window one
+            gc.collect()
             out["long_window"] = long_window_step(device, cfg, params)
     for key, step_ms in (("decode_step_trace", out["decode_step_ms"]),
                          ("engine_step_trace", out["engine_decode_step_ms"]),
@@ -1217,15 +1239,196 @@ def main_path(device, n_layer: int, recipe: str, layout: str = "kernel",
     out["decode_tok_s"] = (N_NEW - 1) / out["decode_s"]
     out["engine_tok_s"] = out["engine_tokens"] / out["engine_s"]
     del eng
+    gc.collect()
     with torch.inference_mode():
         if recipe == "q4_k":
             out["probe_logits"] = _probe_step(cfg, params, device, prompt).cpu()
         if attn_bound is not None:
             out["attn_xla"] = attn_xla_check(device, cfg, params, prompt, attn_bound)
     if recipe == "q4_k" and layout == "kernel":
+        if HAS_GRAPHS and out["layout_asked"] == "kernel":
+            with torch.inference_mode():
+                out["graphs"] = graphs_phase(device, cfg, params, n_layer, prompt, stream)
         out["pipeline"] = pipeline_phase(device, cfg, params, n_layer)
     del params
+    gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def serve(eng, prompts, n_new, **kw) -> list:
+    """The streams of `prompts` served by `eng` (request j seeded j)."""
+    rids = [eng.submit(p, n_new, seed=j, **kw) for j, p in enumerate(prompts)]
+    done = {r.rid: r.out for r in eng.run()}
+    return [done[r] for r in rids]
+
+
+def graph_stats(cache) -> dict | None:
+    """Captures, capture seconds and pool bytes of a GraphCache."""
+    if cache is None:
+        return None
+    return {"graphs": len(cache.graphs), "capture_s": cache.capture_s(),
+            "pool_bytes": cache.pool_bytes(),
+            "keys": [[str(x) for x in k[3:7]] for k in cache.graphs]}
+
+
+SAMPLED = dict(temp=0.9, top_k=20, top_p=0.85)
+
+
+def depth_checks(device, cfg, params, prompts, long_prompt, depth8) -> dict:
+    """The Q4_K file's engine at engine_harvest_depth 1 against the default
+    depth 8: the same 8+1 greedy requests give the same streams (`depth8`,
+    served at the default), and a seeded temp > 0 request set gives the
+    same streams at both depths (and not the greedy ones). Timed: the
+    depth-1 run of the 8+1 requests, its graphs captured by a first run."""
+    out = {}
+    config.set("engine_harvest_depth", 1)
+    try:
+        eng = Engine(llama, cfg, params, max_batch=8, max_seq=1024, device=device)
+        if serve(eng, prompts + [long_prompt], N_NEW) != depth8:
+            raise AssertionError("q4_k engine: depth-1 streams differ from depth 8")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve(eng, prompts + [long_prompt], N_NEW)
+        torch.cuda.synchronize()
+        out["depth1_engine_s"] = time.perf_counter() - t0
+        out["depth1_engine_tok_s"] = sum(len(o) for o in depth8) / out["depth1_engine_s"]
+        sampled1 = serve(eng, prompts, 16, **SAMPLED)
+    finally:
+        config.unset("engine_harvest_depth")
+    del eng
+    gc.collect()
+    eng = Engine(llama, cfg, params, max_batch=8, max_seq=1024, device=device)
+    sampled8 = serve(eng, prompts, 16, **SAMPLED)
+    if sampled8 != sampled1:
+        raise AssertionError("q4_k engine: sampled streams differ between depth 8 and 1")
+    if sampled8 == [o[:16] for o in depth8[:len(prompts)]]:
+        raise AssertionError("q4_k engine: the sampled streams are the greedy ones")
+    out["sampled_streams_sha256"] = hashlib.sha256(json.dumps(sampled8).encode()).hexdigest()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def scan_window(eng) -> dict:
+    """Depth-8 scan windows of the steady-state 8-slot engine (no
+    admission pending): one window captures its graph, three are timed on
+    the host clock (dispatch and harvest, synchronised), one is traced."""
+    def window():
+        d, aborted = eng._dispatch_window(8)
+        assert aborted is None and len(d) == 1, "not a scan window"
+        return eng._harvest(d)
+
+    window()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = sum(window() for _ in range(3))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    out = {"window_ms": ms / 3, "host_ms_per_token": ms / tokens, "tokens": tokens,
+           "trace": trace_device(window)}
+    busy = out["trace"]["busy_ms"]
+    out["trace"]["busy_share"] = None if busy is None else busy / out["window_ms"]
+    out["graphs"] = graph_stats(eng.graphs)
+    return out
+
+
+def graphs_phase(device, cfg, params, n_layer: int, prompt, stream) -> dict:
+    """Single-stream greedy decode of the 32-layer Q4_K file on CUDA graphs
+    (llama.decode_chunk / decode_scan / decode_step), after an eager
+    prefill of `prompt` into one cache: `decode_chunk` (the one-step graph
+    replayed) and `decode_scan` (one graph of N_NEW - 1 steps) give the
+    eager stream `stream`, each timed on a second run (its graph already
+    captured) beside the eager decode loop in the same phase; one replayed
+    step's logits are torch.equal to the eager `forward` step's at the same
+    cache state, and its launches are what the tensor types predict; one
+    replayed step is traced. Then the same under qmm_pipeline="on" (K10
+    captured): decode_chunk's stream equals the eager generate's under the
+    flag. Launch counts are set to 0 before and read after."""
+    out = {"layers": n_layer}
+    n = N_NEW - 1
+    start = len(prompt)
+    want = stream[start + 1:]
+    kv = llama.make_cache(cfg, 1024, device=device)
+    toks = torch.tensor(prompt, device=device)
+
+    def prefill():
+        kv.length = 0
+        logits, _ = llama.forward(cfg, params, toks, kv, 0)
+        return torch.stack([logits[-1].argmax().to(torch.int32),
+                            torch.tensor(start, dtype=torch.int32, device=device)])
+
+    def timed(fn) -> tuple:
+        carry = prefill()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(carry)
+        torch.cuda.synchronize()
+        return got.tolist(), time.perf_counter() - t0
+
+    kernels.reset_launches()
+    chunk = lambda c: llama.decode_chunk(cfg, params, kv, c, n)[0]     # noqa: E731
+    scan = lambda c: llama.decode_scan(cfg, params, kv, c[0], c[1], n)[0]   # noqa: E731
+    for name, fn in (("decode_chunk", chunk), ("decode_scan", scan)):
+        first, out[f"{name}_first_s"] = timed(fn)       # with its capture
+        got, sec = timed(fn)
+        if first != want or got != want:
+            raise AssertionError(f"q4_k {name}: stream differs from the eager generate's")
+        out[f"{name}_ms_per_step"] = sec / n * 1e3
+        out[f"{name}_tok_s"] = n / sec
+    # the eager loop in the same phase, as main_path times it
+    prefill()
+    tok = stream[start]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        lg, _ = llama.forward(cfg, params, torch.tensor([tok], device=device), kv, start + i)
+        tok = int(lg[-1].argmax())
+    torch.cuda.synchronize()
+    out["eager_ms_per_step"] = (time.perf_counter() - t0) / n * 1e3
+    out["eager_tok_s"] = 1e3 / out["eager_ms_per_step"]
+    # one replayed step against the eager step at the same cache state
+    tok = torch.tensor([stream[-2]], device=device)
+    pos = len(stream) - 2
+    before = launches()
+    llama.decode_step(cfg, params, tok, kv, pos)
+    out["launches_per_replayed_step"] = _delta(before)
+    want_step = expected_launches("q4_k", n_layer, 1)
+    if out["launches_per_replayed_step"] != want_step:
+        raise AssertionError(f"q4_k replayed step: launches {out['launches_per_replayed_step']}, "
+                             f"its tensor types predict {want_step}")
+    replayed = llama.step_graph(cfg, params, kv).outputs[1].clone()
+    eager, _ = llama.forward(cfg, params, tok, kv, pos)
+    if not torch.equal(replayed, eager[-1:]):
+        raise AssertionError(f"q4_k replayed step: logits differ from the eager step's "
+                             f"(max abs {float((replayed - eager[-1:]).abs().max())})")
+    out["replayed_logits_equal_eager"] = True
+    out["replayed_step_trace"] = trace_device(lambda: llama.decode_step(cfg, params, tok, kv, pos))
+    busy = out["replayed_step_trace"]["busy_ms"]
+    out["replayed_step_trace"]["busy_share"] = (None if busy is None
+                                                else busy / out["decode_chunk_ms_per_step"])
+    # K10 captured: qmm_pipeline="on"
+    config.set("qmm_pipeline", "on")
+    try:
+        ref = llama.generate(cfg, params, prompt, N_NEW, max_seq=1024, device=device)
+        got, sec = timed(chunk)
+        got, sec = timed(chunk)
+        before = launches()
+        llama.decode_step(cfg, params, tok, kv, pos)
+        out["pipeline_launches_per_replayed_step"] = _delta(before)
+        want_step = expected_launches("q4_k", n_layer, 1)
+    finally:
+        config.unset("qmm_pipeline")
+    if got != ref[start + 1:]:
+        raise AssertionError("q4_k decode_chunk under qmm_pipeline=on: stream differs from "
+                             "the eager generate's under the flag")
+    if out["pipeline_launches_per_replayed_step"] != want_step:
+        raise AssertionError(f"q4_k replayed step under qmm_pipeline=on: launches "
+                             f"{out['pipeline_launches_per_replayed_step']}, predicted {want_step}")
+    out["pipeline_decode_chunk_tok_s"] = n / sec
+    out["graphs"] = graph_stats(kv.graphs.graphs)
+    out["launches"] = launches()
     return out
 
 
@@ -1472,13 +1675,14 @@ def main(argv=None) -> int:
     ap.add_argument("--out", type=Path, default=ROOT / "build",
                     help="directory for chip_smoke.json, the detailed results")
     ap.add_argument("--checks", default=",".join(CHECKS),
-                    help="comma-separated kernel checks of phase 3 (default: all)")
+                    help="comma-separated kernel checks of phase 3 (default: all; "
+                         "'none' for no check)")
     ap.add_argument("--paths", default=None,
                     help="comma-separated main paths of phase 6 (default: all); a run "
                          "cut by --checks or --paths skips phases 4 and 5 and prints no "
                          "result line")
     args = ap.parse_args(argv)
-    checks = args.checks.split(",")
+    checks = [] if args.checks == "none" else args.checks.split(",")
     unknown = set(checks) - set(CHECKS)
     if unknown:
         ap.error(f"unknown checks {sorted(unknown)}; known: {list(CHECKS)}")
@@ -1517,6 +1721,8 @@ def main(argv=None) -> int:
         if got is not None:
             row_checks[name] = got
     partial = len(checks) < len(CHECKS) or args.paths is not None
+    if not (HAS_GRAPHS or partial):
+        raise AssertionError("llama.decode_chunk is missing: the graphs phase cannot run")
 
     small = {} if partial else small_model_check(device)
     if not partial:
@@ -1554,7 +1760,9 @@ def main(argv=None) -> int:
             f"prefill {mp['prefill_tok_s']:.1f} tok/s (100-token prompt), "
             f"decode {mp['decode_tok_s']:.2f} tok/s (single stream), "
             f"engine {mp['engine_tok_s']:.1f} tok/s aggregate "
-            f"({mp['engine_tokens']} tokens, {mp['engine_steps']} steps), "
+            f"({mp['engine_tokens']} tokens, {mp['engine_steps']} windows of depth "
+            f"{mp['engine_depth']}; the first run, captures included, "
+            f"{mp['engine_first_run_s']:.2f} s), "
             f"peak device memory {mp['peak_mem_gb']:.2f} GB "
             f"({mp['load_peak_gb']:.2f} GB at the end of the load)")
         log(f"  launches per decode step {mp['launches_per_decode_step']}, "
@@ -1597,6 +1805,38 @@ def main(argv=None) -> int:
                 f"decode logits nmse on vs off {pp['logits_nmse_on_vs_off']:.3e} "
                 f"(int8 route vs off {pp['logits_nmse_i8_vs_off']:.3e})")
 
+        if "graphs" in mp:
+            gp = mp["graphs"]
+            t = gp["replayed_step_trace"]
+            gs = gp["graphs"]
+            log(f"  graphs [{label}]: single-stream decode eager {gp['eager_tok_s']:.2f} tok/s "
+                f"({gp['eager_ms_per_step']:.3f} ms/step), decode_chunk (the one-step graph "
+                f"replayed) {gp['decode_chunk_tok_s']:.2f} tok/s "
+                f"({gp['decode_chunk_ms_per_step']:.3f} ms/step), decode_scan (one graph of "
+                f"{N_NEW - 1} steps) {gp['decode_scan_tok_s']:.2f} tok/s "
+                f"({gp['decode_scan_ms_per_step']:.3f} ms/step), first runs with capture "
+                f"{gp['decode_chunk_first_s']:.2f} / {gp['decode_scan_first_s']:.2f} s; "
+                f"qmm_pipeline=on decode_chunk {gp['pipeline_decode_chunk_tok_s']:.2f} tok/s; "
+                f"replayed logits == eager; launches per replayed step "
+                f"{gp['launches_per_replayed_step']} (K10 on: "
+                f"{gp['pipeline_launches_per_replayed_step']}); replayed step device busy "
+                f"{t['busy_ms']} ms ({t['device_activities']} activities), busy share "
+                f"{t['busy_share']}; {gs['graphs']} graphs captured in {gs['capture_s']:.2f} s, "
+                f"pool {gs['pool_bytes']} bytes")
+        if "scan_window" in mp:
+            sw = mp["scan_window"]
+            t = sw["trace"]
+            log(f"  engine depth-8 scan window [{label}]: {sw['window_ms']:.3f} ms for "
+                f"{sw['tokens'] // 3} tokens ({sw['host_ms_per_token']:.3f} host ms per "
+                f"token), device busy {t['busy_ms']} ms ({t['device_activities']} "
+                f"activities), busy share {t['busy_share']}; its engine's graphs "
+                f"{sw['graphs']}")
+        if "engine_depths" in mp:
+            ed = mp["engine_depths"]
+            log(f"  engine depth 1 [{label}]: the same streams as depth 8 (greedy 8+1 and "
+                f"seeded sampled 8 requests), {ed['depth1_engine_tok_s']:.1f} tok/s "
+                f"against {mp['engine_tok_s']:.1f} at depth {mp['engine_depth']}")
+
     rep = {"qmm_q4_K": "M=8 N=11008 K=4096",
            "qmm_q4_K_i8": "M=128 N=11008 K=4096",
            "causal_flash_attention": "decode B=8 H=32 window=1024 f32q_bf16kv",
@@ -1629,7 +1869,7 @@ def main(argv=None) -> int:
     log(f"q4_k int8 layout vs kernel layout [{label}]: one decode step's logits nmse "
         f"{int8_nmse:.3e}")
     runs = ([tune] + list(paths.values())
-            + [mp["pipeline"] for mp in paths.values() if "pipeline" in mp])
+            + [mp[k] for mp in paths.values() for k in ("graphs", "pipeline") if k in mp])
     line = []
     for kern in kernels.KERNELS:
         rows = [r for r in results if r["kernel"] == kern.name]

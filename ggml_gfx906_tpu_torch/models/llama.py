@@ -18,6 +18,11 @@ attn_k|attn_v|attn_output|ffn_gate|ffn_up|ffn_down|attn_norm|ffn_norm).
 
 Entry points (`load`, `params_from_numpy`, `generate`) run on the card
 unless device="cpu" is passed, and raise when no CUDA device exists.
+`decode_step`, `decode_chunk` and `decode_scan` decode greedily on the
+device of the cache they are given: each is a replay of a static-shape
+step captured once as a CUDA graph on the card (runtime/graphs.py; a
+direct call on the CPU), the reference's jitted programs with their
+donated caches as in-place writes.
 """
 from __future__ import annotations
 
@@ -31,7 +36,8 @@ from ..gguf import GGUFReader
 from ..ops.quantized import QuantTensor, apply_weights_layout, embed_rows, qmatmul
 from ..quant.types import GGMLType, TYPE_TRAITS
 from ..runtime.kv_cache import KVCache
-from ..utils import autotune, config
+from ..runtime.graphs import GraphCache
+from ..utils import abort, autotune, config
 from ..utils.device import resolve
 
 ARCH = "llama"
@@ -199,15 +205,18 @@ def _block_ffn(blk, x, eps):
     return x + qmatmul(gate * up, blk["w_down"])
 
 
-def forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
-            kv: KVCache, start: int) -> tuple[torch.Tensor, KVCache]:
-    """tokens (S,) at absolute positions [start, start+S) → (logits (S, V)
-    f32, kv). The cache is updated in place."""
+def _forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor, kv: KVCache,
+             start) -> torch.Tensor:
+    """`forward` without advancing kv.length (the body a captured decode
+    step runs: it reads its position from a device buffer)."""
     S = tokens.shape[0]
     HD = cfg.head_dim
     dev = tokens.device
-    pos = start + torch.arange(S, dtype=torch.int32, device=dev)
-    pos_b = torch.tensor([start], dtype=torch.int32, device=dev)
+    if isinstance(start, torch.Tensor):
+        pos_b = start.reshape(1).to(torch.int32)
+    else:
+        pos_b = torch.full((1,), int(start), dtype=torch.int32, device=dev)
+    pos = pos_b + torch.arange(S, dtype=torch.int32, device=dev)
     x = embed_rows(params["wte"], tokens).to(cfg.compute_dtype)
     for li, blk in enumerate(params["blocks"]):
         H = blk["wq"].shape[0] // HD
@@ -227,7 +236,15 @@ def forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
         x = _block_ffn(blk, x, cfg.rms_eps)
     x = _rms(x, params["out_norm"], cfg.rms_eps)
     head = params.get("lm_head", params["wte"])
-    return qmatmul(x, head).float(), kv.advance(S)
+    return qmatmul(x, head).float()
+
+
+def forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
+            kv: KVCache, start) -> tuple[torch.Tensor, KVCache]:
+    """tokens (S,) at absolute positions [start, start+S) → (logits (S, V)
+    f32, kv). The cache is updated in place. `start` is a host int or a
+    one-element int tensor on the device (read there, with no host copy)."""
+    return _forward(cfg, params, tokens, kv, start), kv.advance(tokens.shape[0])
 
 
 def forward_batch(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
@@ -282,7 +299,10 @@ def _check_device(params, device) -> torch.device:
 @torch.inference_mode()
 def generate(cfg: LlamaConfig, params: dict, prompt_tokens, n_predict: int,
              sampler=None, max_seq: int | None = None, device=None) -> list[int]:
-    """Prompt + n_predict greedy (or `sampler`) tokens, single sequence."""
+    """Prompt + n_predict greedy (or `sampler`) tokens, single sequence.
+    Eager, one forward per token, as the reference's re-dispatches its
+    jitted forward (:305-326): `sampler` is any Python callable. The
+    captured greedy loop is `decode_chunk` / `decode_scan`."""
     from ..runtime.sampling import greedy
 
     device = _check_device(params, device)
@@ -294,6 +314,7 @@ def generate(cfg: LlamaConfig, params: dict, prompt_tokens, n_predict: int,
     out.append(int(sampler(logits[-1])))
     pos = len(prompt_tokens)
     for _ in range(n_predict - 1):
+        abort.check()   # cooperative-cancel poll point between steps
         logits, kv = forward(cfg, params,
                              torch.tensor([out[-1]], dtype=torch.int64, device=device),
                              kv, pos)
@@ -310,3 +331,94 @@ def prefill_kv(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
     kv = make_cache(cfg, max_seq, device=tokens.device)
     logits, kv = forward(cfg, params, tokens, kv, 0)
     return logits, kv.k, kv.v
+
+
+# ------------------------------------------- captured greedy decode steps
+
+class _Decoder:
+    """Single-stream greedy decode on one KVCache: the token and position
+    buffers its captured steps read and advance, and their graphs."""
+
+    def __init__(self, device: torch.device):
+        self.tok = torch.zeros(1, dtype=torch.int64, device=device)
+        self.pos = torch.zeros(1, dtype=torch.int32, device=device)
+        self.graphs = GraphCache(device)
+
+    def load(self, tok, pos) -> None:
+        """Set the next input token and its position (ints or device
+        tensors; a tensor is copied on the device)."""
+        for buf, v in ((self.tok, tok), (self.pos, pos)):
+            if isinstance(v, torch.Tensor):
+                buf.copy_(v.reshape(1))
+            else:
+                buf.fill_(int(v))
+
+
+def _decoder(kv: KVCache) -> _Decoder:
+    if kv.graphs is None:
+        kv.graphs = _Decoder(kv.k[0].device)
+    return kv.graphs
+
+
+def step_graph(cfg: LlamaConfig, params: dict, kv: KVCache, n_steps: int = 1):
+    """The captured program of `n_steps` chained greedy decode steps on
+    `kv` (a `runtime.graphs.StepGraph`): each step runs `forward` on the
+    token buffer at the position buffer, takes the argmax as the next
+    token and advances both buffers in place. Its outputs are (tokens
+    (n_steps,) int32, the last step's logits (1, V) f32). One graph serves
+    every position: the position is read from the device and attention
+    reads the whole cache, as the eager step's does."""
+    d = _decoder(kv)
+
+    def body():
+        toks = []
+        for _ in range(n_steps):
+            logits = _forward(cfg, params, d.tok, kv, d.pos)
+            nxt = torch.argmax(logits[-1]).to(torch.int32)[None]
+            d.tok.copy_(nxt)
+            d.pos.add_(1)
+            toks.append(nxt)
+        return torch.cat(toks), logits
+
+    key = ("decode", id(params), kv.k[0].data_ptr(), 1, 1, kv.max_seq, n_steps, cfg)
+    return d.graphs.get(key, body, state=(d.tok, d.pos))
+
+
+@torch.inference_mode()
+def decode_step(cfg: LlamaConfig, params: dict, tok, kv: KVCache, start):
+    """One greedy decode step with the argmax inside the program: (tok
+    (1,), kv, start) → (next_tok (1,) int32, kv) (reference :285-293). The
+    step is a replay of the cache's one-step graph; the cache is updated in
+    place and kv.length advances on the host. Feed the returned token back
+    as the next input: the real autoregressive dependence."""
+    d = _decoder(kv)
+    d.load(tok, start)
+    toks, _ = step_graph(cfg, params, kv, 1).replay()
+    return toks.clone(), kv.advance(1)
+
+
+@torch.inference_mode()
+def decode_chunk(cfg: LlamaConfig, params: dict, kv: KVCache, carry, n_steps: int):
+    """Greedy-decode n_steps tokens (reference :414-433): the one-step
+    graph replayed n_steps times, the token and position chaining through
+    its device buffers with no host read. carry: [token, position] (2,)
+    int. Returns (tokens (n_steps,) int32, kv, new carry (2,) int32)."""
+    d = _decoder(kv)
+    d.load(carry[0], carry[1])
+    g = step_graph(cfg, params, kv, 1)
+    toks = torch.empty(n_steps, dtype=torch.int32, device=d.tok.device)
+    for i in range(n_steps):
+        toks[i:i + 1].copy_(g.replay()[0])
+    return toks, kv.advance(n_steps), torch.cat([d.tok.to(torch.int32), d.pos])
+
+
+@torch.inference_mode()
+def decode_scan(cfg: LlamaConfig, params: dict, kv: KVCache, first_token, start,
+                n_steps: int):
+    """Greedy-decode n_steps tokens in ONE replay (reference :436-456,
+    whose lax.scan is one program): a graph of n_steps chained steps,
+    captured once per n_steps. Returns (tokens (n_steps,) int32, kv)."""
+    d = _decoder(kv)
+    d.load(first_token, start)
+    toks, _ = step_graph(cfg, params, kv, n_steps).replay()
+    return toks.clone(), kv.advance(n_steps)

@@ -7,10 +7,12 @@ src/ggml-cpu/ops.cpp:6049-6330, YaRN correction dims src/ggml.c:4083-4098.
 Modes: NORMAL rotates adjacent pairs (x[2i], x[2i+1]); NEOX rotates
 half-split pairs (x[i], x[i + n_dims/2]). Dims beyond n_dims pass through.
 The per-pair frequencies freq_base^(-2i/n_dims) are an f32 power, computed
-as the reference computes them (numpy f32 on the host, not float64).
+as the reference computes them (numpy f32 on the host, not float64), once
+per parameter set and device (`_rope_tables`).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -33,24 +35,37 @@ def yarn_corr_dims(n_dims: int, n_ctx_orig: int, freq_base: float,
     return max(0.0, start), min(n_dims - 1.0, end)
 
 
-def _rope_cos_sin(pos, n_dims, freq_base, freq_scale, ext_factor, attn_factor,
-                  beta_fast, beta_slow, n_ctx_orig):
+@functools.lru_cache(maxsize=None)
+def _rope_tables(n_dims, freq_base, ext_factor, beta_fast, beta_slow, n_ctx_orig,
+                 device):
+    """(theta_pow (n_dims/2,), YaRN ramp (n_dims/2,) or None) on `device`,
+    built once per parameter set and device: a decode step reads them in
+    every layer, and a host→device copy there would cost every step a
+    transfer (and cannot be captured in a CUDA graph)."""
     half = n_dims // 2
     pair_idx = np.arange(half)
     theta_pow = np.float32(freq_base) ** (
         -2.0 * pair_idx.astype(np.float32) / n_dims)
-    dev = pos.device
-    theta_extrap = pos.float()[..., None] * torch.from_numpy(
-        np.ascontiguousarray(theta_pow, np.float32)).to(dev)
+    theta_pow = torch.from_numpy(np.ascontiguousarray(theta_pow, np.float32)).to(device)
+    if ext_factor == 0.0:
+        return theta_pow, None
+    low, high = yarn_corr_dims(n_dims, n_ctx_orig, freq_base, beta_fast, beta_slow)
+    ramp_y = (pair_idx.astype(np.float32) - low) / max(0.001, high - low)
+    ramp = torch.from_numpy(np.ascontiguousarray(
+        (1.0 - np.clip(ramp_y.astype(np.float32), 0.0, 1.0)) * ext_factor,
+        np.float32)).to(device)
+    return theta_pow, ramp
+
+
+def _rope_cos_sin(pos, n_dims, freq_base, freq_scale, ext_factor, attn_factor,
+                  beta_fast, beta_slow, n_ctx_orig):
+    theta_pow, ramp = _rope_tables(n_dims, float(freq_base), float(ext_factor),
+                                   float(beta_fast), float(beta_slow), int(n_ctx_orig),
+                                   pos.device)
+    theta_extrap = pos.float()[..., None] * theta_pow
     theta_interp = float(freq_scale) * theta_extrap
     mscale = np.float32(attn_factor)
-    if ext_factor != 0.0:
-        low, high = yarn_corr_dims(n_dims, n_ctx_orig, freq_base, beta_fast,
-                                   beta_slow)
-        ramp_y = (pair_idx.astype(np.float32) - low) / max(0.001, high - low)
-        ramp = torch.from_numpy(np.ascontiguousarray(
-            (1.0 - np.clip(ramp_y.astype(np.float32), 0.0, 1.0)) * ext_factor,
-            np.float32)).to(dev)
+    if ramp is not None:
         theta = theta_interp * (1 - ramp) + theta_extrap * ramp
         mscale = np.float32(mscale * np.float32(1.0 + 0.1 * math.log(1.0 / freq_scale)))
     else:

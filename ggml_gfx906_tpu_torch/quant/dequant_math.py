@@ -134,6 +134,13 @@ def dequant_q5_K_unpacked(d, dmin, sc, m, qh, qs) -> torch.Tensor:
     return y.reshape(*y.shape[:-4], -1)
 
 
+def _shifts(device) -> torch.Tensor:
+    """The 2-bit field shifts (0, 2, 4, 6) as a (4, 1) u8 column, built on
+    `device` by a kernel (a host tensor copied there would cost every
+    dequantization a transfer, and cannot be captured in a CUDA graph)."""
+    return torch.arange(0, 8, 2, dtype=torch.uint8, device=device)[:, None]
+
+
 def dequant_q6_K(d, ql, qh, scales) -> torch.Tensor:
     """d: (..., nb) f16/f32, ql: (..., nb, 128) u8, qh: (..., nb, 64) u8,
     scales: (..., nb, 16) i8 → (..., nb*256) f32. Element h*128 + 32*i + l
@@ -144,7 +151,7 @@ def dequant_q6_K(d, ql, qh, scales) -> torch.Tensor:
     qhr = qh.reshape(*qh.shape[:-1], 2, 32)
     nib = torch.stack([qlr[..., 0, :] & 0xF, qlr[..., 1, :] & 0xF,
                        qlr[..., 0, :] >> 4, qlr[..., 1, :] >> 4], dim=-2)
-    shift = torch.tensor([0, 2, 4, 6], dtype=torch.uint8, device=ql.device)[:, None]
+    shift = _shifts(ql.device)
     bits = (qhr[..., None, :] >> shift) & 3            # (..., nb, 2, 4, 32)
     q = (nib | (bits << 4)).to(torch.int32) - 32
     dsc = d.float()[..., None] * scales.float()        # (..., nb, 16)
@@ -169,7 +176,7 @@ def dequant_q2_K(d, dmin, scales, qs) -> torch.Tensor:
     dl = d.float()[..., None] * (scales & 0xF).float()      # (..., nb, 16)
     ml = dmin.float()[..., None] * (scales >> 4).float()
     q = qs.reshape(*qs.shape[:-1], 2, 1, 32)
-    shift = torch.tensor([0, 2, 4, 6], dtype=torch.uint8, device=qs.device)[:, None]
+    shift = _shifts(qs.device)
     qv = ((q >> shift) & 3).float()                          # (..., nb, 2, 4, 32)
     pre = qv.shape[:-3]
     y = (qv.reshape(*pre, 2, 4, 2, 16) * dl.reshape(*pre, 2, 4, 2, 1)
@@ -200,7 +207,7 @@ def dequant_q3_K_unpacked(d, hmask, sc, qs) -> torch.Tensor:
     bit, and q − 4 where it is clear."""
     dl = d.float()[..., None] * sc.float()                   # (..., nb, 16)
     q = qs.reshape(*qs.shape[:-1], 2, 1, 32)
-    shift = torch.tensor([0, 2, 4, 6], dtype=torch.uint8, device=qs.device)[:, None]
+    shift = _shifts(qs.device)
     qv = ((q >> shift) & 3).to(torch.int32)                  # (..., nb, 2, 4, 32)
     hm = hmask.reshape(*hmask.shape[:-1], 1, 1, 32)
     bit = (torch.arange(2, device=qs.device)[:, None] * 4

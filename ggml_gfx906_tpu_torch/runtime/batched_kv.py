@@ -39,7 +39,9 @@ class BatchedKVCache:
         return self.k[0].shape[2]
 
     def with_lengths(self, lengths: torch.Tensor) -> "BatchedKVCache":
-        self.lengths = lengths
+        """Set the lengths IN PLACE: the engine's captured decode programs
+        read this very tensor, so it is never rebound."""
+        self.lengths.copy_(lengths)
         return self
 
     def layer_kv(self, layer: int, window: int | None = None):
@@ -69,5 +71,5 @@ class BatchedKVCache:
             kb[b, :, :kn.shape[1]] = kn.to(kb.dtype)
         for vb, vn in zip(self.v, v_slot):
             vb[b, :, :vn.shape[1]] = vn.to(vb.dtype)
-        self.lengths[b] = length
+        self.lengths[b:b + 1].fill_(length)
         return self

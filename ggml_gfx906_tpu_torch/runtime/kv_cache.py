@@ -5,11 +5,12 @@ Per-layer (n_kv_head, max_seq, head_dim) tensors in attention order, from
 one allocation. Unlike the reference's donated functional carry, the port
 updates the buffers IN PLACE (no copy of the cache per token);
 `update_layer` and `advance` return the same object so call sites read as
-in the reference. The int8 cache is a later slice.
+in the reference. A cache also holds the CUDA graphs of the decode steps
+that write into it (`graphs`). The int8 cache is a later slice.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -30,6 +31,9 @@ class KVCache:
     k: list      # per layer: (n_kv_head, max_seq, head_dim)
     v: list
     length: int = 0
+    # the captured decode steps that write into these buffers
+    # (models/llama.py::decode_step / decode_chunk / decode_scan)
+    graphs: object = field(default=None, repr=False, compare=False)
 
     @classmethod
     def create(cls, n_layer: int, max_seq: int, n_kv_head: int, head_dim: int,
@@ -52,11 +56,23 @@ class KVCache:
 
     def update_layer(self, layer: int, k_new: torch.Tensor, v_new: torch.Tensor,
                      start) -> "KVCache":
-        """Write (S, n_kv_head, hd) at positions [start, start+S) of layer."""
+        """Write (S, n_kv_head, hd) at positions [start, start+S) of layer.
+        `start` is a host int or a one-element int tensor on the cache's
+        device; a tensor start is written by `index_copy_` at device-side
+        positions, so no host read or copy happens (a captured decode step
+        reads its position from a device buffer)."""
         s = k_new.shape[0]
+        kn = k_new.transpose(0, 1).to(self.k[layer].dtype)
+        vn = v_new.transpose(0, 1).to(self.v[layer].dtype)
+        if isinstance(start, torch.Tensor):
+            cols = (clamp_start(start.reshape(()).to(torch.int64), s, self.max_seq)
+                    + torch.arange(s, device=start.device))
+            self.k[layer].index_copy_(1, cols, kn)
+            self.v[layer].index_copy_(1, cols, vn)
+            return self
         s0 = clamp_start(start, s, self.max_seq)
-        self.k[layer][:, s0:s0 + s] = k_new.transpose(0, 1).to(self.k[layer].dtype)
-        self.v[layer][:, s0:s0 + s] = v_new.transpose(0, 1).to(self.v[layer].dtype)
+        self.k[layer][:, s0:s0 + s] = kn
+        self.v[layer][:, s0:s0 + s] = vn
         return self
 
     def advance(self, n: int) -> "KVCache":

@@ -8,13 +8,16 @@ noise), with the key fold_in(PRNGKey(seed), counter) (runtime/engine.py:
 computes the same keys and bits in torch integer ops (uint32 values held in
 int64 and masked to 32 bits) and forms the Gumbel draws as jax.random.gumbel
 does. `sample_batch` takes the noise as an argument; the engine builds it
-with `gumbel_noise` on the host and copies it to the logits' device.
+with `gumbel_noise` on the host and copies it into its captured programs'
+noise buffer.
 
 ref: gpt_sample_top_k_top_p examples/common.cpp:113-121.
 """
 from __future__ import annotations
 
 import torch
+
+from ..utils.device import to_device
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -85,9 +88,11 @@ def gumbel_noise(seeds, counters, n: int, device=None) -> torch.Tensor:
     fold_in(PRNGKey(seeds[b]), counters[b]), as the reference engine keys
     its token counters[b] (runtime/engine.py:38, 216-217). Computed on the
     host, where the hash's few hundred small integer ops cost no kernel
-    launches, and copied to `device` once."""
+    launches, and copied to `device` once, without a host wait
+    (utils/device.py::to_device); device=None keeps them on the host."""
     key = fold_in(prng_key(seeds), torch.as_tensor(counters))
-    return gumbel(key, n).to(device)
+    g = gumbel(key, n)
+    return g if device is None else to_device(g, device)
 
 
 def sample_batch(logits, noise, temp, top_k, top_p, max_k: int = 64):

@@ -5,7 +5,7 @@ the ported path reads. Precedence is the reference's: built-in default <
 GGML_TORCH_<NAME> env var < programmatic `set()`.
 
 Some reference knobs select behaviour the port does not have yet (int8 KV
-cache, window-delta decode, pipelined harvest windows). They are registered
+cache, window-delta decode). They are registered
 with the one value the port implements, and asking for any other value
 raises NotImplementedError — it is never silently ignored.
 
@@ -118,10 +118,18 @@ register("engine_chunk_size", 128,
          "prompt tokens prefilled per engine step during admission")
 register("engine_min_window", 32,
          "smallest attention-window bucket the engine's decode step uses")
-register("engine_harvest_depth", 1,
-         "decode steps per harvest in Engine.run; the port runs the "
-         "depth-1 loop (the reference defaults to 8 with identical streams)",
-         only=True)
+register("engine_harvest_depth", 8,
+         "decode steps chained on the device per harvest in Engine.run; "
+         "windows are pipelined (window k is read back after window k+1 is "
+         "dispatched). Token streams are bit-identical to depth 1 — "
+         "completed slots' in-flight extra steps are discarded at harvest")
+register("engine_scan_window", True,
+         "run each harvest window as ONE replay of a CUDA graph captured "
+         "for (window bucket, depth) when no admission can occur "
+         "mid-window (the reference's lax.scan window, its own analogue of "
+         "ref src/ggml-cuda/ggml-cuda.cu:2962). Token streams stay "
+         "bit-identical. False = one replay of the one-step graph per step "
+         "within pipelined windows")
 register("kv_quant", False,
          "store serving KV caches as int8 with per-(head,pos) scales",
          only=True)

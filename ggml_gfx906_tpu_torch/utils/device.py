@@ -15,3 +15,21 @@ def resolve(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def upload(dst: torch.Tensor, src) -> torch.Tensor:
+    """Copy host data (a tensor or an array) into `dst` without waiting on
+    the card: a blocking host→device copy synchronises the stream, which
+    would drain the decode steps queued ahead of it. On the card the data
+    goes through pinned memory by a copy ordered on the current stream;
+    on the CPU it is a plain copy."""
+    src = torch.as_tensor(src)
+    if dst.is_cuda:
+        return dst.copy_(src.pin_memory(), non_blocking=True)
+    return dst.copy_(src)
+
+
+def to_device(src, device) -> torch.Tensor:
+    """`src` (host data) as a new tensor on `device`, by `upload`."""
+    src = torch.as_tensor(src)
+    return upload(torch.empty(src.shape, dtype=src.dtype, device=device), src)

@@ -2,12 +2,25 @@
 same numpy inputs go through the JAX package and its PyTorch port."""
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from ggml_gfx906_tpu.models import llama as jllama
 from ggml_gfx906_tpu.ops.quantized import QuantTensor as JQuantTensor
 from ggml_gfx906_tpu.quant import quantize
 from ggml_gfx906_tpu.quant.types import GGMLType
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Imported by a test file, runs its many small CPU ops on one torch
+    thread: the tier-1 run shares the cores among its workers, where an
+    intra-op thread pool per worker mostly waits on its own barriers.
+    Restored after the file."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def nmse(got, ref) -> float:

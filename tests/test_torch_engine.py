@@ -1,9 +1,11 @@
 """Port parity: the continuous-batching Engine.
 
-The port's Engine (per-request chunked admission, one batched decode per
-step, depth-1 harvest) must give token streams equal to the port's own
+The port's Engine (per-request chunked admission, batched decode steps in
+pipelined windows of the default harvest depth, 8, on captured graphs —
+direct calls on the CPU) must give token streams equal to the port's own
 single-sequence generate, and to the JAX Engine in its strict per-step
-formulation (engine_window_delta=False)."""
+formulation (engine_window_delta=False). Other depths and the scan-window
+switch: test_torch_graphs.py."""
 import numpy as np
 import pytest
 
@@ -16,7 +18,7 @@ from ggml_gfx906_tpu_torch.ops.cuda import dispatch
 from ggml_gfx906_tpu_torch.runtime.engine import Engine
 from ggml_gfx906_tpu_torch.utils import config as tconfig
 
-from _torch_port import tiny_models
+from _torch_port import one_torch_thread, tiny_models  # noqa: F401
 
 MAX_SEQ = 128
 CHUNK = 32
@@ -168,10 +170,10 @@ def test_engine_matches_reference_engine_int8_route(models, monkeypatch):
 
 
 def test_engine_unported_options_raise(models, monkeypatch):
-    """Unported knobs raise, set in code or through the environment."""
+    """Unported knobs raise, set in code or through the environment (the
+    harvest depth is ported: any value ≥ 1 runs)."""
     _, _, tcfg, tp = models
-    for name, value in (("kv_quant", True), ("engine_window_delta", True),
-                        ("engine_harvest_depth", 8)):
+    for name, value in (("kv_quant", True), ("engine_window_delta", True)):
         with pytest.raises(NotImplementedError):
             tconfig.set(name, value)
     monkeypatch.setenv("GGML_TORCH_KV_QUANT", "1")

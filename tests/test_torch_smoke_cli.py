@@ -95,3 +95,16 @@ def test_int8_prefills_are_traced_with_their_kernels_device_time(recipe, fmt, xm
 def test_q4_k_path_traces_the_long_window_engine_step():
     assert "long_window_step" in chip_smoke.main_path.__code__.co_names
     assert {"BatchedKVCache", "trace_device"} <= set(chip_smoke.long_window_step.__code__.co_names)
+
+
+def test_q4_k_path_runs_the_graphs_phase_and_the_depth_checks():
+    """The 32-layer Q4_K path holds replayed decode against eager decode
+    (graphs_phase), its engine at depth 1 against depth 8 (depth_checks),
+    and every path traces a depth-8 scan window (scan_window)."""
+    names = set(chip_smoke.main_path.__code__.co_names)
+    assert {"graphs_phase", "depth_checks", "scan_window", "HAS_GRAPHS"} <= names
+    g = _names(chip_smoke.graphs_phase.__code__)
+    assert {"decode_chunk", "decode_scan", "decode_step", "step_graph", "equal",
+            "expected_launches", "trace_device"} <= g
+    assert {"engine_harvest_depth", "SAMPLED"} <= _names(chip_smoke.depth_checks.__code__) \
+        | set(chip_smoke.depth_checks.__code__.co_consts)
