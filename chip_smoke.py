@@ -51,14 +51,29 @@ Phases (each failure raises, so the script exits non-zero):
      the layout given explicitly, and one decode step under attn_impl="xla"
      with no K2 launch, its logits at f32 compute on the f32 kernels within
      K2's card-vs-plain distance of the step on K2). Each loads its file to the card, runs
-     `generate`, serves 8+1 requests through `Engine`, asserts engine streams ==
-     single-sequence `generate` streams, that its kernels launched as many
+     `generate`, serves 8+1 requests through `Engine`, holds its streams
+     against single-sequence `generate` (below), asserts that its kernels launched as many
      times per decode step and per 128-token prefill chunk as its tensor
      types predict, and traces one decode step and one 8-slot engine decode
      step with torch.profiler for the device-busy share (and, on the
      paths of TRACE_PREFILL, one more 100-token prefill, with the device
      time of the file's int8 kernels), and records a
-     sha256 of its greedy streams. The 32-layer Q4_K file also traces one
+     sha256 of its greedy streams. The engine floods the 8 short prompts
+     (one forward_batch at M = 8·128), so engine == generate is asserted
+     for the requests both prefill on one matmul route (every request on
+     the files without an int8 route and in the int8 layout; prompts of at
+     least int8_min_m tokens elsewhere) and recorded (first divergence) for
+     the others; the 8-layer Q4_0 file serves the 8+1 requests again at
+     int8_min_m = 0 (all f32, flooded), equal to generate there for every
+     request. The 32-layer Q4_K file adds two phases: `admission`, one
+     whole traced engine run split by record_function labels (flood,
+     chunked admission, windows, harvests) and one flood alone traced;
+     `kv_variants`, the engine on the int8 cache (== generate(kv_quant=
+     True) where one route, K2 on int8 K/V), on a paged pool of half the
+     dense pages (== the dense engine, with and without kv_quant) and with
+     window delta (one window's logits against the strict window's within
+     a bound from bf16 rounding, the streams' agreement, the two windows
+     timed). The 32-layer Q4_K file also traces one
      8-slot decode step at window 1024 (long_window_step). The Q4_K file
      then decodes again with qmm_pipeline="on" (K10 in place of K1),
      traced, with one step's logits held against the flag off within the
@@ -115,9 +130,12 @@ CFG_7B = dict(n_vocab=32000, n_ctx=2048, n_embd=4096, n_head=32, n_kv_head=32,
 QMM_SHAPES = ((4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096))
 PARITY_LENS = (16, 24, 32, 64, 80, 96, 112, 128)
 N_NEW = 32
-# whether this tree decodes on CUDA graphs (a parent tree's comparison run
-# with this smoke, cut by --paths, skips the graph checks)
+# whether this tree decodes on CUDA graphs, floods admission and has the
+# int8 / paged / window-delta caches (a parent tree's comparison run with
+# this smoke, cut by --paths, skips the checks it lacks)
 HAS_GRAPHS = hasattr(llama, "decode_chunk")
+HAS_FLOOD = hasattr(Engine, "_admit_batch")
+HAS_KV_VARIANTS = "quant" in inspect.signature(BatchedKVCache.create).parameters
 
 
 def nmse(got, ref) -> float:
@@ -1071,6 +1089,7 @@ def main_path(device, n_layer: int, recipe: str, layout: str = "kernel",
     out["gguf_gb"] = path.stat().st_size / 1e9
 
     torch.cuda.reset_peak_memory_stats()
+    PEAKS_GB.clear()
     t0 = time.perf_counter()
     if layout == "auto":
         config.set("weights_layout", "auto")
@@ -1172,14 +1191,9 @@ def main_path(device, n_layer: int, recipe: str, layout: str = "kernel",
         done = serve(eng, prompts + [long_prompt], N_NEW)
         torch.cuda.synchronize()
         out["engine_first_run_s"] = time.perf_counter() - t0     # the captures included
-        mismatches = []
-        for p, got in zip(prompts, done):
-            ref = llama.generate(cfg, params, p, N_NEW, max_seq=1024, device=device)
-            if p + got != ref:
-                mismatches.append(len(p))
-        if mismatches:
-            raise AssertionError(f"{recipe}: engine streams differ from generate for "
-                                 f"prompt lengths {mismatches}")
+        out["engine_vs_generate"] = engine_vs_generate(
+            recipe, cfg, params, device, prompts, done,
+            int8_route=bool(I8_KERNELS & set(want_chunk)))
         # the same requests again on the same engine (its graphs captured)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1199,6 +1213,15 @@ def main_path(device, n_layer: int, recipe: str, layout: str = "kernel",
             del eng
             gc.collect()
             out["engine_depths"] = depth_checks(device, cfg, params, prompts, long_prompt, done)
+            eng = None
+            out["admission"] = admission_phase(device, cfg, params, prompts, long_prompt, done)
+            if HAS_KV_VARIANTS:
+                out["kv_variants"] = kv_variants_phase(device, cfg, params, prompts,
+                                                       long_prompt, done)
+        if recipe == "q4_0" and HAS_FLOOD:
+            del eng
+            gc.collect()
+            out["engine_f32_route"] = f32_route_check(device, cfg, params, prompts, long_prompt)
             eng = None
 
         # engine decode steps at steady state: 8 active slots, no admission
@@ -1233,7 +1256,7 @@ def main_path(device, n_layer: int, recipe: str, layout: str = "kernel",
     missing = [k for k in {**want_step, **want_chunk} if out["launches"][k] == 0]
     if missing:
         raise AssertionError(f"{recipe}: kernels never launched on its path: {missing}")
-    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["peak_mem_gb"] = max([torch.cuda.max_memory_allocated() / 1e9] + PEAKS_GB)
     out["prefill_tok_s"] = 100 / out["prefill_100_s"]
     out["prefill_100_ms"] = out["prefill_100_s"] * 1e3
     out["decode_tok_s"] = (N_NEW - 1) / out["decode_s"]
@@ -1261,6 +1284,370 @@ def serve(eng, prompts, n_new, **kw) -> list:
     rids = [eng.submit(p, n_new, seed=j, **kw) for j, p in enumerate(prompts)]
     done = {r.rid: r.out for r in eng.run()}
     return [done[r] for r in rids]
+
+
+I8_KERNELS = {kernels.K3.name, kernels.K5_I8.name, kernels.K6_I8.name}
+
+
+def first_divergence(a: list, b: list) -> int | None:
+    """The first index where two streams differ (None when equal)."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def engine_vs_generate(recipe, cfg, params, device, prompts, done, int8_route: bool) -> dict:
+    """Each engine stream against `generate`'s for its prompt: asserted equal
+    where both prefill the prompt on one matmul route, recorded (the first
+    divergence) elsewhere. A flood prefills at M = B·s_pad, so on a file
+    with an int8 route (Q4_K, Q8_0, Q4_0 tensors in the kernel layout) a
+    flooded prompt shorter than int8_min_m takes K3 / K5-i8 / K6-i8 where
+    `generate` takes the f32 kernel; a tree without the flood admits
+    request by request, on generate's route."""
+    min_m = int(config.get("int8_min_m"))
+    out = {"asserted": [], "recorded": {}}
+    mismatches = []
+    for p, got in zip(prompts, done):
+        ref = llama.generate(cfg, params, p, N_NEW, max_seq=1024, device=device)[len(p):]
+        if not (HAS_FLOOD and int8_route) or len(p) >= min_m:
+            out["asserted"].append(len(p))
+            if got != ref:
+                mismatches.append(len(p))
+        else:
+            out["recorded"][len(p)] = first_divergence(got, ref)
+    if mismatches:
+        raise AssertionError(f"{recipe}: engine streams differ from generate for "
+                             f"prompt lengths {mismatches}")
+    return out
+
+
+def spy_floods(eng) -> list:
+    """The number of slots each flood of `eng` fills, appended as it runs."""
+    floods, orig = [], eng._admit_batch
+
+    def spy():
+        before = sum(s is not None for s in eng.slots)
+        ok = orig()
+        if ok:
+            floods.append(sum(s is not None for s in eng.slots) - before)
+        return ok
+
+    eng._admit_batch = spy
+    return floods
+
+
+@torch.inference_mode()
+def f32_route_check(device, cfg, params, prompts, long_prompt) -> dict:
+    """On a file with an int8 route, the 8+1 requests served with
+    int8_min_m = 0 (every product on the f32 kernels, the prompts flooded)
+    equal `generate` at int8_min_m = 0 bit for bit, every request."""
+    config.set("int8_min_m", 0)
+    try:
+        eng = Engine(llama, cfg, params, max_batch=8, max_seq=1024, device=device)
+        floods = spy_floods(eng)
+        done = serve(eng, prompts + [long_prompt], N_NEW)
+        bad = [len(p) for p, got in zip(prompts, done)
+               if p + got != llama.generate(cfg, params, p, N_NEW, max_seq=1024, device=device)]
+    finally:
+        config.unset("int8_min_m")
+    if not floods or bad:
+        raise AssertionError(f"int8_min_m=0: floods {floods}, engine streams differ from "
+                             f"generate for prompt lengths {bad}")
+    del eng
+    gc.collect()
+    return {"floods": floods, "asserted": [len(p) for p in prompts]}
+
+
+def _merged(spans) -> list:
+    """The union of (start, end) intervals as sorted disjoint intervals."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _overlap(xs, ys) -> float:
+    """The total length of the intersection of two disjoint sorted lists."""
+    total, i, j = 0.0, 0, 0
+    while i < len(xs) and j < len(ys):
+        total += max(0.0, min(xs[i][1], ys[j][1]) - max(xs[i][0], ys[j][0]))
+        if xs[i][1] < ys[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+ADMISSION_LABELS = {"_admit_batch": "engine.flood", "_advance_admission_once": "engine.chunk",
+                    "_dispatch_scan": "engine.window", "_dispatch": "engine.window",
+                    "_harvest": "engine.harvest"}
+
+
+@torch.inference_mode()
+def admission_phase(device, cfg, params, prompts, long_prompt, streams) -> dict:
+    """Where a whole engine run of the 8+1 requests spends its time (the
+    32-layer Q4_K file): one `Engine.run` (its graphs captured by a first
+    run) traced with a `torch.profiler.record_function` label around each
+    flood, chunked admission, window dispatch and harvest. Host seconds per
+    label; device busy ms per label: the union of the run's device
+    activities inside the device-side ranges the profiler draws for the
+    label (from its first to its last correlated activity), the rest
+    ("unlabelled") being the graph replays, whose kernels the profiler does
+    not tie to the label that launched them; the run's device busy ms
+    (union of its activities) and wall. Then, on a tree with the flood, one
+    flood of the 8 short prompts alone, synchronised: host ms unprofiled,
+    and traced: busy ms, its share, the device ms of K3 and its x
+    quantization. (A tree without the flood has no flood label.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = Engine(llama, cfg, params, max_batch=8, max_seq=1024, device=device)
+    floods = spy_floods(eng) if HAS_FLOOD else None
+    flood = getattr(eng, "_admit_batch", None)
+    if serve(eng, prompts + [long_prompt], N_NEW) != streams:
+        raise AssertionError("admission phase: streams differ from the main path's engine")
+    labels = {name: label for name, label in ADMISSION_LABELS.items() if hasattr(eng, name)}
+    host = {label: 0.0 for label in labels.values()}
+    calls = dict.fromkeys(host, 0)
+
+    def wrap(name, label):
+        fn = getattr(eng, name)
+
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            with torch.profiler.record_function(label):
+                r = fn(*a, **k)
+            host[label] += time.perf_counter() - t0
+            calls[label] += 1
+            return r
+        setattr(eng, name, run)
+
+    for name, label in labels.items():
+        wrap(name, label)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        again = serve(eng, prompts + [long_prompt], N_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if again != streams:
+        raise AssertionError("admission phase: the traced run's streams differ")
+    ranges = {label: [] for label in host}
+    spans = []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            (ranges[e.name] if e.name in ranges else spans).append(
+                (e.time_range.start, e.time_range.end))
+    spans = _merged(spans)
+    busy = sum(b - a for a, b in spans)
+    dev = {label: _overlap(spans, _merged(r)) / 1e3 for label, r in ranges.items()}
+    dev["unlabelled"] = busy / 1e3 - sum(dev.values())
+    out = {"floods": floods, "run_wall_s": wall, "run_busy_ms": busy / 1e3,
+           "run_busy_share": busy / 1e3 / (wall * 1e3), "tokens": sum(map(len, again)),
+           "host_s": dict(host), "calls": dict(calls), "device_busy_ms": dev,
+           "tok_s_traced": sum(map(len, again)) / wall}
+    if flood is None:
+        del eng
+        gc.collect()
+        return out
+    # one flood alone: the 8 short prompts into the idle engine
+    for j, p in enumerate(prompts):
+        eng.submit(p, N_NEW, seed=j)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flood()
+    torch.cuda.synchronize()
+    out["flood_ms"] = (time.perf_counter() - t0) * 1e3
+    eng.run()
+    for j, p in enumerate(prompts):
+        eng.submit(p, N_NEW, seed=j)
+    out["flood_trace"] = trace_device(flood, K3_TRACE_NAMES)
+    busy = out["flood_trace"]["busy_ms"]
+    out["flood_trace"]["busy_share"] = None if busy is None else busy / out["flood_ms"]
+    eng.run()
+    del eng, flood
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _kv_bytes(kv) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in kv.k + kv.v + list(getattr(kv, "k_d", [])) + list(getattr(kv, "v_d", [])))
+
+
+# device-memory peaks taken before a phase resets the peak statistics, so
+# that a main path's peak_mem_gb still covers the whole path
+PEAKS_GB: list = []
+
+
+def _timed_serve(eng, reqs) -> tuple[list, float, float]:
+    """(streams, seconds, peak device GB) of a second run of `reqs` on `eng`
+    (its graphs captured by a first run, whose streams must be the same)."""
+    first = serve(eng, reqs, N_NEW)
+    torch.cuda.synchronize()
+    PEAKS_GB.append(torch.cuda.max_memory_allocated() / 1e9)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    again = serve(eng, reqs, N_NEW)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    if again != first:
+        raise AssertionError("an engine's second run differs from its first")
+    return again, sec, torch.cuda.max_memory_allocated() / 1e9
+
+
+@torch.inference_mode()
+def kv_variants_phase(device, cfg, params, prompts, long_prompt, streams) -> dict:
+    """The 32-layer Q4_K file (kernel layout, bf16 compute) served on the
+    other KV caches, each engine timed on its second run of the 8+1
+    requests beside the dense engine's in this phase:
+    - kv_quant: the streams equal generate(kv_quant=True) for the prompts
+      prefilled on one route (as in `engine_vs_generate`); one replayed
+      8-slot step launches K2 once per layer, on int8 K/V (the dtypes K2's
+      wrapper saw while the graphs were captured); KV bytes against the
+      dense cache's;
+    - paged, paged_pages = half the dense pool: the streams equal the dense
+      engine's (with kv_quant: the kv_quant engine's); tok/s, peak device
+      memory and pool bytes;
+    - window delta: one depth-8 window from the same 8-slot state run
+      strictly and on the delta (teacher-forced with the strict tokens):
+      each step's logits nmse, held to (n_layer · 2^-7)² — per layer the
+      delta rounds P to bf16 (2^-9) and its output may round to the other
+      bf16 neighbour (2^-8), added over the layers — and the greedy 8+1
+      streams' agreement; scan windows timed strict and delta in turns."""
+    out = {}
+    reqs = prompts + [long_prompt]
+    min_m = int(config.get("int8_min_m"))
+    eng = Engine(llama, cfg, params, max_batch=8, max_seq=1024, device=device)
+    got, sec, peak = _timed_serve(eng, reqs)
+    if got != streams:
+        raise AssertionError("kv_variants: the dense engine's streams differ")
+    n_tok = sum(map(len, got))
+    out["dense"] = {"tok_s": n_tok / sec, "peak_gb": peak, "kv_bytes": _kv_bytes(eng.kv)}
+    del eng
+    gc.collect()
+
+    seen = set()
+    k2 = flash_attn.causal_flash_attention
+
+    def k2_spy(q, k, v, *a, **kw):
+        seen.add(str(k.dtype))
+        return k2(q, k, v, *a, **kw)
+
+    flash_attn.causal_flash_attention = k2_spy
+    config.set("kv_quant", True)
+    try:
+        eng = Engine(llama, cfg, params, max_batch=8, max_seq=1024, device=device)
+        q_streams, sec, peak = _timed_serve(eng, reqs)
+        assert eng.kv.k[0].dtype == torch.int8
+        rec = {"tok_s": n_tok / sec, "peak_gb": peak, "kv_bytes": _kv_bytes(eng.kv),
+               "k2_kv_dtypes": sorted(seen), "asserted": [], "recorded": {}}
+        for p, g in zip(prompts, q_streams):
+            ref = llama.generate(cfg, params, p, N_NEW, max_seq=1024, device=device,
+                                 kv_quant=True)[len(p):]
+            if len(p) >= min_m:
+                rec["asserted"].append(len(p))
+                if g != ref:
+                    raise AssertionError(f"kv_quant engine differs from generate(kv_quant="
+                                         f"True) for prompt length {len(p)}")
+            else:
+                rec["recorded"][len(p)] = first_divergence(g, ref)
+        for p in prompts:                            # 8 active slots, then steady steps
+            eng.submit(p, 64)
+        while eng.queue or eng.pending is not None:
+            eng.step()
+        eng.step()
+        before = launches()
+        eng.step()
+        rec["launches_per_replayed_step"] = _delta(before)
+        if rec["launches_per_replayed_step"].get(kernels.K2.name) != cfg.n_layer \
+                or "torch.int8" not in seen:
+            raise AssertionError(f"kv_quant step: launches {rec['launches_per_replayed_step']},"
+                                 f" K2 saw K/V {seen}")
+        out["kv_quant"] = rec
+    finally:
+        flash_attn.causal_flash_attention = k2
+        config.unset("kv_quant")
+    del eng
+    gc.collect()
+
+    pages = 8 * 1024 // int(config.get("kv_page_size")) // 2
+    for kvq, want in ((False, streams), (True, q_streams)):
+        config.set("kv_quant", kvq)
+        try:
+            eng = Engine(llama, cfg, params, max_batch=8, max_seq=1024, device=device,
+                         paged_pages=pages)
+            got, sec, peak = _timed_serve(eng, reqs)
+        finally:
+            config.unset("kv_quant")
+        if got != want:
+            raise AssertionError(f"paged engine (kv_quant={kvq}) differs from the dense one")
+        out["paged_int8" if kvq else "paged"] = {
+            "pages": pages, "tok_s": n_tok / sec, "peak_gb": peak, "kv_bytes": _kv_bytes(eng.kv)}
+        del eng
+        gc.collect()
+    out["delta"] = delta_window_check(device, cfg, params, prompts, reqs, streams)
+    torch.cuda.empty_cache()
+    return out
+
+
+def delta_window_check(device, cfg, params, prompts, reqs, streams) -> dict:
+    """See kv_variants_phase: the delta window against the strict one."""
+    from ggml_gfx906_tpu_torch.runtime.batched_kv import WindowDelta
+
+    out = {}
+    config.set("engine_window_delta", True)
+    try:
+        eng = Engine(llama, cfg, params, max_batch=8, max_seq=1024, device=device)
+        got = serve(eng, reqs, N_NEW)
+    finally:
+        config.unset("engine_window_delta")
+    out["streams_equal"] = sum(g == s for g, s in zip(got, streams))
+    out["first_divergence"] = {len(p): first_divergence(g, s)
+                               for p, g, s in zip(reqs, got, streams) if g != s}
+    for j, p in enumerate(prompts):
+        eng.submit(p, 128, seed=j)
+    while eng.queue or eng.pending is not None:
+        eng.step()
+    W = eng._window(int(eng.host_len.max()) + 8)
+    with torch.inference_mode():
+        base = eng.kv
+        kv_s, kv_d = (BatchedKVCache([t[:, :, :W].clone() for t in base.k],
+                                     [t[:, :, :W].clone() for t in base.v], [], [],
+                                     base.lengths.clone()) for _ in range(2))
+        tok = eng._tok.clone()
+        strict, inputs = [], []
+        for i in range(8):
+            inputs.append(tok)
+            lg, _ = llama.forward_batch(cfg, params, tok[:, None], kv_s, kv_s.lengths,
+                                        attn_window=W)
+            strict.append(lg[:, 0])
+            tok = lg[:, 0].argmax(-1)
+            kv_s.lengths.add_(1)
+        len0 = kv_d.lengths.clone()
+        d = WindowDelta.create(cfg.n_layer, 8, cfg.n_kv_head, 8, cfg.head_dim, device=device)
+        nm = []
+        for i in range(8):
+            lg, d = llama.forward_batch(cfg, params, inputs[i][:, None], kv_d, len0 + i,
+                                        attn_window=W, window_delta=(d, i, len0))
+            nm.append(nmse(lg[:, 0], strict[i]))
+    del kv_s, kv_d
+    out["window"] = W
+    out["logits_nmse_per_step"] = nm
+    out["bound"] = (cfg.n_layer * 2.0 ** -7) ** 2
+    if not max(nm) <= out["bound"]:
+        raise AssertionError(f"delta window logits nmse {nm} above {out['bound']}")
+    for key, delta in (("strict_window", False), ("delta_window", True)):
+        config.set("engine_window_delta", delta)
+        try:
+            out[key] = scan_window(eng)
+        finally:
+            config.unset("engine_window_delta")
+    del eng
+    gc.collect()
+    return out
 
 
 def graph_stats(cache) -> dict | None:
@@ -1836,6 +2223,43 @@ def main(argv=None) -> int:
             log(f"  engine depth 1 [{label}]: the same streams as depth 8 (greedy 8+1 and "
                 f"seeded sampled 8 requests), {ed['depth1_engine_tok_s']:.1f} tok/s "
                 f"against {mp['engine_tok_s']:.1f} at depth {mp['engine_depth']}")
+        ev = mp["engine_vs_generate"]
+        log(f"  engine == generate asserted for prompt lengths {ev['asserted']}; recorded "
+            f"(first divergence, None = equal) {ev['recorded']}")
+        if "engine_f32_route" in mp:
+            log(f"  int8_min_m=0 [{label}]: floods {mp['engine_f32_route']['floods']}, engine "
+                f"== generate for every prompt length {mp['engine_f32_route']['asserted']}")
+        if "admission" in mp:
+            ad = mp["admission"]
+            log(f"  admission [{label}]: traced run {ad['tok_s_traced']:.1f} tok/s, wall "
+                f"{ad['run_wall_s']:.3f} s, device busy {ad['run_busy_ms']:.1f} ms (share "
+                f"{ad['run_busy_share']:.3f}); host s {ad['host_s']}; device busy ms "
+                f"{ad['device_busy_ms']}; calls {ad['calls']}; floods {ad['floods']}")
+            if "flood_trace" in ad:
+                t = ad["flood_trace"]
+                log(f"  one flood of 8 prompts [{label}]: {ad['flood_ms']:.3f} ms unprofiled, "
+                    f"device busy {t['busy_ms']} ms (share {t['busy_share']}), K3 with its x "
+                    f"quantization {t['matched_ms']:.3f} ms; busiest {t['top_ms'][:5]}")
+        if "kv_variants" in mp:
+            kv = mp["kv_variants"]
+            kq, dl = kv["kv_quant"], kv["delta"]
+            log(f"  kv_variants [{label}]: dense {kv['dense']['tok_s']:.1f} tok/s, peak "
+                f"{kv['dense']['peak_gb']:.2f} GB, KV {kv['dense']['kv_bytes']} B; kv_quant "
+                f"{kq['tok_s']:.1f} tok/s, KV {kq['kv_bytes']} B, == generate(kv_quant) for "
+                f"{kq['asserted']} (recorded {kq['recorded']}), K2 saw {kq['k2_kv_dtypes']}, "
+                f"launches per replayed step {kq['launches_per_replayed_step']}; paged "
+                f"({kv['paged']['pages']} pages) {kv['paged']['tok_s']:.1f} tok/s, peak "
+                f"{kv['paged']['peak_gb']:.2f} GB, pool {kv['paged']['kv_bytes']} B; paged "
+                f"int8 {kv['paged_int8']['tok_s']:.1f} tok/s, pool "
+                f"{kv['paged_int8']['kv_bytes']} B")
+            log(f"  window delta [{label}]: logits nmse per step {dl['logits_nmse_per_step']} "
+                f"(bound {dl['bound']:.3e}, window {dl['window']}); greedy streams equal to "
+                f"the strict engine's {dl['streams_equal']} of 9 (first divergences "
+                f"{dl['first_divergence']}); depth-8 window strict "
+                f"{dl['strict_window']['window_ms']:.3f} ms (busy "
+                f"{dl['strict_window']['trace']['busy_ms']} ms), delta "
+                f"{dl['delta_window']['window_ms']:.3f} ms (busy "
+                f"{dl['delta_window']['trace']['busy_ms']} ms)")
 
     rep = {"qmm_q4_K": "M=8 N=11008 K=4096",
            "qmm_q4_K_i8": "M=128 N=11008 K=4096",

@@ -19,10 +19,11 @@ attn_k|attn_v|attn_output|ffn_gate|ffn_up|ffn_down|attn_norm|ffn_norm).
 Entry points (`load`, `params_from_numpy`, `generate`) run on the card
 unless device="cpu" is passed, and raise when no CUDA device exists.
 `decode_step`, `decode_chunk` and `decode_scan` decode greedily on the
-device of the cache they are given: each is a replay of a static-shape
-step captured once as a CUDA graph on the card (runtime/graphs.py; a
-direct call on the CPU), the reference's jitted programs with their
-donated caches as in-place writes.
+device of the cache they are given, dense or int8 (`make_cache(quant=
+True)`; the quantizing write is captured with the step): each is a
+replay of a static-shape step captured once as a CUDA graph on the card
+(runtime/graphs.py; a direct call on the CPU), the reference's jitted
+programs with their donated caches as in-place writes.
 """
 from __future__ import annotations
 
@@ -228,9 +229,11 @@ def _forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor, kv: KVCache,
         q = _rope(cfg, q, pos)
         k = _rope(cfg, k, pos)
         kv = kv.update_layer(li, k, v, start)
-        kc, vc, _, _ = kv.layer_kv(li)
+        kc, vc, kd, vd = kv.layer_kv(li)
         att = ops.causal_flash_attn(q.transpose(0, 1)[None], kc[None], vc[None],
-                                    pos_b, scale=1.0 / (HD ** 0.5))
+                                    pos_b, scale=1.0 / (HD ** 0.5),
+                                    k_scale=None if kd is None else kd[None],
+                                    v_scale=None if vd is None else vd[None])
         att = att[0].transpose(0, 1).reshape(S, H * HD)
         x = x + qmatmul(att, blk["wo"])
         x = _block_ffn(blk, x, cfg.rms_eps)
@@ -248,19 +251,30 @@ def forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
 
 
 def forward_batch(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
-                  kv, start: torch.Tensor, attn_window: int | None = None):
+                  kv, start: torch.Tensor, attn_window: int | None = None,
+                  window_delta=None):
     """Batched serving forward: tokens (B, S) at per-slot positions
-    start (B,) against a BatchedKVCache → (logits (B, S, V) f32, kv).
+    start (B,) against a BatchedKVCache or PagedKVCache → (logits (B, S,
+    V) f32, kv).
 
     attn_window: attend only over cache positions [0, window) — the engine
     passes the smallest bucket covering the longest active slot; callers
     guarantee every valid position is < attn_window. K/V writes still go to
-    the full cache."""
+    the full cache.
+
+    window_delta (decode only, S == 1): a (delta: WindowDelta, step: int,
+    len0 (B,)) triple — the fresh K/V rows go into the delta at column
+    `step` (no write into the cache; the engine absorbs the window once,
+    BatchedKVCache.absorb_delta) and attention merges the cache rows
+    [0, len0) with the delta rows [0, step] (ops.causal_attn_delta).
+    Returns (logits, delta) instead of (logits, kv) (reference :329-400)."""
     B, S = tokens.shape
     HD = cfg.head_dim
     dev = tokens.device
     pos = start[:, None] + torch.arange(S, dtype=torch.int32, device=dev)[None, :]
     x = embed_rows(params["wte"], tokens).to(cfg.compute_dtype)
+    if window_delta is not None:
+        delta, step, len0 = window_delta
     for li, blk in enumerate(params["blocks"]):
         H = blk["wq"].shape[0] // HD
         KVH = blk["wk"].shape[0] // HD
@@ -270,23 +284,32 @@ def forward_batch(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
         v = qmatmul(h, blk["wv"]).reshape(B, S, KVH, HD)
         q = _rope(cfg, q, pos)
         k = _rope(cfg, k, pos)
-        kv = kv.update_layer(li, k, v, start)
-        kc, vc, _, _ = kv.layer_kv(li, attn_window)
-        att = ops.causal_flash_attn(q.transpose(1, 2), kc, vc, start,
-                                    scale=1.0 / (HD ** 0.5))
+        if window_delta is not None:
+            delta = delta.write(li, k, v, step)
+            kc, vc, kd, vd = kv.layer_kv(li, attn_window)
+            att = ops.causal_attn_delta(q.transpose(1, 2), kc, vc, kd, vd, len0,
+                                        delta.k[li], delta.v[li], step,
+                                        scale=1.0 / (HD ** 0.5))
+        else:
+            kv = kv.update_layer(li, k, v, start)
+            kc, vc, kd, vd = kv.layer_kv(li, attn_window)
+            att = ops.causal_flash_attn(q.transpose(1, 2), kc, vc, start,
+                                        scale=1.0 / (HD ** 0.5), k_scale=kd, v_scale=vd)
         att = att.transpose(1, 2).reshape(B, S, H * HD)
         x = x + qmatmul(att, blk["wo"])
         x = _block_ffn(blk, x, cfg.rms_eps)
     x = _rms(x, params["out_norm"], cfg.rms_eps)
     head = params.get("lm_head", params["wte"])
-    return qmatmul(x, head).float(), kv
+    return qmatmul(x, head).float(), (delta if window_delta is not None else kv)
 
 
 def make_cache(cfg: LlamaConfig, max_seq: int | None = None, dtype=None,
-               device=None) -> KVCache:
+               device=None, quant: bool = False) -> KVCache:
+    """quant=True stores K/V int8 with per-(head, position) scales (the
+    reference's :296-302)."""
     return KVCache.create(cfg.n_layer, max_seq or cfg.n_ctx, cfg.n_kv_head,
                           cfg.head_dim, dtype or cfg.compute_dtype,
-                          device=resolve(device))
+                          device=resolve(device), quant=quant)
 
 
 def _check_device(params, device) -> torch.device:
@@ -298,15 +321,17 @@ def _check_device(params, device) -> torch.device:
 
 @torch.inference_mode()
 def generate(cfg: LlamaConfig, params: dict, prompt_tokens, n_predict: int,
-             sampler=None, max_seq: int | None = None, device=None) -> list[int]:
-    """Prompt + n_predict greedy (or `sampler`) tokens, single sequence.
+             sampler=None, max_seq: int | None = None, device=None,
+             kv_quant: bool = False) -> list[int]:
+    """Prompt + n_predict greedy (or `sampler`) tokens, single sequence,
+    on an int8 KV cache under kv_quant.
     Eager, one forward per token, as the reference's re-dispatches its
     jitted forward (:305-326): `sampler` is any Python callable. The
     captured greedy loop is `decode_chunk` / `decode_scan`."""
     from ..runtime.sampling import greedy
 
     device = _check_device(params, device)
-    kv = make_cache(cfg, max_seq, device=device)
+    kv = make_cache(cfg, max_seq, device=device, quant=kv_quant)
     toks = torch.as_tensor(np.asarray(prompt_tokens, np.int64), device=device)
     logits, kv = forward(cfg, params, toks, kv, 0)
     out = list(map(int, prompt_tokens))

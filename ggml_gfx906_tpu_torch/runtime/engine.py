@@ -4,48 +4,79 @@ runtime/engine.py::Engine.
 ref: examples/gpt-2/main-batched.cpp — request batching with interleaved
 admission (:407-430).
 
-A fixed pool of B slots over a preallocated batched KV cache. Admission
-prefills one request at a time in fixed-size chunks (each padded to a
-bucket), interleaved with decode steps, so a long prompt never stalls the
-active slots for more than one chunk; below half occupancy several chunks
-run per step (ramp mode). Every decode step runs ONE batched decode for all
-slots (inactive slots compute masked garbage) over the smallest
-attention-window bucket that covers the longest active slot, with the
-per-request seeded top-k/top-p sampling inside the step.
+A fixed pool of B slots over a preallocated batched KV cache: dense, int8
+(config kv_quant) or a paged pool (`paged_pages`, runtime/paged_kv.py).
+Admission first tries a FLOOD (`_admit_batch`, reference :586-711): when no
+chunked request is pending, at least 2 slots are free and at least 2
+single-chunk prompts head the queue, up to one per free slot are prefilled
+in ONE eager `forward_batch` at M = B·s_pad into a temp cache, their first
+tokens sampled on the device, and the admitted rows installed into the
+live cache in place (`batched_kv.absorb_temp`, or through the page table).
+Otherwise it prefills one request at a time in fixed-size chunks (each
+padded to a bucket), interleaved with decode steps, so a long prompt never
+stalls the active slots for more than one chunk; below half occupancy
+several chunks run per step (ramp mode). Every decode step runs ONE batched
+decode for all slots (inactive slots compute masked garbage) over the
+smallest attention-window bucket that covers the longest active slot, with
+the per-request seeded top-k/top-p sampling inside the step.
 
 The decode loop is device-resident (reference :493-561, :843-1059). Decode
 steps are CUDA graphs (runtime/graphs.py), captured once per (window
-bucket, depth) and replayed after that:
+bucket, depth, flow) and replayed after that:
 - `run` dispatches windows of `engine_harvest_depth` steps that chain on
   the device through the token vector and the cache lengths, and reads
   window k back only after window k+1 is dispatched (a copy into pinned
   memory behind an event, `graphs.HostCopy`); depth 1 is the per-step
   loop of `step`;
 - when no admission can happen mid-window, a window is ONE replay of the
-  graph of `depth` chained steps (`engine_scan_window`); otherwise each
-  step is one replay of the one-step graph, after one admission chunk;
-  steps dispatched past a request's end are discarded at harvest by the
-  slot→rid snapshots;
-- admission samples a request's first token on the device (counter 0) and
-  it is read back with the next harvest: no host read at admission;
+  graph of `depth` chained steps (`engine_scan_window`); on the paged pool
+  that graph gathers the window into a dense view, runs the steps on it
+  and scatters the window's rows back; under `engine_window_delta` its
+  steps write their K/V rows into a per-window delta and attend the cache
+  and the delta in plain torch (ops/attention.py::causal_attn_delta), and
+  the window is absorbed once at its end, inside the same graph;
+  otherwise each step is one replay of the one-step graph, after one
+  admission chunk; steps dispatched past a request's end are discarded at
+  harvest by the slot→rid snapshots;
+- admission samples first tokens on the device (counter 0) and they are
+  read back with the next harvest, a flood's as one vector: no host read
+  at admission; a flood's per-slot vectors are built on the host and
+  uploaded through pinned memory (utils/device.py);
 - the per-slot state the graphs read (token vector, active mask, lengths,
-  temperatures, top-k, top-p, Gumbel noise) lives in static device buffers
-  written in place (`copy_`, `fill_`, pinned uploads) and never rebound;
+  temperatures, top-k, top-p, Gumbel noise, the page table) lives in
+  static device buffers written in place (`copy_`, `fill_`, pinned
+  uploads) and never rebound;
 - `abort.check()` is polled once per window (once per step in the
   per-step path); an abort mid-window harvests the dispatched steps, then
   raises.
 
-Ported: per-request chunked admission (reference :569-585, :712-788
-without the batched flood and paged branches), the per-step and windowed
-pipelined `run` (:493-561), scan windows (:938-1059) and first tokens on
-the device (:32-41, :887-918). Streams therefore equal the reference
-engine's with engine_window_delta=False, at any depth. Later slices:
-batched flood admission, window delta, the paged pool, int8 KV, meshes.
+Ported: flood and chunked admission (reference :569-788, the dense, paged
+and quantized branches), the per-step and windowed pipelined `run`
+(:493-561), scan windows with the paged gather (:938-1059), the
+window-delta body (:242-267), the paged pool's page bookkeeping (:404-424,
+:790-841), first tokens on the device (:32-41, :887-918). Not ported: the
+mesh branches (`tp_prefill_batch`, `tp_absorb_temp_paged`, dp pool groups
+> 1). There is no fallback: on the card a failed flood, absorb, capture or
+replay raises, and an exhausted pool raises the reference's RuntimeError.
 
-Deliberate difference: the graphs belong to an Engine instance, because
+Streams: with engine_window_delta False they equal the reference engine's
+at the same setting, at any depth, on every cache flavour (the delta
+formulation changes bits: attention's reduction order and the bf16 delta).
+A request's stream equals `generate`'s when both prefill it on one matmul
+route: a flood prefills at M = B·s_pad, so on files with an int8 route
+(Q4_K, Q8_0, Q4_0 tensors) a flooded prompt shorter than int8_min_m
+prefills on K3 / K5-i8 / K6-i8 where `generate` takes the f32 kernel, as
+in the reference; the rows of both bodies are bit-equal across M, so on
+one route the streams are equal.
+
+Deliberate differences: the graphs belong to an Engine instance, because
 they hold its KV buffers' addresses; the reference shares its jitted
-programs across instances (its tests/test_engine.py:264-285). A second
-Engine captures its own.
+programs across instances (its tests/test_engine.py:264-285). The port's
+engine_window_delta defaults to False, the reference's to True: on the
+H100 the delta window is slower than the strict one (168 against 141 ms a
+depth-8 window of a 32-layer 7B-width model at attention window 256) and
+changes every stream's bits. A flood runs eagerly, not as a captured
+program.
 
 Sampling: token j of a request draws its Gumbel noise under the key
 fold_in(PRNGKey(seed), j), bit for bit the reference's (runtime/sampling.py):
@@ -68,8 +99,9 @@ import torch
 
 from ..utils import abort, config
 from ..utils.device import resolve, to_device, upload
-from .batched_kv import BatchedKVCache
+from .batched_kv import BatchedKVCache, WindowDelta, absorb_temp
 from .graphs import GraphCache, HostCopy
+from .paged_kv import PagedKVCache
 from .sampling import gumbel_noise, sample_batch
 
 MAX_K = 64
@@ -102,6 +134,23 @@ class _Pending:
     req: Request
     kv: object                   # single-sequence KVCache being filled
     done_tokens: int = 0
+    first: torch.Tensor | None = None   # its first token, once prefilled (install
+    #                                     may wait for the paged pool)
+
+
+class _Firsts:
+    """First tokens sampled on the device at admission — a flood's (B,)
+    vector or one request's — copied to the host once and read at the next
+    harvest by every request they belong to (reference :73-96)."""
+
+    def __init__(self, t: torch.Tensor):
+        self._copy = HostCopy(t.reshape(-1))
+        self._np = None
+
+    def item(self, j: int) -> int:
+        if self._np is None:
+            self._np = self._copy.numpy()
+        return int(self._np[j])
 
 
 class Engine:
@@ -110,10 +159,12 @@ class Engine:
 
     def __init__(self, model_mod, cfg, params, max_batch: int = 8,
                  max_seq: int = 1024, chunk_size: int | None = None,
-                 device=None):
-        # read so that an unported value set through the environment raises
-        config.get("kv_quant")
-        config.get("engine_window_delta")
+                 device=None, paged_pages: int | None = None):
+        """paged_pages: the size in pages (of config kv_page_size positions)
+        of a paged KV pool (runtime/paged_kv.py) in place of the dense
+        max_batch × max_seq cache: device memory then scales with live
+        tokens. Admission waits (active slots keep decoding) while the pool
+        is full. Config kv_quant makes the caches int8."""
         self.device = dev = resolve(device)
         dev_p = params["out_norm"].device
         if dev_p.type != dev.type:
@@ -124,10 +175,22 @@ class Engine:
         self.max_batch = B = max_batch
         self.max_seq = max_seq
         self.chunk_size = chunk_size or int(config.get("engine_chunk_size"))
-        kvh = getattr(cfg, "n_kv_head", None) or cfg.n_head
-        self.kv = BatchedKVCache.create(cfg.n_layer, B, max_seq, kvh,
-                                        cfg.head_dim, dtype=cfg.compute_dtype,
-                                        device=dev)
+        self.kv_quant = bool(config.get("kv_quant"))
+        self.n_kv_head = kvh = getattr(cfg, "n_kv_head", None) or cfg.n_head
+        self.paged = paged_pages is not None
+        if self.paged:
+            self.page_size = int(config.get("kv_page_size"))
+            self.kv = PagedKVCache.create(cfg.n_layer, B, max_seq, kvh, cfg.head_dim,
+                                          total_pages=paged_pages, page_size=self.page_size,
+                                          dtype=cfg.compute_dtype, quant=self.kv_quant,
+                                          device=dev)
+            # host-side, deterministic free list of page ids
+            self._free_pages = list(range(paged_pages))
+            self._slot_pages: list[list[int]] = [[] for _ in range(B)]
+        else:
+            self.kv = BatchedKVCache.create(cfg.n_layer, B, max_seq, kvh, cfg.head_dim,
+                                            dtype=cfg.compute_dtype, device=dev,
+                                            quant=self.kv_quant)
         self.slots: list[Request | None] = [None] * B
         # host view of each slot's length INCLUDING dispatched steps (the
         # device lengths lag by the unharvested window): the window bucket
@@ -149,10 +212,14 @@ class Engine:
         self._top_ps = torch.ones(B, dtype=torch.float32, device=dev)
         self._noise: dict[int, torch.Tensor] = {}    # depth → (depth, B, k)
         self._noise_live: set[int] = set()           # depths holding draws
+        self._delta: dict[int, WindowDelta] = {}     # depth → window-delta buffers
         self._state_dirty = True
+        # a flood's temp caches, one per s_pad bucket, and its start vector
+        self._temp_kv: dict[int, BatchedKVCache] = {}
+        self._zeros = torch.zeros(B, dtype=torch.int32, device=dev)
         # first tokens sampled at admission, read back with the next
-        # harvest: (rid, slot, HostCopy)
-        self._first_pending: list[tuple[int, int, HostCopy]] = []
+        # harvest: (rid, slot, _Firsts, index into it)
+        self._first_pending: list[tuple[int, int, _Firsts, int]] = []
         self.graphs = GraphCache(dev)
         # per-window wall times of the last run(): (seconds, tokens harvested)
         self.window_log: list[tuple[float, int]] = []
@@ -250,8 +317,11 @@ class Engine:
         return None
 
     def _advance_admission(self):
-        """ONE prefill chunk per step at healthy occupancy; RAMP MODE below
-        half occupancy (up to 8 chunks per step)."""
+        """A flood when one is eligible; else ONE prefill chunk per step at
+        healthy occupancy, RAMP MODE below half occupancy (up to 8 chunks
+        per step)."""
+        if self._admit_batch():
+            return
         for _ in range(8):
             self._advance_admission_once()
             occ = sum(s is not None for s in self.slots)
@@ -259,6 +329,118 @@ class Engine:
                 break
             if self.pending is None and not self.queue:
                 break
+
+    def _install(self, b: int, r: Request, firsts: _Firsts, j: int):
+        """Host bookkeeping of request r installed into slot b, its first
+        token at index j of `firsts`."""
+        self.slots[b] = r
+        self.temps[b], self.top_ks[b], self.top_ps[b] = r.temp, r.top_k, r.top_p
+        self.counters[b] = 1
+        self.host_len[b] = len(r.prompt)
+        self._first_pending.append((r.rid, b, firsts, j))
+        self._state_dirty = True
+
+    def _take_pages(self, b: int, n: int) -> list[int]:
+        pages = [self._free_pages.pop() for _ in range(n)]
+        self._slot_pages[b] = pages
+        return pages
+
+    def _temp_cache(self, s_pad: int) -> BatchedKVCache:
+        """The flood's temp cache of s_pad positions, made once per bucket.
+        It needs no zeroing: a flood's forward writes every position
+        [0, s_pad) of every row (and every scale when quantized) before
+        its attention reads them."""
+        temp = self._temp_kv.get(s_pad)
+        if temp is None:
+            temp = self._temp_kv[s_pad] = BatchedKVCache.create(
+                self.cfg.n_layer, self.max_batch, s_pad, self.n_kv_head, self.cfg.head_dim,
+                dtype=self.cfg.compute_dtype, device=self.device, quant=self.kv_quant)
+        return temp
+
+    def _admit_batch(self) -> bool:
+        """Admit up to one single-chunk prompt per free slot in ONE batched
+        prefill (the weights stream once per flood, not once per request;
+        reference :586-711). Eligible when nothing is pending, at least 2
+        slots are free and at least 2 prompts of at most chunk_size tokens
+        head the queue, taken strictly FIFO (on the paged pool, as many as
+        the free pages seat): a pure function of host state. The flood
+        prefills every slot's row of a (B, s_pad) token block at starts 0
+        into the temp cache (the other rows process pad and are dropped),
+        samples the admitted rows' first tokens on the device at counter 0
+        from the row at plen − 1 (the keys of the single-request path), and
+        installs the admitted rows' K/V [0, s_pad) and lengths into the live
+        cache in place, ordered on the stream after any dispatched replay.
+        Runs eagerly; raises on any failure."""
+        if self.pending is not None:
+            return False
+        free = [b for b, s in enumerate(self.slots) if s is None]
+        if len(free) < 2:
+            return False
+        reqs = []
+        while (self.queue and len(reqs) < len(free)
+               and len(self.queue[0].prompt) <= self.chunk_size):
+            reqs.append(self.queue.pop(0))
+        if self.paged:
+            # every admitted request needs its pages up front; the flood is
+            # trimmed to what the free list seats (the rest go back to the
+            # queue's head in order)
+            seated, budget = 0, len(self._free_pages)
+            for r in reqs:
+                need = -(-len(r.prompt) // self.page_size)
+                if budget < need:
+                    break
+                budget -= need
+                seated += 1
+            self.queue[0:0] = reqs[seated:]
+            reqs = reqs[:seated]
+        if len(reqs) < 2:
+            self.queue[0:0] = reqs
+            return False
+        # prompts are < max_seq (submit), so min() keeps them whole
+        s_pad = min(_bucket(max(len(r.prompt) for r in reqs)), self.chunk_size, self.max_seq)
+        slots = free[:len(reqs)]
+        B, dev = self.max_batch, self.device
+        k = min(MAX_K, self.cfg.n_vocab)
+        toks = np.zeros((B, s_pad), np.int64)
+        # per-slot rows, uploaded as one: admitted, plen, temp, top_k, top_p,
+        # and the admitted slots' indices (all exact in f64)
+        vec = np.zeros((6, B), np.float64)
+        vec[3], vec[4] = 1, 1
+        seeds = [0] * B
+        for b, r in zip(slots, reqs):
+            toks[b, :len(r.prompt)] = r.prompt
+            vec[:5, b] = (1, len(r.prompt), r.temp, r.top_k, r.top_p)
+            seeds[b] = r.seed
+        vec[5, :len(slots)] = slots
+        noise = (gumbel_noise(seeds, [0] * B, k, dev) if any(r.temp > 0 for r in reqs)
+                 else torch.zeros((B, k), device=dev))
+        toks_d, vec_d = to_device(toks, dev), to_device(vec, dev)
+        admitted = vec_d[0] > 0
+        plens = vec_d[1].to(torch.int32)
+        idx = vec_d[5, :len(slots)].to(torch.int64)
+        temp = self._temp_cache(s_pad)
+        logits, temp = self.m.forward_batch(self.cfg, self.params, toks_d, temp, self._zeros,
+                                            attn_window=s_pad)
+        rows = logits[torch.arange(B, device=dev), torch.clamp(plens - 1, min=0).to(torch.int64)]
+        firsts = sample_batch(rows, noise, vec_d[2].float(), vec_d[3].to(torch.int32),
+                              vec_d[4].float())
+        temp.lengths.copy_(plens)
+        if self.paged:
+            pt = np.full((len(slots), self.kv.page_table.shape[1]), self.kv.scratch_page,
+                         np.int32)
+            for i, (b, r) in enumerate(zip(slots, reqs)):
+                pages = self._take_pages(b, -(-len(r.prompt) // self.page_size))
+                pt[i, :len(pages)] = pages
+            self.kv.page_table[idx] = to_device(pt, dev)
+            self.kv.absorb(temp, self._zeros, s_pad, mask=admitted)
+        else:
+            absorb_temp(self.kv, temp, idx)
+        # the captured graphs read this very buffer: updated in place
+        self._tok.copy_(torch.where(admitted, firsts.to(self._tok.dtype), self._tok))
+        shared = _Firsts(firsts)
+        for b, r in zip(slots, reqs):
+            self._install(b, r, shared, b)
+        return True
 
     def _first_token(self, logits_row: torch.Tensor, r: Request) -> torch.Tensor:
         """A request's first token, sampled on the device under its
@@ -276,36 +458,47 @@ class Engine:
 
     def _advance_admission_once(self):
         """Process at most ONE prefill chunk; install the request when its
-        prompt is complete, its first token sampled on the device."""
+        prompt is complete, its first token sampled on the device. On the
+        paged pool the install waits while the pool lacks the request's
+        pages (active slots keep decoding; completions free pages), and
+        raises when no slot is active to free any."""
         if self.pending is None:
             if not self.queue or self._free_slot() is None:
                 return
             r = self.queue.pop(0)
             self.pending = _Pending(r, self.m.make_cache(self.cfg, self.max_seq,
-                                                         device=self.device))
+                                                         device=self.device,
+                                                         quant=self.kv_quant))
         p = self.pending
         r = p.req
         toks = r.prompt
-        chunk = toks[p.done_tokens:p.done_tokens + self.chunk_size]
-        padded = np.zeros(min(_bucket(len(chunk)), self.chunk_size), np.int64)
-        padded[:len(chunk)] = chunk
-        logits, p.kv = self.m.forward(self.cfg, self.params,
-                                      to_device(padded, self.device), p.kv, p.done_tokens)
-        p.done_tokens += len(chunk)
-        if p.done_tokens < len(toks):
-            return
-        first = self._first_token(logits[len(chunk) - 1], r)
+        if p.first is None:
+            chunk = toks[p.done_tokens:p.done_tokens + self.chunk_size]
+            padded = np.zeros(min(_bucket(len(chunk)), self.chunk_size), np.int64)
+            padded[:len(chunk)] = chunk
+            logits, p.kv = self.m.forward(self.cfg, self.params,
+                                          to_device(padded, self.device), p.kv, p.done_tokens)
+            p.done_tokens += len(chunk)
+            if p.done_tokens < len(toks):
+                return
+            p.first = self._first_token(logits[len(chunk) - 1], r)
         b = self._free_slot()
-        self.kv.set_slot(b, p.kv.k, p.kv.v, len(toks))
-        self.slots[b] = r
-        self.temps[b], self.top_ks[b], self.top_ps[b] = r.temp, r.top_k, r.top_p
-        self.counters[b] = 1
-        self.host_len[b] = len(toks)
+        if self.paged:
+            need = -(-len(toks) // self.page_size)
+            if len(self._free_pages) < need:
+                if not any(s is not None for s in self.slots):
+                    raise RuntimeError(
+                        f"paged KV pool too small: request needs {need} pages, the pool "
+                        f"has {len(self._free_pages)} free and no slot is active")
+                return
+            pages = to_device(np.asarray(self._take_pages(b, need), np.int64), self.device)
+            self.kv.set_slot(b, pages, p.kv.k, p.kv.v, len(toks), p.kv.k_d, p.kv.v_d)
+        else:
+            self.kv.set_slot(b, p.kv.k, p.kv.v, len(toks), p.kv.k_d, p.kv.v_d)
         # device-ordered after the dispatched steps, before the next one:
         # the new slot's first input token
-        self._tok[b:b + 1].copy_(first)
-        self._first_pending.append((r.rid, b, HostCopy(first)))
-        self._state_dirty = True
+        self._tok[b:b + 1].copy_(p.first)
+        self._install(b, r, _Firsts(p.first), 0)
         self.pending = None
 
     def _check_done(self, b: int):
@@ -321,6 +514,36 @@ class Engine:
             self.host_len[b] = 0
             self._state_dirty = True
             self.kv.lengths[b:b + 1].fill_(0)
+            if self.paged:
+                # recycle the pages; the row points at the scratch page again
+                # (inactive slots still issue masked decode writes)
+                self._free_pages.extend(self._slot_pages[b])
+                self._slot_pages[b] = []
+                self.kv.page_table[b].fill_(self.kv.scratch_page)
+
+    def _ensure_pages(self, active: np.ndarray, lookahead: int = 1):
+        """Give every active slot pages for this dispatch's write positions
+        (host_len[b] .. host_len[b] + lookahead - 1), capped at the
+        request's own last position: steps dispatched past its end write
+        through the table's unallocated tail to the scratch page and take
+        no page. Host-side and deterministic; one small upload only when a
+        slot crosses a page boundary."""
+        ps = self.page_size
+        ups = []
+        for b in np.nonzero(active)[0]:
+            r = self.slots[b]
+            cap = min(len(r.prompt) + r.max_new_tokens, self.max_seq) - 1
+            need = min(int(self.host_len[b]) + lookahead - 1, cap) // ps + 1
+            while len(self._slot_pages[b]) < need:
+                if not self._free_pages:
+                    raise RuntimeError("paged KV pool exhausted mid-decode "
+                                       "(size the pool for the most live tokens)")
+                pg = self._free_pages.pop()
+                ups.append((b, len(self._slot_pages[b]), pg))
+                self._slot_pages[b].append(pg)
+        if ups:
+            t = to_device(np.ascontiguousarray(np.asarray(ups, np.int64).T), self.device)
+            self.kv.page_table[t[0], t[1]] = t[2].to(torch.int32)
 
     def _upload_state(self, active: np.ndarray):
         """Refresh the static per-slot buffers after a slot was
@@ -350,39 +573,75 @@ class Engine:
             self._noise_live.discard(depth)
         return buf
 
-    def _graph(self, window: int, depth: int):
+    def _graph(self, window: int, depth: int, flow: str = "step"):
         """The captured program of `depth` chained decode steps at
         attention window `window`: each step decodes every slot, samples,
         advances the lengths by the active mask and feeds the sampled
-        tokens back; its output is the (depth, B) token stack."""
+        tokens back; its output is the (depth, B) token stack. flow "step"
+        runs on the cache as it is (the per-step path); "scan" and "delta"
+        are scan windows: on the paged pool they run on the window gathered
+        into a dense view and scatter its rows back at the end, and "delta"
+        writes the steps' K/V rows into the window delta and absorbs it once
+        (reference :235-278)."""
         noise = self._noise[depth]
+        fb = self.m.forward_batch
 
-        def body():
+        def sample(i, logits):
+            nxt = sample_batch(logits[:, 0, :], noise[i], self._temps, self._top_ks,
+                               self._top_ps)
+            self._tok.copy_(nxt)
+            return nxt
+
+        def strict(kv):
             outs = []
             for i in range(depth):
-                logits, _ = self.m.forward_batch(self.cfg, self.params, self._tok[:, None],
-                                                 self.kv, self.kv.lengths, attn_window=window)
-                nxt = sample_batch(logits[:, 0, :], noise[i], self._temps, self._top_ks,
-                                   self._top_ps)
-                self.kv.lengths.add_(self._active)
-                self._tok.copy_(nxt)
-                outs.append(nxt)
+                logits, _ = fb(self.cfg, self.params, self._tok[:, None], kv, kv.lengths,
+                               attn_window=window)
+                outs.append(sample(i, logits))
+                kv.lengths.add_(self._active)
+            return outs
+
+        def delta(kv):
+            len0 = kv.lengths.clone()
+            d = self._delta[depth].zero_()
+            outs = []
+            for i in range(depth):
+                logits, d = fb(self.cfg, self.params, self._tok[:, None], kv, len0 + i,
+                               attn_window=window, window_delta=(d, i, len0))
+                outs.append(sample(i, logits))
+            kv.absorb_delta(d, len0, self._active, depth)
+            return outs
+
+        def body():
+            steps = delta if flow == "delta" else strict
+            if flow == "step" or not self.paged:
+                return torch.stack(steps(self.kv))
+            dense = self.kv.gather_window(window)
+            starts = dense.lengths.clone()
+            outs = steps(dense)
+            self.kv.absorb(dense, starts, depth)
             return torch.stack(outs)
 
         key = ("engine", id(self.params), self.kv.k[0].data_ptr(), self.max_batch, 1,
-               window, depth, self.cfg)
+               window, depth, self.cfg, flow)
         return self.graphs.get(key, body, state=(self._tok, self.kv.lengths))
 
     def _window(self, n: int) -> int:
         """The attention-window bucket covering n positions."""
         return min(self.max_seq, max(int(config.get("engine_min_window")), _bucket(n)))
 
-    def _replay(self, active: np.ndarray, depth: int, window: int):
+    def _replay(self, active: np.ndarray, depth: int, window: int, flow: str = "step"):
         """Replay the `depth`-step program; returns (HostCopy of its token
         stack, slot→rid snapshots)."""
+        if self.paged:
+            self._ensure_pages(active, depth)
         self._upload_state(active)
         self._load_noise(depth)
-        out = self._graph(window, depth).replay()[0]
+        if flow == "delta" and depth not in self._delta:
+            self._delta[depth] = WindowDelta.create(self.cfg.n_layer, self.max_batch,
+                                                    self.n_kv_head, depth, self.cfg.head_dim,
+                                                    device=self.device)
+        out = self._graph(window, depth, flow).replay()[0]
         rows = HostCopy(out)    # before the next replay overwrites it
         self.counters += depth
         self.host_len += active.astype(np.int32) * depth
@@ -400,14 +659,16 @@ class Engine:
 
     def _dispatch_scan(self, depth: int):
         """One `depth`-step window as ONE replay (reference :938-991). Only
-        called when no admission can occur mid-window, so the streams equal
-        the per-step path's (keys chain on (seed, counter); the wider
-        attention window only adds exactly-masked reads)."""
+        called when no admission can occur mid-window, so the strict
+        window's streams equal the per-step path's (keys chain on (seed,
+        counter); the wider attention window only adds exactly-masked
+        reads). Under engine_window_delta the window is the delta flow."""
         active = np.array([s is not None for s in self.slots], bool)
         if not active.any():
             return None
+        flow = "delta" if bool(config.get("engine_window_delta")) else "scan"
         return self._replay(active, depth,
-                            self._window(int(self.host_len[active].max()) + depth))
+                            self._window(int(self.host_len[active].max()) + depth), flow)
 
     def _dispatch_window(self, depth: int):
         """Dispatch up to `depth` chained decode steps (one admission chunk
@@ -451,10 +712,10 @@ class Engine:
         :887-918)."""
         n = 0
         firsts, self._first_pending = self._first_pending, []
-        for rid, b, tok in firsts:
+        for rid, b, tok, j in firsts:
             r = self.slots[b]
             if r is not None and r.rid == rid:
-                r.out.append(int(tok.numpy()))
+                r.out.append(tok.item(j))
                 n += 1
                 self._check_done(b)
         for rows, snaps in dispatched:

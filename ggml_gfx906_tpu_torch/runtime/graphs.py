@@ -42,7 +42,8 @@ from ..ops import cuda as kernels
 from ..utils import config
 
 # the config knobs that the traced decode code reads
-TRACED_KNOBS = ("attn_impl", "qmm_pipeline", "int8_min_m", "weights_layout", "int8_tile")
+TRACED_KNOBS = ("attn_impl", "qmm_pipeline", "int8_min_m", "weights_layout", "int8_tile",
+                "kv_attn_int8_dot")
 
 
 def config_key() -> tuple:

@@ -4,11 +4,6 @@ The counterpart of ggml_gfx906_tpu/utils/config.py, holding only the knobs
 the ported path reads. Precedence is the reference's: built-in default <
 GGML_TORCH_<NAME> env var < programmatic `set()`.
 
-Some reference knobs select behaviour the port does not have yet (int8 KV
-cache, window-delta decode). They are registered
-with the one value the port implements, and asking for any other value
-raises NotImplementedError — it is never silently ignored.
-
     from ggml_gfx906_tpu_torch.utils import config
     config.get("int8_min_m")          # 64
     config.set("int8_min_m", 128)     # highest precedence
@@ -25,7 +20,6 @@ class _Entry:
     default: Any
     parse: Callable[[str], Any]
     help: str
-    only: bool = False      # True: `default` is the only implemented value
     choices: tuple = ()     # the values a string knob takes, when it is an enum
 
 
@@ -37,14 +31,12 @@ def _bool(s: str) -> bool:
     return s.strip().lower() in ("1", "true", "yes", "on")
 
 
-def register(name: str, default, help: str, parse=None, only: bool = False,
-             choices: tuple = ()):
-    """Declare a knob. parse defaults to the type of `default`; only=True
-    marks a knob whose other values are later slices of the port; choices
+def register(name: str, default, help: str, parse=None, choices: tuple = ()):
+    """Declare a knob. parse defaults to the type of `default`; choices
     lists the values of an enumerated knob (any other raises ValueError)."""
     if parse is None:
         parse = _bool if isinstance(default, bool) else type(default)
-    _REGISTRY[name] = _Entry(default, parse, help, only, choices)
+    _REGISTRY[name] = _Entry(default, parse, help, choices)
     return name
 
 
@@ -56,10 +48,6 @@ def _check(name: str, value):
     e = _REGISTRY[name]
     if e.choices and value not in e.choices:
         raise ValueError(f"config {name}={value!r}: one of {list(e.choices)}")
-    if e.only and value != e.default:
-        raise NotImplementedError(
-            f"config {name}={value!r} is not ported yet; the port runs "
-            f"{name}={e.default!r} ({e.help})")
     return value
 
 
@@ -131,9 +119,25 @@ register("engine_scan_window", True,
          "bit-identical. False = one replay of the one-step graph per step "
          "within pipelined windows")
 register("kv_quant", False,
-         "store serving KV caches as int8 with per-(head,pos) scales",
-         only=True)
+         "store serving KV caches as int8 with per-(head,pos) scales "
+         "(Engine; llama.generate takes kv_quant= directly)")
+register("kv_attn_int8_dot", True,
+         "quantized-KV attention on the plain path (attn_impl='xla', window-"
+         "delta decode) computes the decode score dot int8 x int8 (q rows "
+         "quantized per (slot, head); ggml's Q8_1 analogue, ref vecdotq.cuh) "
+         "instead of converting the int8 cache inside the dot; bf16-compute "
+         "paths only (f32 keeps exact dots). K2 takes the int8 cache as it is")
 register("engine_window_delta", False,
-         "window-delta decode; the port runs the strict per-step "
-         "formulation (the reference's engine_window_delta=False)",
-         only=True)
+         "scan-window decode writes each step's K/V rows into a small "
+         "per-window delta buffer at a uniform column and absorbs the whole "
+         "window once; attention merges the two segments at score level in "
+         "plain torch (ops/attention.py::causal_attn_delta), in place of K2. "
+         "Numerically equivalent, not bitwise (the delta rounds P and the "
+         "fresh rows to bf16). Deliberately off here, where the reference "
+         "defaults to on: on the H100 the per-slot write it saves is one small "
+         "kernel per layer, and the delta window replaces K2 with einsums "
+         "(a 32-layer 7B-width depth-8 window at attention window 256 on an "
+         "H100 80GB HBM3: 168 ms on the delta against 141 ms strict)")
+register("kv_page_size", 64,
+         "positions per page of the paged serving KV pool "
+         "(Engine(paged_pages=N); runtime/paged_kv.py)")

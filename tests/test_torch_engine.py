@@ -1,13 +1,17 @@
 """Port parity: the continuous-batching Engine.
 
-The port's Engine (per-request chunked admission, batched decode steps in
+The port's Engine (flood and chunked admission, batched decode steps in
 pipelined windows of the default harvest depth, 8, on captured graphs —
 direct calls on the CPU) must give token streams equal to the port's own
-single-sequence generate, and to the JAX Engine in its strict per-step
-formulation (engine_window_delta=False). Other depths and the scan-window
-switch: test_torch_graphs.py."""
+single-sequence generate where both prefill on one matmul route, and to
+the JAX Engine in its strict per-step formulation (engine_window_delta
+False on both sides, pinned so that a default flip cannot change what is
+compared). Other depths and the scan-window switch: test_torch_graphs.py;
+floods and the paged pool: test_torch_admission.py; the int8 cache and
+window delta: test_torch_kv_variants.py."""
 import numpy as np
 import pytest
+import torch
 
 from ggml_gfx906_tpu.models import llama as jllama
 from ggml_gfx906_tpu.quant.types import GGMLType
@@ -41,28 +45,62 @@ def _run(eng, prompts, n_new):
     return [done[r].out for r in rids]
 
 
+def _serve_flooded(tcfg, tp, lengths, chunk, min_m):
+    """(prompts, streams) of an engine that floods (asserted) at
+    int8_min_m = min_m (None: the default)."""
+    prompts = _prompts(lengths)
+    if min_m is not None:
+        tconfig.set("int8_min_m", min_m)
+    try:
+        eng = Engine(tllama, tcfg, tp, max_batch=3, max_seq=MAX_SEQ, chunk_size=chunk,
+                     device="cpu")
+        floods = []
+        orig = eng._admit_batch
+        eng._admit_batch = lambda: floods.append(orig()) or floods[-1]
+        outs = _run(eng, prompts, 6)
+        assert any(floods)
+        return prompts, outs
+    finally:
+        tconfig.unset("int8_min_m")
+
+
 def test_engine_matches_generate(models):
-    """Lengths ≤ 32 or in [64, 128] keep engine prefill chunks (padded to a
-    bucket) on the same matmul route as generate's unpadded prefill; 70 is
-    longer than the chunk size, so it is admitted in three chunks."""
+    """Engine streams equal generate's where both prefill a prompt on one
+    matmul route. A flood prefills at M = B·s_pad, which crosses int8_min_m
+    where generate's prefill of a short prompt does not, so both run the
+    f32 route here (int8_min_m=0): the short prompts [5, 20] flood, the
+    70-token one is admitted in three 32-token chunks."""
     _, _, tcfg, tp = models
-    prompts = _prompts([5, 20, 70, 3])
-    eng = Engine(tllama, tcfg, tp, max_batch=3, max_seq=MAX_SEQ,
-                 chunk_size=CHUNK, device="cpu")
-    outs = _run(eng, prompts, 6)
+    prompts, outs = _serve_flooded(tcfg, tp, (5, 20, 70, 3), CHUNK, 0)
+    tconfig.set("int8_min_m", 0)
+    try:
+        for prompt, out in zip(prompts, outs):
+            assert prompt + out == tllama.generate(tcfg, tp, prompt, 6,
+                                                   max_seq=MAX_SEQ, device="cpu")
+    finally:
+        tconfig.unset("int8_min_m")
+
+
+def test_engine_matches_generate_int8_route(models):
+    """At the default int8_min_m (64), prompts of at least 64 tokens are
+    flooded (M = 3·128) and prefilled by generate (M = 64–100) on the int8
+    route alike: the streams are equal."""
+    _, _, tcfg, tp = models
+    prompts, outs = _serve_flooded(tcfg, tp, (64, 100, 80), 128, None)
     for prompt, out in zip(prompts, outs):
-        assert prompt + out == tllama.generate(tcfg, tp, prompt, 6,
-                                               max_seq=MAX_SEQ, device="cpu")
+        assert prompt + out == tllama.generate(tcfg, tp, prompt, 6, max_seq=MAX_SEQ,
+                                               device="cpu")
 
 
 def test_engine_matches_reference_engine(models):
-    """Same requests through the JAX Engine (window delta off). The JAX
-    engine admits short prompts as one batched prefill whose padded M can
-    cross int8_min_m where the port's per-request chunks do not, so both
-    sides run the f32 route here (int8_min_m=0)."""
+    """Same requests through the JAX Engine (window delta off on both
+    sides). Both engines flood the short prompts at the same M; both run
+    the f32 route here (int8_min_m=0), where the packages compute the same
+    function (the int8 route: test_engine_matches_reference_engine_int8_route)."""
     jcfg, jp, tcfg, tp = models
     prompts = _prompts([9, 40, 2, 17], seed=1)
     jconfig.set("engine_window_delta", False)
+    tconfig.set("engine_window_delta", False)
     jconfig.set("int8_min_m", 0)
     tconfig.set("int8_min_m", 0)
     try:
@@ -72,6 +110,7 @@ def test_engine_matches_reference_engine(models):
                           chunk_size=CHUNK, device="cpu"), prompts, 5)
     finally:
         jconfig.unset("engine_window_delta")
+        tconfig.unset("engine_window_delta")
         jconfig.unset("int8_min_m")
         tconfig.unset("int8_min_m")
     assert got == ref
@@ -127,6 +166,7 @@ def test_engine_sampled_streams_match_reference_engine(models):
         return [done[r] for r in rids]
 
     jconfig.set("engine_window_delta", False)
+    tconfig.set("engine_window_delta", False)
     jconfig.set("int8_min_m", 0)
     tconfig.set("int8_min_m", 0)
     try:
@@ -135,6 +175,7 @@ def test_engine_sampled_streams_match_reference_engine(models):
                          device="cpu"))
     finally:
         jconfig.unset("engine_window_delta")
+        tconfig.unset("engine_window_delta")
         jconfig.unset("int8_min_m")
         tconfig.unset("int8_min_m")
     assert got == ref
@@ -153,6 +194,7 @@ def test_engine_matches_reference_engine_int8_route(models, monkeypatch):
     prompts = _prompts([100, 120, 70], seed=3)
     chunk = 64
     jconfig.set("engine_window_delta", False)
+    tconfig.set("engine_window_delta", False)
     try:
         ref = _run(JEngine(jllama, jcfg, jp, max_batch=3, max_seq=MAX_SEQ,
                            chunk_size=chunk), prompts, 4)
@@ -163,19 +205,29 @@ def test_engine_matches_reference_engine_int8_route(models, monkeypatch):
     monkeypatch.setattr(dispatch, "route",
                         lambda m, qtype, *a: routes.append((m, real_route(m, qtype, *a)))
                         or routes[-1][1])
-    got = _run(Engine(tllama, tcfg, tp, max_batch=3, max_seq=MAX_SEQ,
-                      chunk_size=chunk, device="cpu"), prompts, 4)
+    try:
+        got = _run(Engine(tllama, tcfg, tp, max_batch=3, max_seq=MAX_SEQ,
+                          chunk_size=chunk, device="cpu"), prompts, 4)
+    finally:
+        tconfig.unset("engine_window_delta")
     assert (64, "i8") in routes and (16, "f32") in routes
     assert got == ref
 
 
 def test_engine_unported_options_raise(models, monkeypatch):
-    """Unported knobs raise, set in code or through the environment (the
-    harvest depth is ported: any value ≥ 1 runs)."""
+    """The knobs that raised before they were ported now take effect, set in
+    code or through the environment: GGML_TORCH_KV_QUANT=1 builds an Engine
+    whose cache is int8, engine_window_delta=True sets (its streams:
+    test_torch_kv_variants.py). A knob the port does not have raises."""
     _, _, tcfg, tp = models
-    for name, value in (("kv_quant", True), ("engine_window_delta", True)):
-        with pytest.raises(NotImplementedError):
-            tconfig.set(name, value)
+    tconfig.set("engine_window_delta", True)
+    try:
+        assert tconfig.get("engine_window_delta") is True
+    finally:
+        tconfig.unset("engine_window_delta")
     monkeypatch.setenv("GGML_TORCH_KV_QUANT", "1")
-    with pytest.raises(NotImplementedError):
-        Engine(tllama, tcfg, tp, device="cpu")
+    eng = Engine(tllama, tcfg, tp, max_batch=2, max_seq=MAX_SEQ, device="cpu")
+    assert eng.kv.quantized and eng.kv.k[0].dtype == torch.int8
+    assert eng.kv.k_d[0].shape == (2, tcfg.n_kv_head, MAX_SEQ)
+    with pytest.raises(KeyError):
+        tconfig.set("load_chunk_mb", 256)

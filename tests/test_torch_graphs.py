@@ -64,10 +64,9 @@ def both_configs():
         jconfig.set(name, value)
         tconfig.set(name, value)
 
-    jconfig.set("engine_window_delta", False)
+    set_("engine_window_delta", False)
     set_("int8_min_m", 0)
     yield set_
-    jconfig.unset("engine_window_delta")
     for name in names:
         jconfig.unset(name)
         tconfig.unset(name)

@@ -19,6 +19,7 @@ from ggml_gfx906_tpu.quant.types import GGMLType
 from ggml_gfx906_tpu_torch.models import llama as tllama
 from ggml_gfx906_tpu_torch.ops.quantized import QuantTensor
 from ggml_gfx906_tpu_torch.runtime.engine import Engine
+from ggml_gfx906_tpu_torch.utils import config as tconfig
 
 from _torch_port import (jax_params_to_numpy, nmse, param_types, port_cfg, recipe_cfg,
                          recipe_jax_params, recipe_logits, recipe_weights,
@@ -84,17 +85,24 @@ def test_generate_streams_equal(models, plen):
 
 def test_engine_matches_generate(models):
     """Engine streams equal generate's (the 70-token prompt is admitted in
-    three 32-token chunks; K9, K7, K4 and K1 are row-invariant)."""
+    three 32-token chunks; K9, K7, K4 and K1 are row-invariant). The short
+    prompts flood at M = 3·32, which crosses int8_min_m where generate's
+    prefill does not, so both run the f32 route (int8_min_m=0; it changes
+    nothing on a file whose types have no int8 route)."""
     _, _, tcfg, tp = models
     rng = np.random.default_rng(4)
     prompts = [[int(t) for t in rng.integers(1, 256, n)] for n in (5, 20, 70, 3)]
-    eng = Engine(tllama, tcfg, tp, max_batch=3, max_seq=MAX_SEQ, chunk_size=32,
-                 device="cpu")
-    rids = [eng.submit(p, 6) for p in prompts]
-    done = {r.rid: r.out for r in eng.run()}
-    for rid, p in zip(rids, prompts):
-        assert p + done[rid] == tllama.generate(tcfg, tp, p, 6, max_seq=MAX_SEQ,
-                                                device="cpu")
+    tconfig.set("int8_min_m", 0)
+    try:
+        eng = Engine(tllama, tcfg, tp, max_batch=3, max_seq=MAX_SEQ, chunk_size=32,
+                     device="cpu")
+        rids = [eng.submit(p, 6) for p in prompts]
+        done = {r.rid: r.out for r in eng.run()}
+        for rid, p in zip(rids, prompts):
+            assert p + done[rid] == tllama.generate(tcfg, tp, p, 6, max_seq=MAX_SEQ,
+                                                    device="cpu")
+    finally:
+        tconfig.unset("int8_min_m")
 
 
 @pytest.mark.parametrize("recipe", RECIPES)

@@ -171,14 +171,10 @@ def test_dispatch_routes_by_m():
 
 
 def test_unported_types_and_knobs_raise():
-    """A type that has a kernel in neither package raises, as do the knobs
-    whose other values are not ported (the harvest depth is ported) and a
-    value qmm_pipeline does not take."""
+    """A type that has a kernel in neither package raises, as does a value
+    qmm_pipeline does not take."""
     with pytest.raises(NotImplementedError):
         tdispatch.route(1, GGMLType.IQ4_NL)
-    for name, value in (("kv_quant", True), ("engine_window_delta", True)):
-        with pytest.raises(NotImplementedError):
-            tconfig.set(name, value)
     with pytest.raises(ValueError):
         tconfig.set("qmm_pipeline", "bogus")
     assert tconfig.get("qmm_pipeline") == "off"

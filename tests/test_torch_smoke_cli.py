@@ -4,6 +4,7 @@ it prints a result line, whatever it was asked to run."""
 import pytest
 
 import chip_smoke
+from _torch_port import one_torch_thread  # noqa: F401
 
 
 def test_unknown_check_is_refused(capsys):
@@ -108,3 +109,73 @@ def test_q4_k_path_runs_the_graphs_phase_and_the_depth_checks():
             "expected_launches", "trace_device"} <= g
     assert {"engine_harvest_depth", "SAMPLED"} <= _names(chip_smoke.depth_checks.__code__) \
         | set(chip_smoke.depth_checks.__code__.co_consts)
+
+
+def test_serving_runtime_phases_are_on_the_paths():
+    """Every path holds engine == generate where both take one route
+    (engine_vs_generate); the Q4_0 path holds its flooded streams against
+    generate at int8_min_m = 0 (f32_route_check); the 32-layer Q4_K path
+    runs the admission and kv_variants phases, each skipped on a tree
+    without the flood or the int8 cache."""
+    names = set(chip_smoke.main_path.__code__.co_names)
+    assert {"engine_vs_generate", "f32_route_check", "admission_phase", "kv_variants_phase",
+            "HAS_FLOOD", "HAS_KV_VARIANTS", "I8_KERNELS"} <= names
+    import inspect
+
+    assert {"record_function", "trace_device", "K3_TRACE_NAMES"} \
+        <= _names(inspect.unwrap(chip_smoke.admission_phase).__code__)
+    assert {"delta_window_check", "_timed_serve", "first_divergence"} \
+        <= _names(inspect.unwrap(chip_smoke.kv_variants_phase).__code__)
+    assert {"scan_window", "forward_batch", "WindowDelta"} \
+        <= _names(chip_smoke.delta_window_check.__code__)
+
+
+def test_serving_runtime_phases_run_on_the_cpu(monkeypatch):
+    """The smoke's new phases run end to end on a tiny model on the CPU
+    (the card's synchronisation, memory statistics and traces stubbed, K2's
+    launches counted around its wrapper): the streams checks hold, a flood
+    fills the 8 slots, the int8 engine's steps launch K2 on int8 K/V, the
+    paged engines give the dense streams, the delta window stays within its
+    bound."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from _torch_port import tiny_models
+    from ggml_gfx906_tpu.quant.types import GGMLType
+    from ggml_gfx906_tpu_torch.ops import cuda as kernels
+    from ggml_gfx906_tpu_torch.ops.cuda import flash_attn
+
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(chip_smoke, "trace_device", lambda fn, match=(): (fn(), {
+        "busy_ms": 1.0, "device_activities": 0, "profiled_wall_ms": 1.0, "matched_ms": 0.0,
+        "top_ms": []})[1])
+    monkeypatch.setattr(chip_smoke, "N_NEW", 6)
+    k2 = flash_attn.causal_flash_attention
+
+    def counted(*a, **k):
+        kernels.K2.launches += 1
+        return k2(*a, **k)
+
+    monkeypatch.setattr(flash_attn, "causal_flash_attention", counted)
+    _, _, tcfg, tp = tiny_models(GGMLType.Q4_K, seed=2, n_ctx=1024)
+    cfg = dataclasses.replace(tcfg, compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(5)
+    prompts = [[int(t) for t in rng.integers(1, 256, n)] for n in (3, 5, 8, 12, 16, 20, 24, 30)]
+    long_prompt = [int(t) for t in rng.integers(1, 256, 150)]
+    dev = torch.device("cpu")
+    eng = chip_smoke.Engine(chip_smoke.llama, cfg, tp, max_batch=8, max_seq=1024, device=dev)
+    done = chip_smoke.serve(eng, prompts + [long_prompt], 6)
+    ev = chip_smoke.engine_vs_generate("q4_k", cfg, tp, dev, prompts, done, int8_route=True)
+    assert ev["asserted"] == [] and set(ev["recorded"]) == {len(p) for p in prompts}
+    assert chip_smoke.f32_route_check(dev, cfg, tp, prompts, long_prompt)["floods"] == [8]
+    ad = chip_smoke.admission_phase(dev, cfg, tp, prompts, long_prompt, done)
+    assert ad["floods"] == [8] * 4 and ad["calls"]["engine.chunk"] == 2
+    kv = chip_smoke.kv_variants_phase(dev, cfg, tp, prompts, long_prompt, done)
+    assert kv["kv_quant"]["k2_kv_dtypes"] == ["torch.int8"]
+    assert kv["kv_quant"]["launches_per_replayed_step"] == {"causal_flash_attention": 2}
+    assert kv["paged"]["kv_bytes"] < 0.6 * kv["dense"]["kv_bytes"]
+    assert max(kv["delta"]["logits_nmse_per_step"]) <= kv["delta"]["bound"]
