@@ -32,7 +32,8 @@ Phases (each failure raises, so the script exits non-zero):
   4. a small-model check of the card's forward against the CPU's, for a
      tiny Q4_K, Q4_K_M-mixture, Q8_0, Q5_K_M-mixture, Q4_0, Q4_1, Q5_0,
      Q5_1, Q2_K-mixture and Q3_K_M-mixture model, and the Q4_K and Q3_K_M
-     models again in the int8 execution layout;
+     models again in the int8 execution layout; the tiny Q4_K model's
+     perplexity on the card against the CPU's;
   5. the autotuner from a fresh cache directory (so that K11 really runs):
      `choose` and `choose_attn` on the card, K11's and the library's GB/s,
      the two M = 1 times and both decisions;
@@ -73,7 +74,18 @@ Phases (each failure raises, so the script exits non-zero):
      dense pages (== the dense engine, with and without kv_quant) and with
      window delta (one window's logits against the strict window's within
      a bound from bf16 rounding, the streams' agreement, the two windows
-     timed). The 32-layer Q4_K file also traces one
+     timed); `tools`, text from the file alone (every file carries a
+     synthetic SentencePiece vocabulary of n_vocab tokens, spm_vocab): the
+     tokenizer from its metadata, speculative decoding by prompt lookup
+     at k = 8 and 7 on a repetitive and a plain encoded prompt and with a
+     4-layer layer-skip draft at k = 4 (each stream == `generate`'s greedy
+     one; accept rates, tok/s beside decode_chunk's; one replayed verify
+     step's launches asserted, timed and traced), perplexity over 2,048
+     tokens at n_ctx 512 (n_tokens by the window rule, nll within 1e-5 of
+     llama.forward's logits summed in float64) and the CLI in-process
+     (greedy == generate on the encoded text, --spec 8 == greedy, a
+     sampled run, serve of the 8+1 prompts as text == a direct Engine
+     run). The 32-layer Q4_K file also traces one
      8-slot decode step at window 1024 (long_window_step). The Q4_K file
      then decodes again with qmm_pipeline="on" (K10 in place of K1),
      traced, with one step's logits held against the flag off within the
@@ -89,11 +101,13 @@ stdout line is {"kernels": [...]}; the last is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import gc
 import hashlib
 import inspect
+import io
 import json
 import os
 import shutil
@@ -105,7 +119,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ggml_gfx906_tpu_torch.gguf import GGUFWriter
+from ggml_gfx906_tpu_torch.gguf import GGUFReader, GGUFWriter
 from ggml_gfx906_tpu_torch.models import llama
 from ggml_gfx906_tpu_torch.ops import cuda as kernels
 from ggml_gfx906_tpu_torch.ops.cuda import (build, dispatch, dma_copy, flash_attn, qmm,
@@ -116,6 +130,11 @@ from ggml_gfx906_tpu_torch.quant.kquants import pack_q3_scales, pack_scale_min_k
 from ggml_gfx906_tpu_torch.quant.types import (BLOCK_Q2_K, BLOCK_Q3_K, BLOCK_Q4_0, BLOCK_Q4_1,
                                                BLOCK_Q4_K, BLOCK_Q5_0, BLOCK_Q5_1, BLOCK_Q5_K,
                                                BLOCK_Q6_K, BLOCK_Q8_0, GGMLType)
+try:    # the tools slice; its phases are skipped on a tree without it
+    from ggml_gfx906_tpu_torch.models import cli, perplexity, speculative, tokenizer
+    HAS_TOOLS = True
+except ImportError:
+    HAS_TOOLS = False
 from ggml_gfx906_tpu_torch.runtime.batched_kv import BatchedKVCache
 from ggml_gfx906_tpu_torch.runtime.engine import Engine
 from ggml_gfx906_tpu_torch.utils import autotune, config
@@ -985,11 +1004,83 @@ def make_blocks(qtype: GGMLType, rng, n: int, k: int, random_scales: bool):
     return b
 
 
+TT_NORMAL, TT_UNKNOWN, TT_CONTROL, TT_BYTE = 1, 2, 3, 6     # gguf token types
+_LETTERS = "etaoinshrdlcumwfgypbvkjxqz"
+
+
+def spm_words(n: int, seed: int = 7) -> list[str]:
+    """n distinct lowercase words of 2-8 letters, made from a fixed seed."""
+    rng = np.random.default_rng(seed)
+    p = np.linspace(2.0, 0.5, len(_LETTERS))
+    letters = rng.choice(len(_LETTERS), (2 * n, 8), p=p / p.sum())
+    lengths = rng.integers(2, 9, 2 * n)
+    words = dict.fromkeys("".join(_LETTERS[c] for c in row[:m])
+                          for row, m in zip(letters, lengths))
+    assert len(words) >= n
+    return list(words)[:n]
+
+
+@functools.lru_cache(maxsize=4)
+def spm_vocab(n_vocab: int, seed: int = 7):
+    """A synthetic SentencePiece vocabulary of exactly n_vocab tokens,
+    (tokens, scores, token types): <unk>, <s>, </s>, the 256 <0xXX> byte
+    tokens, then unique pieces with scores: ▁, the letters and some
+    punctuation, then every prefix of spm_words(seed), bare and after ▁,
+    shorter first, until the vocabulary is full. Text made of those words
+    (synthetic_text) encodes to multi-letter pieces."""
+    tokens = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    types = [TT_UNKNOWN, TT_CONTROL, TT_CONTROL] + [TT_BYTE] * 256
+    pieces = dict.fromkeys(["▁"] + list(_LETTERS) + list(".,"))
+    for w in spm_words(n_vocab // 2, seed):
+        if len(tokens) + len(pieces) >= n_vocab:
+            break
+        for i in range(2, len(w) + 1):
+            pieces.setdefault("▁" + w[:i])
+            pieces.setdefault(w[:i])
+    pieces = list(pieces)[:n_vocab - len(tokens)]
+    scores = [0.0] * len(tokens) + [-1.0 - r / len(pieces) for r in range(len(pieces))]
+    assert len(tokens) + len(pieces) == n_vocab
+    return (tuple(tokens + pieces), tuple(scores),
+            tuple(types + [TT_NORMAL] * len(pieces)))
+
+
+@functools.lru_cache(maxsize=4)
+def _whole_words(n_vocab: int) -> tuple:
+    """The spm_words that spm_vocab(n_vocab) holds whole (after ▁)."""
+    have = set(spm_vocab(n_vocab)[0])
+    return tuple(w for w in spm_words(n_vocab // 2) if "▁" + w in have)
+
+
+def synthetic_text(n_words: int, seed: int, n_vocab: int = 32000) -> str:
+    """n_words words drawn from a fixed seed among the spm_words that
+    spm_vocab(n_vocab) holds whole, with a sentence mark every 12 words:
+    text that does not repeat."""
+    words = _whole_words(n_vocab)
+    rng = np.random.default_rng(seed)
+    out = [words[i] for i in rng.integers(0, len(words), n_words)]
+    return " ".join(w + ("." if j % 12 == 11 else "") for j, w in enumerate(out))
+
+
+def write_vocab(w, n_vocab: int):
+    """spm_vocab(n_vocab) as the GGUF tokenizer metadata of llama.cpp's SPM
+    files (scores written as floats, token types as ints)."""
+    tokens, scores, types = spm_vocab(n_vocab)
+    w.set("tokenizer.ggml.model", "llama")
+    w.set("tokenizer.ggml.tokens", list(tokens))
+    w.set("tokenizer.ggml.scores", [float(s) for s in scores])
+    w.set("tokenizer.ggml.token_type", [int(t) for t in types])
+    w.set("tokenizer.ggml.bos_token_id", 1)
+    w.set("tokenizer.ggml.eos_token_id", 2)
+    w.set("tokenizer.ggml.unknown_token_id", 0)
+    w.set("tokenizer.ggml.add_bos_token", True)
+
+
 def write_gguf(path: Path, cfg: dict, n_layer: int, recipe: str,
                random_scales: bool = False):
     """A llama GGUF of `cfg`'s width with each matrix in the recipe's type
-    (make_blocks, seed 0) and f32 norm weights, written with the port's
-    writer; an existing file is kept. The norm weights are ones, or with
+    (make_blocks, seed 0), f32 norm weights and the SentencePiece vocabulary
+    spm_vocab(n_vocab), written with the port's writer; an existing file is
+    kept. The norm weights are ones, or with
     random_scales 1 + N(0, 0.1): a Q8_0 embedding row is an exact grid of
     q·d, and under norms of ones the first layer's per-tile int8
     activations sit on rounding ties that any last-bit difference flips,
@@ -1009,6 +1100,7 @@ def write_gguf(path: Path, cfg: dict, n_layer: int, recipe: str,
     w.set(f"{A}.feed_forward_length", cfg["n_ff"])
     w.set(f"{A}.vocab_size", cfg["n_vocab"])
     w.set(f"{A}.attention.layer_norm_rms_epsilon", 1e-5)
+    write_vocab(w, cfg["n_vocab"])
     for name, layer, r, c in _matrices(cfg, n_layer):
         qtype = RECIPES[recipe](name, layer, n_layer)
         if qtype is not None:
@@ -1272,6 +1364,8 @@ def main_path(device, n_layer: int, recipe: str, layout: str = "kernel",
         if HAS_GRAPHS and out["layout_asked"] == "kernel":
             with torch.inference_mode():
                 out["graphs"] = graphs_phase(device, cfg, params, n_layer, prompt, stream)
+        if HAS_TOOLS and keep_file:
+            out["tools"] = tools_phase(device, cfg, params, n_layer, path)
         out["pipeline"] = pipeline_phase(device, cfg, params, n_layer)
     del params
     gc.collect()
@@ -1819,6 +1913,240 @@ def graphs_phase(device, cfg, params, n_layer: int, prompt, stream) -> dict:
     return out
 
 
+SPEC_KS = (8, 7)       # the reference's default k (verify at M = 9) and M = 8
+SPEC_NEW = 128
+SPEC_SEQ = 1024
+PPL_TOKENS, PPL_CTX = 2048, 512
+SERVE_WORDS = PARITY_LENS + (300,)     # the CLI's serve prompts: the 8+1 requests as text
+
+
+def spec_prompts(n_vocab: int, tok) -> dict:
+    """The two prompts of the speculative runs, encoded from text: an
+    8-word phrase repeated to ~100 tokens, and ~100 words that do not
+    repeat."""
+    phrase = synthetic_text(8, 21, n_vocab)
+    return {"repetitive": tok.encode(" ".join([phrase] * 12)),
+            "plain": tok.encode(synthetic_text(100, 22, n_vocab))}
+
+
+def ppl_window_count(n: int, n_ctx: int, warmup: int) -> int:
+    """The predictions perplexity_stream counts for n tokens: each window's
+    targets, less the warm-up after the first window."""
+    return sum(max(0, min(n_ctx, n - 1 - s) - (warmup if s else 0))
+               for s in range(0, n - 1, n_ctx))
+
+
+def ppl_reference_nll(cfg, params, ids, n_ctx: int, device) -> float:
+    """The mean nll of perplexity_stream's windows from `llama.forward`
+    logits (a fresh cache per window), summed in float64 on the host."""
+    ids = np.asarray(ids, np.int64)
+    total, n = 0.0, 0
+    for s in range(0, len(ids) - 1, n_ctx):
+        win = ids[s:s + n_ctx + 1]
+        inp, tgt = win[:-1], win[1:]
+        logits, _ = llama.forward(cfg, params,
+                                  torch.from_numpy(np.pad(inp, (0, n_ctx - len(inp)))).to(device),
+                                  llama.make_cache(cfg, n_ctx, device=device), 0)
+        lp = torch.log_softmax(logits.double(), -1).cpu().numpy()
+        first = 0 if s == 0 else n_ctx // 4
+        total += -sum(lp[i, tgt[i]] for i in range(first, len(tgt)))
+        n += max(0, len(tgt) - first)
+    return total / n
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = fn()
+    torch.cuda.synchronize()
+    return got, time.perf_counter() - t0
+
+
+def verify_step(device, cfg, params, n_layer: int, ids, k: int) -> dict:
+    """One replayed spec step (prompt lookup + the verify forward at M =
+    k+1 from the device position + accept + append) after a prefill of
+    `ids`: its launches against the tensor types' prediction at m = k+1,
+    its time over 7 more replays (chained on the device), and one replay
+    traced."""
+    kv, g, b, _ = speculative._prefilled(cfg, params, ids, k, SPEC_SEQ, 8, device)
+    b["i"].zero_()
+    before = launches()
+    g.replay()
+    out = {"launches": _delta(before)}
+    want = expected_launches("q4_k", n_layer, k + 1)
+    if out["launches"] != want:
+        raise AssertionError(f"verify step k={k}: launches {out['launches']}, its tensor types "
+                             f"predict {want}")
+    b["i"].zero_()
+    _, sec = _timed(lambda: [g.replay() for _ in range(7)])
+    out["step_ms"] = sec / 7 * 1e3
+    b["i"].zero_()
+    out["trace"] = trace_device(g.replay)
+    busy = out["trace"]["busy_ms"]
+    out["trace"]["busy_share"] = None if busy is None else busy / out["step_ms"]
+    return out
+
+
+def _cli(argv) -> tuple[str, str, str]:
+    """(stdout, stderr, the tok/s line) of one in-process CLI command."""
+    o, e = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(o), contextlib.redirect_stderr(e):
+        rc = cli.main(argv)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rc != 0:
+        raise AssertionError(f"cli {argv}: exit {rc}: {e.getvalue()[-2000:]}")
+    rate = [ln for ln in e.getvalue().splitlines() if "tok/s" in ln]
+    return o.getvalue(), e.getvalue(), rate[-1] if rate else ""
+
+
+def cli_phase(device, cfg, params, path: Path, tok) -> dict:
+    """The CLI in-process on the GGUF (f32 compute, as it loads): greedy
+    generate's ids equal `generate`'s on tok.encode(TEXT); --spec 8 prints
+    the greedy run's stdout; a seeded sampled run prints; `serve` of the
+    8+1 prompts as text at --max-batch 8 gives one completion per prompt,
+    each equal to a direct Engine run of the same ids and settings."""
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    text = synthetic_text(24, 24, cfg.n_vocab)
+    ids = tok.encode(text)
+    out = {"prompt_tokens": len(ids)}
+    dev = ["--device", device.type]
+    base = ["-m", str(path), "-p", text, "-n", str(N_NEW)] + dev
+    g_out, g_err, out["greedy_rate"] = _cli(base + ["--greedy"])
+    ref = llama.generate(cfg32, params, ids, N_NEW, device=device)
+    if f"prompt tokens: {ids}" not in g_err or g_out != tok.decode(ref) + "\n":
+        raise AssertionError("cli --greedy: its ids differ from generate's on the encoded text")
+    s_out, _, out["spec_rate"] = _cli(base + ["--spec", "8"])
+    if s_out != g_out:
+        raise AssertionError("cli --spec 8: stdout differs from the greedy run's")
+    r_out, _, out["sampled_rate"] = _cli(base + ["-s", "1", "--temp", "0.8"])
+    if not r_out.strip():
+        raise AssertionError("cli -s 1 --temp 0.8 printed nothing")
+    out["sampled_differs_from_greedy"] = r_out != g_out
+    lines = [synthetic_text(n, 30 + n, cfg.n_vocab) for n in SERVE_WORDS]
+    pfile = path.with_name("smoke_prompts.txt")
+    pfile.write_text("\n".join(lines) + "\n")
+    v_out, _, out["serve_rate"] = _cli(["serve", "-m", str(path), "--prompts", str(pfile),
+                                        "-n", str(N_NEW), "--max-batch", "8",
+                                        "--max-seq", str(SPEC_SEQ)] + dev)
+    pfile.unlink()
+    served = {int(ln[1:ln.index("]")]): ln[ln.index("]") + 2:] for ln in v_out.splitlines()}
+    eng = Engine(llama, cfg32, params, max_batch=8, max_seq=SPEC_SEQ, device=device)
+    rids = [eng.submit(tok.encode(ln), N_NEW, eos_id=tok.eos_id, top_k=40, top_p=0.9, seed=i)
+            for i, ln in enumerate(lines)]
+    direct = {r.rid: tok.decode(r.out) for r in eng.run()}
+    del eng
+    gc.collect()
+    if sorted(served) != list(range(len(lines))) or any(served[i] != direct[r]
+                                                       for i, r in enumerate(rids)):
+        raise AssertionError("cli serve: completions differ from a direct Engine run")
+    out["serve_requests"] = len(served)
+    return out
+
+
+@torch.inference_mode()
+def tools_phase(device, cfg, params, n_layer: int, path: Path) -> dict:
+    """Text from the GGUF file alone on the 32-layer Q4_K file: the
+    tokenizer from its metadata; speculative decoding by prompt lookup at
+    k = 8 and 7 on a repetitive and a plain prompt (SPEC_NEW tokens each,
+    streams == generate's greedy stream, accept rates, tok/s beside
+    decode_chunk's, the replayed verify step's launches, time and trace),
+    with a 4-layer layer-skip draft at k = 4 and with the full model as its
+    own draft (its first step accepts all k); perplexity over
+    PPL_TOKENS tokens at n_ctx PPL_CTX (n_tokens by the window rule, nll
+    against llama.forward's logits in float64); the CLI in-process.
+    Launch counts are set to 0 before and read after."""
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    tok = tokenizer.from_gguf(GGUFReader(path))
+    if tok is None or tok.n_vocab != cfg.n_vocab:
+        raise AssertionError("the GGUF's tokenizer is missing or not n_vocab tokens")
+    out = {"spec": {}, "verify_step": {}}
+    prompts = spec_prompts(cfg.n_vocab, tok)
+    refs = {}
+    for name, ids in prompts.items():
+        ref = refs[name] = llama.generate(cfg, params, ids, SPEC_NEW, max_seq=SPEC_SEQ,
+                                          device=device)
+        row = {"prompt_tokens": len(ids)}
+
+        def chunk():
+            kv = llama.make_cache(cfg, SPEC_SEQ, device=device)
+            logits, kv = llama.forward(cfg, params, torch.tensor(ids, device=device), kv, 0)
+            first = logits[-1].argmax().reshape(1)
+            toks, _, _ = llama.decode_chunk(cfg, params, kv, [first, len(ids)], SPEC_NEW - 1)
+            return ids + torch.cat([first, toks.to(first.dtype)]).tolist()
+
+        got, sec = _timed(chunk)       # a fresh cache and its capture, as spec_generate's
+        if got != ref:
+            raise AssertionError(f"decode_chunk on {name}: stream differs from generate's")
+        row["decode_chunk_tok_s"] = SPEC_NEW / sec
+        for k in SPEC_KS:
+            (got, stats), sec = _timed(lambda: speculative.spec_generate(
+                cfg, params, ids, SPEC_NEW, k=k, max_seq=SPEC_SEQ, return_stats=True,
+                device=device))
+            if got != ref:
+                raise AssertionError(f"spec k={k} on {name}: stream differs from greedy at "
+                                     f"{first_divergence(got, ref)}")
+            row[f"k{k}"] = {"accept_rate": stats["accept_rate"],
+                            "tokens_per_verify": stats["tokens_per_step"],
+                            "spec_steps": stats["spec_steps"], "tok_s": SPEC_NEW / sec}
+        (got, stats), sec = _timed(lambda: speculative.model_spec_generate(
+            cfg, params, ids, SPEC_NEW, draft_layers=4, k=4, max_seq=SPEC_SEQ,
+            return_stats=True, device=device))
+        if got != ref:
+            raise AssertionError(f"4-layer draft on {name}: stream differs from greedy at "
+                                 f"{first_divergence(got, ref)}")
+        row["draft4_k4"] = {"accept_rate": stats["accept_rate"],
+                            "spec_steps": stats["spec_steps"], "tok_s": SPEC_NEW / sec}
+        out["spec"][name] = row
+        gc.collect()
+    # the full model as its own draft: its first step accepts all k (the
+    # verify's m == k branch on the card); after a full accept the draft's
+    # cache lacks the row of its last proposal, which the reference's
+    # model_spec_step never feeds, so later steps accept less
+    ids = prompts["plain"]
+    (got, stats), sec = _timed(lambda: speculative.model_spec_generate(
+        cfg, params, ids, N_NEW, draft=(cfg, params), k=4, max_seq=SPEC_SEQ,
+        return_stats=True, device=device))
+    if got != refs["plain"][:len(ids) + N_NEW] or stats["accepted_per_step"][0] != 4:
+        raise AssertionError(f"self-draft: stream differs or its first step rejected ({stats})")
+    out["self_draft_k4"] = {"accepted_per_step": stats["accepted_per_step"],
+                            "accept_rate": stats["accept_rate"], "tok_s": N_NEW / sec}
+    # the replayed decode step in the same phase, for the verify's cost in steps
+    kv = llama.make_cache(cfg, SPEC_SEQ, device=device)
+    llama.forward(cfg, params, torch.tensor(ids, device=device), kv, 0)
+    llama.decode_chunk(cfg, params, kv, [1, len(ids)], 1)
+    _, sec = _timed(lambda: llama.decode_chunk(cfg, params, kv, [1, len(ids)], 16))
+    out["decode_step_ms"] = sec / 16 * 1e3
+    del kv
+    for k in SPEC_KS:
+        vs = out["verify_step"][f"k{k}"] = verify_step(device, cfg, params, n_layer, ids, k)
+        # a verify's cost in decode steps: the tokens per verify where lookup breaks even
+        vs["decode_steps"] = vs["step_ms"] / out["decode_step_ms"]
+        vs["tok_s_all_accepted"] = (k + 1) / vs["step_ms"] * 1e3
+    gc.collect()
+    # perplexity
+    ids = tok.encode(synthetic_text(2 * PPL_TOKENS, 23, cfg.n_vocab))[:PPL_TOKENS]
+    res, sec = _timed(lambda: perplexity.perplexity_llama(cfg, params, ids, n_ctx=PPL_CTX,
+                                                          device=device))
+    want_n = ppl_window_count(len(ids), PPL_CTX, PPL_CTX // 4)
+    if res["n_tokens"] != want_n:
+        raise AssertionError(f"perplexity: n_tokens {res['n_tokens']}, the window rule {want_n}")
+    ref_nll = ppl_reference_nll(cfg, params, ids, PPL_CTX, device)
+    rel = abs(res["nll"] - ref_nll) / abs(ref_nll)
+    if not rel < 1e-5:
+        raise AssertionError(f"perplexity: nll {res['nll']} vs {ref_nll} from llama.forward "
+                             f"(relative {rel:.3e})")
+    windows = len(range(0, len(ids) - 1, PPL_CTX))
+    out["perplexity"] = dict(res, tokens=len(ids), windows=windows, seconds=sec,
+                             tokens_per_s=windows * PPL_CTX / sec, nll_rel_vs_forward=rel)
+    gc.collect()
+    out["cli"] = cli_phase(device, cfg, params, path, tok)
+    out["launches"] = launches()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # K2's kernels in a trace: this tree's (fa::fwd_kernel, fa::combine_kernel)
 # and the single-kernel design before it (flash_fwd_kernel)
 K2_TRACE_NAMES = ("fa::", "flash_fwd_kernel")
@@ -2002,6 +2330,8 @@ def small_model_check(device) -> dict:
             if not e < tol:
                 raise AssertionError(f"small {recipe} model {n_tok} tokens: card vs CPU nmse {e}")
             res[f"{recipe}_nmse_{n_tok}_tokens"] = e
+        if recipe == "q4_k" and HAS_TOOLS:
+            res["q4_k_perplexity"] = small_perplexity(device, cfg, pc, pg)
         if recipe not in ("q4_k", "q3_k_m"):
             continue
         (cfg, pc), (_, pg) = (llama.load(path, device="cpu", layout="int8"),
@@ -2024,6 +2354,21 @@ def small_model_check(device) -> dict:
                                      f"nmse {e}")
             res[f"{recipe}_int8_nmse_{n_tok}_tokens"] = e
     return res
+
+
+def small_perplexity(device, cfg, pc, pg, n_ctx: int = 32, tol: float = 1e-9) -> dict:
+    """perplexity_llama of the tiny model on the card against the CPU's over
+    96 tokens in windows of n_ctx (the f32 route, M = 32): the nll within
+    sqrt(tol) relative, tol the bound of the forward comparison on that
+    route (logits nmse), and n_tokens equal."""
+    ids = np.random.default_rng(9).integers(0, cfg.n_vocab, 96)
+    cpu = perplexity.perplexity_llama(cfg, pc, ids, n_ctx=n_ctx, device="cpu")
+    card = perplexity.perplexity_llama(cfg, pg, ids, n_ctx=n_ctx, device=device)
+    rel = abs(card["nll"] - cpu["nll"]) / abs(cpu["nll"])
+    if card["n_tokens"] != cpu["n_tokens"] or not rel < tol ** 0.5:
+        raise AssertionError(f"small q4_k perplexity card {card} vs CPU {cpu} (nll relative "
+                             f"{rel:.3e}, bound {tol ** 0.5:.3e})")
+    return {"card": card, "cpu": cpu, "nll_rel": rel, "bound": tol ** 0.5}
 
 
 def autotune_phase(device) -> dict:
@@ -2210,6 +2555,38 @@ def main(argv=None) -> int:
                 f"{t['busy_ms']} ms ({t['device_activities']} activities), busy share "
                 f"{t['busy_share']}; {gs['graphs']} graphs captured in {gs['capture_s']:.2f} s, "
                 f"pool {gs['pool_bytes']} bytes")
+        if "tools" in mp:
+            tl = mp["tools"]
+            for name, row in tl["spec"].items():
+                log(f"  speculative on the {name} prompt ({row['prompt_tokens']} tokens, "
+                    f"{SPEC_NEW} new) [{label}]: == generate's greedy stream at k = "
+                    f"{', '.join(str(k) for k in SPEC_KS)} and with the 4-layer draft; "
+                    + "; ".join(f"k={k} accept {row[f'k{k}']['accept_rate']:.3f}, "
+                                f"{row[f'k{k}']['tokens_per_verify']:.2f} tok/verify, "
+                                f"{row[f'k{k}']['tok_s']:.1f} tok/s" for k in SPEC_KS)
+                    + f"; 4-layer draft k=4 accept {row['draft4_k4']['accept_rate']:.3f}, "
+                    f"{row['draft4_k4']['tok_s']:.1f} tok/s; decode_chunk "
+                    f"{row['decode_chunk_tok_s']:.1f} tok/s (each on a fresh cache, its "
+                    f"capture included)")
+            sd = tl["self_draft_k4"]
+            log(f"  self-draft k=4 [{label}]: accepted per step {sd['accepted_per_step']} "
+                f"(rate {sd['accept_rate']:.3f}), {sd['tok_s']:.1f} tok/s over {N_NEW} tokens")
+            for k, vs in tl["verify_step"].items():
+                t = vs["trace"]
+                log(f"  replayed verify step {k} [{label}]: {vs['step_ms']:.3f} ms (decode "
+                    f"step {tl['decode_step_ms']:.3f} ms: {vs['decode_steps']:.2f} steps; "
+                    f"{vs['tok_s_all_accepted']:.1f} tok/s if all accepted), launches {vs['launches']}, device "
+                    f"busy {t['busy_ms']} ms (share {t['busy_share']}); busiest "
+                    f"{t['top_ms'][:4]}")
+            pp = tl["perplexity"]
+            log(f"  perplexity [{label}]: ppl {pp['ppl']:.4f}, nll {pp['nll']:.6f} over "
+                f"{pp['n_tokens']} tokens ({pp['windows']} windows of {PPL_CTX}), "
+                f"{pp['tokens_per_s']:.1f} tokens/s, nll vs llama.forward's "
+                f"{pp['nll_rel_vs_forward']:.2e} relative")
+            c = tl["cli"]
+            log(f"  tools phase {tl['seconds']:.1f} s; cli [{label}]: greedy: {c['greedy_rate']} | --spec 8: {c['spec_rate']} | "
+                f"-s 1 --temp 0.8: {c['sampled_rate']} | serve {c['serve_requests']} "
+                f"requests == Engine: {c['serve_rate']}")
         if "scan_window" in mp:
             sw = mp["scan_window"]
             t = sw["trace"]
@@ -2293,7 +2670,7 @@ def main(argv=None) -> int:
     log(f"q4_k int8 layout vs kernel layout [{label}]: one decode step's logits nmse "
         f"{int8_nmse:.3e}")
     runs = ([tune] + list(paths.values())
-            + [mp[k] for mp in paths.values() for k in ("graphs", "pipeline") if k in mp])
+            + [mp[k] for mp in paths.values() for k in ("graphs", "pipeline", "tools") if k in mp])
     line = []
     for kern in kernels.KERNELS:
         rows = [r for r in results if r["kernel"] == kern.name]

@@ -368,6 +368,9 @@ class _Decoder:
         self.tok = torch.zeros(1, dtype=torch.int64, device=device)
         self.pos = torch.zeros(1, dtype=torch.int32, device=device)
         self.graphs = GraphCache(device)
+        # the static buffers of this cache's other captured programs
+        # (models/speculative.py), by name: they live as long as the graphs
+        self.buffers: dict = {}
 
     def load(self, tok, pos) -> None:
         """Set the next input token and its position (ints or device

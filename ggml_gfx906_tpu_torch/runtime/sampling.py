@@ -9,7 +9,9 @@ computes the same keys and bits in torch integer ops (uint32 values held in
 int64 and masked to 32 bits) and forms the Gumbel draws as jax.random.gumbel
 does. `sample_batch` takes the noise as an argument; the engine builds it
 with `gumbel_noise` on the host and copies it into its captured programs'
-noise buffer.
+noise buffer. The single-sequence sampler of the CLI (`sample_top_k_top_p`,
+with `split` and `categorical`) draws the reference's tokens from the same
+keys.
 
 ref: gpt_sample_top_k_top_p examples/common.cpp:113-121.
 """
@@ -60,6 +62,15 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     leading shape."""
     d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _MASK
     y0, y1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """jax.random.split(key, num) with jax_threefry_partitionable on: the
+    hash of the counts [0, i] for i < num, i.e. row i is fold_in(key, i).
+    key (2,) → (num, 2)."""
+    i = torch.arange(num, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(i), i)
     return torch.stack([y0, y1], dim=-1)
 
 
@@ -119,3 +130,36 @@ def sample_batch(logits, noise, temp, top_k, top_p, max_k: int = 64):
     choice = torch.argmax(logp + noise.to(lf.device), dim=-1)
     sampled = torch.gather(idx, 1, choice[:, None])[:, 0]
     return torch.where(temp > 0, sampled, torch.argmax(lf, dim=-1)).to(torch.int32)
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """jax.random.categorical(key, logits) of one row: the argmax of
+    logits + gumbel(key, n). The draws are made where the key lives (the
+    host, for the CLI's keys) and copied to the logits' device."""
+    g = gumbel(key, logits.shape[-1])
+    return torch.argmax(to_device(g, logits.device) + logits, dim=-1)
+
+
+def sample_top_k_top_p(logits: torch.Tensor, key: torch.Tensor, top_k: int = 40,
+                       top_p: float = 0.9, temp: float = 1.0) -> torch.Tensor:
+    """logits (n_vocab,) → int32 token id, as the reference's single-row
+    sampler (runtime/sampling.py:17-33): 1/temp, top-k, softmax, nucleus
+    keep with the first token always kept, renormalise, categorical over
+    log(max(p, 1e-30)). The temperature divides tensor by tensor (a CUDA
+    tensor divided by a Python scalar is multiplied by its reciprocal)."""
+    lf = logits.float()
+    if temp != 1.0:
+        lf = lf / torch.full_like(lf, temp)
+    n = lf.shape[-1]
+    k = min(top_k, n) if top_k > 0 else n
+    vals, idx = torch.topk(lf, k)
+    e = torch.exp(vals - vals.max())
+    probs = e / e.sum()
+    if top_p < 1.0:
+        csum = torch.cumsum(probs, dim=0)
+        keep = torch.cat([torch.ones(1, dtype=torch.bool, device=lf.device),
+                          csum[:-1] < top_p])
+        probs = torch.where(keep, probs, torch.zeros_like(probs))
+        probs = probs / probs.sum()
+    choice = categorical(key, torch.log(torch.clamp(probs, min=1e-30)))
+    return idx[choice].to(torch.int32)

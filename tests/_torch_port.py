@@ -80,9 +80,9 @@ PER_BLOCK = (("wq", "attn_q"), ("wk", "attn_k"), ("wv", "attn_v"),
              ("w_down", "ffn_down"))
 
 
-def recipe_cfg(n_ff: int, n_layer: int = 2, n_ctx: int = 128):
+def recipe_cfg(n_ff: int, n_layer: int = 2, n_ctx: int = 128, n_vocab: int = 256):
     """A tiny GQA llama whose matrix widths are multiples of 256."""
-    return jllama.LlamaConfig(n_vocab=256, n_ctx=n_ctx, n_embd=256, n_head=4,
+    return jllama.LlamaConfig(n_vocab=n_vocab, n_ctx=n_ctx, n_embd=256, n_head=4,
                               n_kv_head=2, n_layer=n_layer, n_ff=n_ff)
 
 
@@ -142,14 +142,20 @@ def recipe_logits(jcfg, jp, tcfg, tp, toks, max_seq: int = 128):
     return got.numpy(), np.asarray(ref)
 
 
-def write_recipe_gguf(path, cfg, weights, seed: int = 5):
+def write_recipe_gguf(path, cfg, weights, seed: int = 5, vocab: bool = False):
     """A llama GGUF of `weights` (blocks from the reference's quantizers),
-    written by the port's writer, with norm weights 1 + N(0, 0.1)."""
+    written by the port's writer, with norm weights 1 + N(0, 0.1); with
+    vocab, the smoke's synthetic SentencePiece vocabulary of cfg.n_vocab
+    tokens (chip_smoke.write_vocab)."""
     from ggml_gfx906_tpu_torch.gguf import GGUFWriter
 
     w = GGUFWriter()
     A = "llama"
     w.set("general.architecture", A)
+    if vocab:
+        import chip_smoke
+
+        chip_smoke.write_vocab(w, cfg.n_vocab)
     for key, val in (("context_length", cfg.n_ctx), ("embedding_length", cfg.n_embd),
                      ("attention.head_count", cfg.n_head),
                      ("attention.head_count_kv", cfg.n_kv_head),

@@ -42,7 +42,8 @@ def test_port_imports_no_jax_and_runs_a_cpu_forward():
         names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
         for n in names:
             importlib.import_module(n)
-        for n in ("utils.autotune", "utils.perf", "ops.cuda.dma_copy"):
+        for n in ("utils.autotune", "utils.perf", "ops.cuda.dma_copy", "models.tokenizer",
+                  "models.cli", "models.speculative", "models.perplexity"):
             assert pkg.__name__ + "." + n in names, n
         import chip_smoke   # the smoke script imports nothing of JAX either
         assert not any(m.split(".")[0] in ("jax", "jaxlib", "ggml_gfx906_tpu")
@@ -93,3 +94,27 @@ def test_entry_points_want_the_card(tmp_path):
         llama.generate(cfg, params, [1], 1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         llama.params_from_numpy({"out_norm": [1.0], "blocks": []})
+
+
+def test_tool_entry_points_want_the_card(tmp_path):
+    """The CLI (generate and serve), perplexity's command and function and
+    both speculative decoders run on cuda unless asked for the CPU, and
+    raise here, before reading any file."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry points would use it")
+    from ggml_gfx906_tpu_torch.models import cli, llama, perplexity, speculative
+
+    absent = str(tmp_path / "absent.gguf")
+    for call in (lambda: cli.main(["-m", absent, "-p", "hi"]),
+                 lambda: cli.main(["serve", "-m", absent, "--prompts", absent]),
+                 lambda: perplexity.main(["--model", absent, "--text", absent])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    cfg = llama.LlamaConfig(n_vocab=8, n_ctx=8, n_embd=8, n_head=1,
+                            n_kv_head=1, n_layer=1, n_ff=8)
+    params = {"out_norm": torch.ones(8), "blocks": []}
+    for call in (lambda: speculative.spec_generate(cfg, params, [1, 2], 2),
+                 lambda: speculative.model_spec_generate(cfg, params, [1, 2], 2),
+                 lambda: perplexity.perplexity_llama(cfg, params, [1, 2, 3])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

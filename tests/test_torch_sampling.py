@@ -73,3 +73,50 @@ def test_sample_batch_matches_reference_with_its_noise():
                                  torch.from_numpy(top_p), max_k)
     np.testing.assert_array_equal(got.numpy(), ref)
     assert got[0] == int(np.argmax(logits[0]))           # temp 0 → greedy
+
+
+# ------------------------------------- the CLI's single-row sampler
+
+def _keys(seed):
+    return jax.random.PRNGKey(seed), tsampling.prng_key(seed)
+
+
+@pytest.mark.parametrize("seed", range(50))
+def test_split_and_categorical_match_jax(seed):
+    """split: jax.random.split bit for bit (threefry partitionable: row i is
+    fold_in(key, i)), chained as the CLI chains its key; categorical: the
+    same index as jax.random.categorical on the same logits."""
+    jk, tk = _keys(seed)
+    rng = np.random.default_rng(seed)
+    for _ in range(3):
+        jk, jsub = jax.random.split(jk)
+        pair = tsampling.split(tk)
+        tk, tsub = pair[0], pair[1]
+        np.testing.assert_array_equal(tk.numpy(), np.asarray(jk).astype(np.int64))
+        np.testing.assert_array_equal(tsub.numpy(), np.asarray(jsub).astype(np.int64))
+        logits = (rng.standard_normal(500) * 2).astype(np.float32)
+        assert int(tsampling.categorical(tsub, torch.from_numpy(logits))) \
+            == int(jax.random.categorical(jsub, jnp.asarray(logits)))
+    np.testing.assert_array_equal(tsampling.split(tk, 5).numpy(),
+                                  np.asarray(jax.random.split(jk, 5)).astype(np.int64))
+
+
+@pytest.mark.parametrize("temp", [0.5, 1.0, 1.3])
+@pytest.mark.parametrize("top_k", [0, 1, 40])
+@pytest.mark.parametrize("top_p", [0.5, 0.9, 1.0])
+def test_sample_top_k_top_p_matches_reference(temp, top_k, top_p):
+    """The port's single-row sampler picks the reference's token on the same
+    logits and key, for keys from 50 seeds (each split once, as the CLI's
+    first token's key is)."""
+    rng = np.random.default_rng(int(temp * 10) + top_k + int(top_p * 100))
+    got, want = [], []
+    for seed in range(50):
+        jk, tk = _keys(seed)
+        logits = (rng.standard_normal(320) * 3).astype(np.float32)
+        want.append(int(jsampling.sample_top_k_top_p(jnp.asarray(logits), jax.random.split(jk)[1],
+                                                      top_k, top_p, temp)))
+        got.append(int(tsampling.sample_top_k_top_p(torch.from_numpy(logits),
+                                                    tsampling.split(tk)[1], top_k, top_p, temp)))
+    assert got == want
+    if top_k == 1:
+        assert len(set(got)) > 1      # the argmax of each row's logits

@@ -179,3 +179,70 @@ def test_serving_runtime_phases_run_on_the_cpu(monkeypatch):
     assert kv["kv_quant"]["launches_per_replayed_step"] == {"causal_flash_attention": 2}
     assert kv["paged"]["kv_bytes"] < 0.6 * kv["dense"]["kv_bytes"]
     assert max(kv["delta"]["logits_nmse_per_step"]) <= kv["delta"]["bound"]
+
+
+def test_tools_phase_is_on_the_q4_k_path():
+    """The 32-layer Q4_K path runs the tools phase on its file before the
+    file goes (keep_file), and its launches join the kernels line."""
+    import inspect
+
+    src = inspect.getsource(chip_smoke.main_path)
+    assert "tools_phase" in src and "keep_file" in src
+    assert '"tools"' in inspect.getsource(chip_smoke.main)
+    assert {"spec_generate", "model_spec_generate", "perplexity_llama", "verify_step",
+            "cli_phase", "ppl_reference_nll", "ppl_window_count"} \
+        <= _names(inspect.unwrap(chip_smoke.tools_phase).__code__)
+    assert chip_smoke.SPEC_KS == (8, 7)
+    assert chip_smoke.ppl_window_count(2048, 512, 128) == 512 + 3 * 384 - 1
+    assert chip_smoke.ppl_window_count(70, 32, 8) == 32 + 24
+
+
+def test_tools_phase_runs_on_the_cpu(monkeypatch, tmp_path):
+    """The tools phase end to end on a tiny Q4_K GGUF with the synthetic
+    vocabulary on the CPU (the card's synchronisation and traces stubbed,
+    K1's and K2's launches counted around their wrappers): speculative ==
+    generate at k = 8 and 7 and with the layer-skip draft, the verify step's
+    launches as its tensor types predict, perplexity's bookkeeping against
+    llama.forward's logits, and the CLI against generate and the Engine."""
+    import dataclasses
+
+    import torch
+
+    from ggml_gfx906_tpu_torch.ops import cuda as kernels
+    from ggml_gfx906_tpu_torch.ops.cuda import dispatch, flash_attn
+    from ggml_gfx906_tpu_torch.quant.types import GGMLType
+
+    for name in ("synchronize", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "trace_device", lambda fn, match=(): (fn(), {
+        "busy_ms": 1.0, "device_activities": 0, "profiled_wall_ms": 1.0, "matched_ms": 0.0,
+        "top_ms": []})[1])
+    for name, val in (("N_NEW", 5), ("SPEC_NEW", 10), ("SPEC_SEQ", 256), ("PPL_TOKENS", 96),
+                      ("PPL_CTX", 32), ("SERVE_WORDS", (3, 6, 9, 40))):
+        monkeypatch.setattr(chip_smoke, name, val)
+
+    def counted(kern, fn):
+        def run(*a, **k):
+            kern.launches += 1
+            return fn(*a, **k)
+        return run
+
+    monkeypatch.setattr(flash_attn, "causal_flash_attention",
+                        counted(kernels.K2, flash_attn.causal_flash_attention))
+    monkeypatch.setitem(dispatch._KERNELS, (GGMLType.Q4_K, "f32"),
+                        counted(kernels.K1, dispatch._KERNELS[(GGMLType.Q4_K, "f32")]))
+    path = tmp_path / "tiny_q4_k.gguf"
+    small = dict(n_vocab=512, n_ctx=512, n_embd=256, n_head=4, n_kv_head=2, n_ff=512)
+    chip_smoke.write_gguf(path, small, 2, "q4_k", random_scales=True)
+    cfg, params = chip_smoke.llama.load(path, device="cpu")
+    cfg = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
+    out = chip_smoke.tools_phase(torch.device("cpu"), cfg, params, 2, path)
+    assert set(out["spec"]) == {"repetitive", "plain"}
+    for row in out["spec"].values():
+        assert {"k8", "k7", "draft4_k4"} <= set(row)
+    assert out["verify_step"]["k8"]["launches"] == {"qmm_q4_K": 15, "causal_flash_attention": 2}
+    assert out["self_draft_k4"]["accepted_per_step"][0] == 4
+    pp = out["perplexity"]
+    assert pp["n_tokens"] == chip_smoke.ppl_window_count(96, 32, 8) and pp["windows"] == 3
+    assert out["cli"]["serve_requests"] == 4 and "tok/s" in out["cli"]["spec_rate"]
+    assert not (tmp_path / "smoke_prompts.txt").exists()
