@@ -92,8 +92,20 @@ Phases (each failure raises, so the script exits non-zero):
      int8 route's distance from them. The launch counts are set to 0 just
      before each path (and the K10 and autotune phases) and read just after
      it.
---checks and --paths cut phases 3 and 6 to the named checks and paths (a
-cut run skips phases 4 and 5 and prints no result line).
+  7. quantize: the codecs and the quantize tools at llama-7B width and
+     SHORT_LAYERS depth (quantize_phase): a seeded state dict converted to
+     an F16 GGUF, an imatrix collected over two 512-token chunks of
+     synthetic text, the file quantized on the card to Q4_K (with the
+     imatrix), Q8_0 and IQ4_XS (with the imatrix), 256 sampled rows of
+     five matrices of each held against the CPU codec byte for byte, each
+     file loaded and generating 32 greedy tokens after 100 with its
+     launches asserted (IQ4_XS in the int8 layout), the Q4_K file's fields
+     against QuantTensor.quantize on the card, and every codec card vs
+     CPU on 64 x 4096 rows (bytes and dequantized bits) with its rate on
+     4096 x 4096.
+--checks and --paths cut phases 3 and 6 to the named checks and paths,
+and --paths quantize runs phase 7 (a cut run skips phases 4 and 5 and
+prints no result line).
 Detailed results go to DIR/chip_smoke.json (default build/). The second-to-last
 stdout line is {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -115,6 +127,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -135,6 +148,12 @@ try:    # the tools slice; its phases are skipped on a tree without it
     HAS_TOOLS = True
 except ImportError:
     HAS_TOOLS = False
+try:    # the codecs and the quantize tools; the quantize phase needs them
+    from ggml_gfx906_tpu_torch.models import convert, imatrix, quantize_cli
+    from ggml_gfx906_tpu_torch.quant import registry
+    HAS_QUANT = True
+except ImportError:
+    HAS_QUANT = False
 from ggml_gfx906_tpu_torch.runtime.batched_kv import BatchedKVCache
 from ggml_gfx906_tpu_torch.runtime.engine import Engine
 from ggml_gfx906_tpu_torch.utils import autotune, config
@@ -1120,16 +1139,16 @@ def write_gguf(path: Path, cfg: dict, n_layer: int, recipe: str,
     tmp.rename(path)
 
 
-def expected_launches(recipe: str, n_layer: int, m: int, layout: str = "kernel") -> dict:
+def expected_launches(recipe, n_layer: int, m: int, layout: str = "kernel") -> dict:
     """Kernel launches of one forward over m tokens of the recipe's file on
     the card, under the current config: one K2 per layer, and in the kernel
     layout one per matrix product (the head's type is token_embd's when
     tied; the embedding is a row gather). The int8 layout's products are
-    plain torch."""
+    plain torch. `recipe` is a name in RECIPES or a recipe function."""
     out = {kernels.K2.name: n_layer}
     if layout == "int8":
         return out
-    types = RECIPES[recipe]
+    types = recipe if callable(recipe) else RECIPES[recipe]
     for name, layer, r, c in _matrices(CFG_7B, n_layer):
         if name == "token_embd":
             continue
@@ -2147,6 +2166,301 @@ def tools_phase(device, cfg, params, n_layer: int, path: Path) -> dict:
     return out
 
 
+# ------------------------------------------------------------ quantize
+
+# the files the quantize phase writes from one F16 file: (name, type, with
+# the imatrix); llama.cpp's Q4_K north-star file, Q8_0, and IQ4_XS (int8
+# layout)
+QUANT_FILES = (("q4_k", GGMLType.Q4_K, True), ("q8_0", GGMLType.Q8_0, False),
+               ("iq4_xs", GGMLType.IQ4_XS, True))
+QUANT_CALIB = 2            # calibration chunks of QUANT_CHUNK tokens for the imatrix
+QUANT_CHUNK = 512
+QUANT_ROWS = 256           # rows of each sampled matrix quantized again on the CPU
+QUANT_TYPE_ROWS = 64       # rows of the per-type card-vs-CPU codec checks
+QUANT_RATE_ROWS = 4096     # rows of the per-type timing on the card (64 MB of f32 at 4096)
+QUANT_SAMPLED = ("blk.0.attn_q.weight", "blk.0.ffn_gate.weight", "blk.0.ffn_down.weight",
+                 "output.weight", "token_embd.weight")
+
+
+def hf_state(cfg: dict, n_layer: int, device, seed: int = 16) -> dict:
+    """A Hugging Face LlamaForCausalLM state dict of cfg's width, random
+    from a seeded generator on `device` (matrices ~N(0, 0.02), norm weights
+    1 + N(0, 0.1)), with its own lm_head."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    D, FF, V = cfg["n_embd"], cfg["n_ff"], cfg["n_vocab"]
+    KVD = cfg["n_kv_head"] * (D // cfg["n_head"])
+
+    def mat(r, c):
+        return torch.randn(r, c, generator=gen, device=device) * 0.02
+
+    def norm():
+        return 1 + 0.1 * torch.randn(D, generator=gen, device=device)
+
+    sd = {"model.embed_tokens.weight": mat(V, D), "model.norm.weight": norm(),
+          "lm_head.weight": mat(V, D)}
+    for i in range(n_layer):
+        p = f"model.layers.{i}."
+        sd.update({p + "input_layernorm.weight": norm(),
+                   p + "post_attention_layernorm.weight": norm(),
+                   p + "self_attn.q_proj.weight": mat(D, D),
+                   p + "self_attn.k_proj.weight": mat(KVD, D),
+                   p + "self_attn.v_proj.weight": mat(KVD, D),
+                   p + "self_attn.o_proj.weight": mat(D, D),
+                   p + "mlp.gate_proj.weight": mat(FF, D),
+                   p + "mlp.up_proj.weight": mat(FF, D),
+                   p + "mlp.down_proj.weight": mat(D, FF)})
+    return sd
+
+
+def codec_rows(rng, rows: int, width: int) -> np.ndarray:
+    """rows x width f32 for the per-type checks: Gaussian rows of three
+    scales, rows with all-zero blocks, rows with one outlier per 32-block,
+    and rows of 32-blocks whose absmax sits at MXFP4's exponent edges
+    (2^k(1 - 2^-24), 2^k, 2^k(1 + 2^-23), -40 <= k <= 12)."""
+    q = rows // 8
+    g = rng.standard_normal((rows - 3 * q, width)).astype(np.float32)
+    g *= np.float32([1.0, 1e-3, 30.0])[np.arange(len(g)) % 3][:, None]
+    zero = rng.standard_normal((q, width)).astype(np.float32)
+    zero.reshape(q, -1, 32)[:, ::3] = 0
+    outl = (0.01 * rng.standard_normal((q, width))).astype(np.float32)
+    outl.reshape(q, -1, 32)[:, :, 7] = 5.0
+    # k up to 12: larger blocks overflow the f16 scales of the other types,
+    # whose inf and NaN bits are the hardware's own
+    amax = np.array([np.float32(np.ldexp(f, k)) for k in range(-40, 13)
+                     for f in (1 - 2.0 ** -24, 1.0, 1 + 2.0 ** -23)], np.float32)
+    edge = (0.001 * rng.standard_normal((q, width))).astype(np.float32)
+    eb = edge.reshape(-1, 32)
+    eb[:, 3] = np.resize(amax, len(eb))
+    return np.concatenate([g, zero, outl, edge])
+
+
+def _random_wire(qtype, rng, rows: int, width: int) -> np.ndarray:
+    """Random wire blocks of `qtype` with finite f16 scales, (rows, bytes)."""
+    from ggml_gfx906_tpu_torch.quant.types import TYPE_TRAITS
+
+    dt = TYPE_TRAITS[qtype].block_dtype
+    nb = width // TYPE_TRAITS[qtype].blck_size
+    b = rng.integers(0, 256, (rows, nb * dt.itemsize), dtype=np.uint8).view(dt)
+    for f in ("d", "dmin", "m"):
+        if f in dt.names:
+            b[f] = rng.uniform(-0.05, 0.05, b.shape).astype(dt[f].base)
+    if qtype == GGMLType.IQ1_M:
+        b["scales"][..., 7] &= 0xBF          # the f16 scale's top exponent bit: finite
+    return b.view(np.uint8).reshape(rows, -1)
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.cpu().view(torch.int32), b.cpu().view(torch.int32))
+
+
+def codec_checks(device, width: int) -> dict:
+    """Every type the registry quantizes, on QUANT_TYPE_ROWS x width rows
+    (codec_rows) on the card and on the CPU, with and without an importance
+    row: the wire bytes must be equal, and so must every dequantizer's bits
+    (the reference's 24 types; random wire blocks for the grid-search
+    types). Each type's rate on the card: f32 input GB/s of one call on
+    QUANT_RATE_ROWS x width Gaussian rows."""
+    rng = np.random.default_rng(19)
+    x = torch.from_numpy(codec_rows(rng, QUANT_TYPE_ROWS, width))
+    qw = torch.from_numpy(rng.uniform(0.05, 3.0, width).astype(np.float32))
+    xd, qwd = x.to(device), qw.to(device)
+    big = torch.randn(QUANT_RATE_ROWS, width, generator=torch.Generator(device=device)
+                      .manual_seed(20), device=device)
+    out = {}
+    for t in registry.supported_quant_types():
+        for weighted in (False, True):
+            if weighted and t not in registry._QUANTIZE_IMATRIX \
+                    and t not in registry._IMATRIX_IGNORED:
+                continue
+            card = registry.quantize(t, xd, qwd if weighted else None)
+            cpu = registry.quantize(t, x, qw if weighted else None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            registry.quantize(t, big, qwd if weighted else None)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            key = t.name + ("+imatrix" if weighted else "")
+            if card.device.type != device.type or not torch.equal(card.cpu(), cpu):
+                raise AssertionError(f"{key}: the card's bytes differ from the CPU's")
+            if not _bits_equal(registry.dequantize(t, card, width),
+                               registry.dequantize(t, cpu, width)):
+                raise AssertionError(f"{key}: dequantization differs between card and CPU")
+            out[key] = {"rate_s": sec, "gb_per_s": big.numel() * 4 / sec / 1e9}
+    for t in sorted(registry.SEARCH_TYPES):
+        raw = torch.from_numpy(_random_wire(t, rng, QUANT_TYPE_ROWS, width))
+        card = registry.dequantize(t, raw.to(device), width)
+        if not _bits_equal(card, registry.dequantize(t, raw, width)):
+            raise AssertionError(f"{t.name}: dequantization differs between card and CPU")
+        out[t.name] = {"dequant_only": True}
+    return out
+
+
+def rows_vs_cpu(f16: Path, dst: Path, qtype, im) -> dict:
+    """QUANT_ROWS rows of each QUANT_SAMPLED matrix of the F16 file,
+    quantized again on the CPU (with the file's importance row), against the
+    rows of `dst` that the card wrote: equal bytes, or the phase fails."""
+    src, got = GGUFReader(f16), GGUFReader(dst)
+    rng = np.random.default_rng(17)
+    out = {}
+    for name in QUANT_SAMPLED:
+        n_rows = src.tensors[name].shape[0]
+        idx = np.sort(rng.choice(n_rows, min(QUANT_ROWS, n_rows), replace=False))
+        x = torch.from_numpy(src.tensor_array(name)[idx].astype(np.float32))
+        qw = None if im is None else torch.from_numpy(im[name])
+        cpu = registry.quantize(qtype, x, qw).numpy()
+        card = np.asarray(got.tensor_bytes(name)).reshape(n_rows, -1)[idx]
+        if not np.array_equal(cpu, card):
+            raise AssertionError(f"{dst.name} {name}: the card's rows differ from the CPU's")
+        out[name] = len(idx)
+    return out
+
+
+def load_and_generate(device, path: Path, qtype, n_layer: int, prompt):
+    """Load a quantized file (its load seconds and peak memory), generate
+    N_NEW greedy tokens after `prompt` at bf16 compute, and hold the
+    launches to what the file's types predict (the prefill at M =
+    len(prompt), N_NEW - 1 decode steps; K2 only in the int8 layout).
+    Returns (the numbers, cfg, params)."""
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg, params = llama.load(path, device=device)
+    torch.cuda.synchronize()
+    out = {"load_s": time.perf_counter() - t0,
+           "load_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    cfg = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
+    quant = [t for t in _leaves(params) if isinstance(t, QuantTensor)]
+    out["layouts"] = sorted({t.layout for t in quant})
+    layout = "int8" if qtype not in dispatch.KERNEL_TYPES else "kernel"
+    if out["layouts"] != [layout] or {t.qtype for t in quant} != {qtype}:
+        raise AssertionError(f"{path.name}: matrices {out['layouts']}, expected {qtype.name} "
+                             f"in the {layout} layout")
+    out["weights_gb"] = sum(t.nbytes for t in quant) / 1e9
+    types = lambda name, layer, n: qtype                                   # noqa: E731
+    want = {}
+    for m, times in ((len(prompt), 1), (1, N_NEW - 1)):
+        for k, v in expected_launches(types, n_layer, m, layout).items():
+            want[k] = want.get(k, 0) + v * times
+    before = launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stream = llama.generate(cfg, params, prompt, N_NEW, max_seq=1024, device=device)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    got = _delta(before)
+    if got != want:
+        raise AssertionError(f"{path.name}: launches {got}, its tensor types predict {want}")
+    out.update(generate_s=gen_s, tok_s=N_NEW / gen_s, launches=got,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               stream_sha256=hashlib.sha256(json.dumps(stream).encode()).hexdigest())
+    return out, cfg, params
+
+
+@torch.inference_mode()
+def quantize_phase(device, cfg: dict, n_layer: int) -> dict:
+    """The codecs and the quantize tools on the card at cfg's width:
+    convert a seeded random state dict to an F16 GGUF (with the synthetic
+    SentencePiece vocabulary), collect an imatrix over QUANT_CALIB chunks of
+    synthetic_text (dense torch.matmul products, K2), quantize the file on
+    the card to each of QUANT_FILES (seconds, GB/s), hold sampled rows of
+    each against the CPU codec (rows_vs_cpu), load and generate from each
+    (load_and_generate: K1 and K3 on Q4_K, K5 and K5-i8 on Q8_0, K2 alone
+    on IQ4_XS in the int8 layout), hold the Q4_K file's fields against
+    QuantTensor.quantize on the card, and every codec card vs CPU
+    (codec_checks). Files are deleted once used. Launch counts are set to 0
+    before and read after."""
+    kernels.reset_launches()
+    t_phase = time.perf_counter()
+    work = ROOT / "build"
+    work.mkdir(parents=True, exist_ok=True)
+    out = {"layers": n_layer, "files": {}}
+    f16 = work / f"smoke_llama7b_f16_L{n_layer}.gguf"
+    hf_cfg = SimpleNamespace(
+        vocab_size=cfg["n_vocab"], max_position_embeddings=cfg["n_ctx"],
+        hidden_size=cfg["n_embd"], num_hidden_layers=n_layer, intermediate_size=cfg["n_ff"],
+        num_attention_heads=cfg["n_head"], num_key_value_heads=cfg["n_kv_head"],
+        rms_norm_eps=1e-5, rope_theta=10000.0)
+    tokens, scores, types = spm_vocab(cfg["n_vocab"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sd = hf_state(cfg, n_layer, device)
+    convert.convert_llama(sd, hf_cfg, f16, ftype=GGMLType.F16, tokens=list(tokens),
+                          scores=list(scores), token_types=list(types))
+    out["convert_s"] = time.perf_counter() - t0
+    out["f16_gb"] = f16.stat().st_size / 1e9
+    log(f"quantize phase: F16 file {out['f16_gb']:.2f} GB in {out['convert_s']:.1f} s")
+    del sd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the imatrix over calibration text, on the F16 model's dense products
+    t0 = time.perf_counter()
+    fcfg, fparams = llama.load(f16, device=device)
+    torch.cuda.synchronize()
+    out["f16_load_s"] = time.perf_counter() - t0
+    tok = tokenizer.from_gguf(GGUFReader(f16))
+    ids = tok.encode(synthetic_text(QUANT_CALIB * QUANT_CHUNK, 31, cfg["n_vocab"]))
+    chunks = [ids[i * QUANT_CHUNK:(i + 1) * QUANT_CHUNK] for i in range(QUANT_CALIB)]
+    assert all(len(c) == QUANT_CHUNK for c in chunks)
+    before = launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    im = imatrix.collect_llama(fcfg, fparams, chunks, max_seq=QUANT_CHUNK, device=device)
+    torch.cuda.synchronize()
+    out["imatrix_s"] = time.perf_counter() - t0
+    out["imatrix_launches"] = _delta(before)
+    if (len(im) != 7 * n_layer + 2 or out["imatrix_launches"] != {
+            kernels.K2.name: n_layer * QUANT_CALIB}
+            or not all(np.isfinite(v).all() and (v > 0).all() for v in im.values())):
+        raise AssertionError(f"imatrix: {len(im)} entries, launches "
+                             f"{out['imatrix_launches']}")
+    del fparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    prompt = [int(t) for t in np.random.default_rng(5).integers(1, cfg["n_vocab"], 100)]
+    for name, qtype, use_im in QUANT_FILES:
+        dst = work / f"smoke_llama7b_{name}_L{n_layer}.gguf"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b_in, b_out = quantize_cli.quantize_gguf(f16, dst, qtype, verbose=False,
+                                                 imatrix=im if use_im else None, device=device)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        row = {"type": qtype.name, "imatrix": use_im, "quantize_s": sec,
+               "gb_in": b_in / 1e9, "gb_out": b_out / 1e9, "gb_per_s": b_in / sec / 1e9,
+               "file_gb": dst.stat().st_size / 1e9}
+        t0 = time.perf_counter()
+        row["rows_equal_cpu"] = rows_vs_cpu(f16, dst, qtype, im if use_im else None)
+        row["rows_check_s"] = time.perf_counter() - t0
+        got, qcfg, params = load_and_generate(device, dst, qtype, n_layer, prompt)
+        row.update(got)
+        if qtype == GGMLType.Q4_K:
+            # the file's tensor == QuantTensor.quantize on the card from the F16 rows
+            nm = "blk.0.attn_q.weight"
+            x = torch.from_numpy(np.array(GGUFReader(f16).tensor_array(nm))).to(device)
+            qt = QuantTensor.quantize(qtype, x.float(), device, quant_weights=im[nm])
+            loaded = params["blocks"][0]["wq"]
+            if qt.fields.keys() != loaded.fields.keys() or not all(
+                    torch.equal(qt.fields[f], loaded.fields[f]) for f in qt.fields):
+                raise AssertionError("the Q4_K file's fields differ from QuantTensor.quantize's")
+            row["fields_equal_quantize"] = nm
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        dst.unlink()
+        out["files"][name] = row
+        log(f"quantize phase: {name} {row['quantize_s']:.1f} s, load {row['load_s']:.1f} s, "
+            f"{row['tok_s']:.1f} tok/s")
+    f16.unlink()
+    t0 = time.perf_counter()
+    out["codecs"] = codec_checks(device, cfg["n_embd"])
+    out["codec_checks_s"] = time.perf_counter() - t0
+    out["launches"] = launches()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 # K2's kernels in a trace: this tree's (fa::fwd_kernel, fa::combine_kernel)
 # and the single-kernel design before it (flash_fwd_kernel)
 K2_TRACE_NAMES = ("fa::", "flash_fwd_kernel")
@@ -2410,9 +2724,9 @@ def main(argv=None) -> int:
                     help="comma-separated kernel checks of phase 3 (default: all; "
                          "'none' for no check)")
     ap.add_argument("--paths", default=None,
-                    help="comma-separated main paths of phase 6 (default: all); a run "
-                         "cut by --checks or --paths skips phases 4 and 5 and prints no "
-                         "result line")
+                    help="comma-separated main paths of phase 6 (default: all), and "
+                         "'quantize' for phase 7; a run cut by --checks or --paths skips "
+                         "phases 4 and 5 and prints no result line")
     args = ap.parse_args(argv)
     checks = [] if args.checks == "none" else args.checks.split(",")
     unknown = set(checks) - set(CHECKS)
@@ -2455,6 +2769,8 @@ def main(argv=None) -> int:
     partial = len(checks) < len(CHECKS) or args.paths is not None
     if not (HAS_GRAPHS or partial):
         raise AssertionError("llama.decode_chunk is missing: the graphs phase cannot run")
+    if not (HAS_QUANT or partial):
+        raise AssertionError("the codecs are missing: the quantize phase cannot run")
 
     small = {} if partial else small_model_check(device)
     if not partial:
@@ -2638,6 +2954,28 @@ def main(argv=None) -> int:
                 f"{dl['delta_window']['window_ms']:.3f} ms (busy "
                 f"{dl['delta_window']['trace']['busy_ms']} ms)")
 
+    quant = None
+    if HAS_QUANT and (not partial or "quantize" in (args.paths or "").split(",")):
+        quant = quantize_phase(device, CFG_7B, short)
+        log(f"quantize phase ({short} of 32 layers) [{label}]: convert to F16 "
+            f"{quant['convert_s']:.1f} s ({quant['f16_gb']:.2f} GB), F16 load "
+            f"{quant['f16_load_s']:.1f} s, imatrix over {QUANT_CALIB}x{QUANT_CHUNK} tokens "
+            f"{quant['imatrix_s']:.2f} s (launches {quant['imatrix_launches']})")
+        for name, row in quant["files"].items():
+            log(f"  {name} ({row['type']}{' + imatrix' if row['imatrix'] else ''}) "
+                f"[{label}]: quantized on the card in {row['quantize_s']:.2f} s "
+                f"({row['gb_per_s']:.2f} GB/s of F16 input; {row['file_gb']:.3f} GB file), "
+                f"sampled rows == CPU codec {row['rows_equal_cpu']} ({row['rows_check_s']:.1f} s), "
+                f"load {row['load_s']:.2f} s in the {row['layouts']} layout (peak "
+                f"{row['load_peak_gb']:.2f} GB; {row['weights_gb']:.2f} GB of weights), "
+                f"generate {N_NEW} tokens after 100 at {row['tok_s']:.2f} tok/s, "
+                f"launches {row['launches']}, stream sha256 {row['stream_sha256'][:16]}")
+        log(f"  codecs card == CPU for {len(quant['codecs'])} type checks "
+            f"({quant['codec_checks_s']:.1f} s); GB/s of f32 input on "
+            f"{QUANT_RATE_ROWS}x4096 [{label}]: "
+            + ", ".join(f"{k} {v['gb_per_s']:.3f}" for k, v in quant["codecs"].items()
+                        if "gb_per_s" in v)
+            + f"; quantize phase {quant['seconds']:.1f} s")
     rep = {"qmm_q4_K": "M=8 N=11008 K=4096",
            "qmm_q4_K_i8": "M=128 N=11008 K=4096",
            "causal_flash_attention": "decode B=8 H=32 window=1024 f32q_bf16kv",
@@ -2657,7 +2995,7 @@ def main(argv=None) -> int:
     if partial:
         detail = {"device": smi, "build_s": build_s, "build": build.BUILD_LOG,
                   "kernels": results, "row_checks": row_checks, "main_paths": paths,
-                  "checks": checks, "partial": True}
+                  "quantize": quant, "checks": checks, "partial": True}
         for mp in paths.values():
             mp.pop("probe_logits", None)
         args.out.mkdir(parents=True, exist_ok=True)
@@ -2669,7 +3007,7 @@ def main(argv=None) -> int:
     paths["q4_k auto"].pop("probe_logits")
     log(f"q4_k int8 layout vs kernel layout [{label}]: one decode step's logits nmse "
         f"{int8_nmse:.3e}")
-    runs = ([tune] + list(paths.values())
+    runs = ([tune] + list(paths.values()) + ([quant] if quant else [])
             + [mp[k] for mp in paths.values() for k in ("graphs", "pipeline", "tools") if k in mp])
     line = []
     for kern in kernels.KERNELS:
@@ -2685,7 +3023,7 @@ def main(argv=None) -> int:
             "shape": r["shape"]})
     detail = {"device": smi, "build_s": build_s, "build": build.BUILD_LOG,
               "kernels": results, "row_checks": row_checks, "autotune": tune,
-              "main_paths": paths, "small_model": small}
+              "main_paths": paths, "quantize": quant, "small_model": small}
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke.json").write_text(json.dumps(detail, indent=1, default=str))
     log(json.dumps({"kernels": line}))

@@ -4,11 +4,11 @@ A numpy-only copy of ggml_gfx906_tpu/gguf/format.py (spec comment at ggml's
 include/gguf.h:1-31; reference reader src/gguf.cpp:319
 gguf_init_from_file_impl, writer src/gguf.cpp:1332 gguf_write_to_file).
 Reading memory-maps the aligned data blob and exposes tensors as zero-copy
-numpy views. Two differences from the JAX package's copy: the writer
+numpy views. One difference from the JAX package's copy: the writer
 streams tensor data to the file instead of assembling the whole file in
-memory (a 7B-shape file is ~4 GB), and only float tensors are converted by
-`tensor_float` / `add_array_tensor` (the port has no quantization codecs
-yet; quantized tensors are read as blocks and written as packed bytes).
+memory (a 7B-shape file is ~4 GB). `tensor_float` dequantizes and
+`add_array_tensor` quantizes through the port's codecs (quant/registry.py),
+on the CPU for numpy arrays and on a tensor's own device for tensors.
 
 GGUF dims are stored fastest-varying-first (ne[0] = contiguous row length);
 numpy shapes are the reverse. `TensorInfo.shape` is the numpy/C-order shape,
@@ -210,15 +210,19 @@ class GGUFReader:
         return self.tensor_bytes(name).view(dt).reshape(ti.shape)
 
     def tensor_float(self, name: str) -> np.ndarray:
-        """Float tensor (F32/F16/BF16) as float32, C-order shape."""
+        """Tensor as float32, C-order shape; a quantized one dequantized on
+        the CPU by the port's codecs."""
+        from ..quant.registry import dequantize_bytes
+
         ti = self.tensors[name]
         if ti.type in (GGMLType.F32, GGMLType.F16):
             return self.tensor_array(name).astype(np.float32)
         if ti.type == GGMLType.BF16:
             raw = self.tensor_array(name).astype(np.uint32) << 16
             return raw.view(np.float32).reshape(ti.shape)
-        raise ValueError(f"tensor {name} is {ti.type.name}: read it with "
-                         "tensor_blocks")
+        out = dequantize_bytes(ti.type, self.tensor_bytes(name), ti.ne[0],
+                               ti.n_elements // ti.ne[0])
+        return out.numpy().reshape(ti.shape)
 
 
 @dataclass
@@ -264,19 +268,28 @@ class GGUFWriter:
         self._tensors.append((name, tuple(ne), ttype, data))
         return self
 
-    def add_array_tensor(self, name: str, arr: np.ndarray,
-                         ttype: GGMLType | None = None):
-        """Float numpy array (C-order) → F32 (default) or F16 tensor."""
+    def add_array_tensor(self, name: str, arr, ttype: GGMLType | None = None):
+        """Float array (C-order; a numpy array or a tensor) → an F32
+        (default), F16 or quantized tensor. The conversion runs where the
+        data is: a tensor on its device (the card's bytes come back to the
+        host), a numpy array on the CPU."""
+        import torch
+
+        from ..quant.registry import quantize
+
         ne = tuple(reversed(arr.shape))
-        if ttype is None or ttype == GGMLType.F32:
-            return self.add_tensor(name, ne, GGMLType.F32,
-                                   np.ascontiguousarray(arr, "<f4").tobytes())
-        if ttype == GGMLType.F16:
-            return self.add_tensor(name, ne, GGMLType.F16,
-                                   np.ascontiguousarray(arr, "<f2").tobytes())
-        raise NotImplementedError(
-            f"{ttype.name}: the port has no quantizer; pass packed blocks to "
-            "add_tensor")
+        ttype = GGMLType.F32 if ttype is None else ttype
+        if ttype in (GGMLType.F32, GGMLType.F16):
+            if isinstance(arr, torch.Tensor):
+                dt = torch.float32 if ttype == GGMLType.F32 else torch.float16
+                data = arr.to(torch.float32).to(dt).contiguous().cpu().numpy()
+            else:
+                data = np.ascontiguousarray(arr, "<f4" if ttype == GGMLType.F32 else "<f2")
+        else:
+            t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(
+                np.ascontiguousarray(arr, np.float32))
+            data = quantize(ttype, t.reshape(-1, t.shape[-1])).cpu().numpy()
+        return self.add_tensor(name, ne, ttype, data.reshape(-1).view(np.uint8))
 
     # -- serialization ----------------------------------------------------
 

@@ -16,8 +16,11 @@ runs in plain torch (ops/quantized.py::_int8_layout_matmul).
 GGUF schema: llama.cpp conventions (kv `llama.*`; tensors blk.N.attn_q|
 attn_k|attn_v|attn_output|ffn_gate|ffn_up|ffn_down|attn_norm|ffn_norm).
 
-Entry points (`load`, `params_from_numpy`, `generate`) run on the card
-unless device="cpu" is passed, and raise when no CUDA device exists.
+Entry points (`load`, `params_from_numpy`, `random_params`, `generate`)
+run on the card unless device="cpu" is passed, and raise when no CUDA
+device exists. `load` takes every GGUF type: the types without kernels
+(IQ*, TQ*, MXFP4) load into the int8 execution layout, token_embd and a
+tied head included (ops/quantized.py::QuantTensor.from_wire).
 `decode_step`, `decode_chunk` and `decode_scan` decode greedily on the
 device of the cache they are given, dense or int8 (`make_cache(quant=
 True)`; the quantizing write is captured with the step): each is a
@@ -88,6 +91,9 @@ def _to_param(reader: GGUFReader, name: str, device):
             raise ValueError(f"{name}: quantized tensors must be 2-D")
         return QuantTensor.from_wire(ti.type, reader.tensor_bytes(name),
                                      tuple(ti.shape), device)
+    if ti.type in (GGMLType.F32, GGMLType.F16):
+        # to the device as stored, widened to f32 there (exact)
+        return torch.from_numpy(np.array(reader.tensor_array(name))).to(device).to(torch.float32)
     return torch.from_numpy(reader.tensor_float(name)).to(device)
 
 
@@ -174,6 +180,39 @@ def params_from_numpy(tree: dict, device=None) -> dict:
     out["blocks"] = [{k: conv(v) for k, v in blk.items()}
                      for blk in tree["blocks"]]
     return out
+
+
+def random_params(cfg: LlamaConfig, seed: int = 0, qtype: GGMLType | None = None,
+                  dtype=torch.float32, device=None) -> dict:
+    """Random weights ~N(0, 0.02) from numpy's generator at `seed`, drawn in
+    the reference's order (:459-480), so equal seeds give the reference's
+    weights and, with qtype, its blocks: each matrix whose rows are whole
+    blocks of qtype is quantized on `device` by the codecs
+    (QuantTensor.quantize), the others kept dense in `dtype`; norm weights
+    are ones. On the card unless device="cpu"."""
+    device = resolve(device)
+    rng = np.random.default_rng(seed)
+    D, V, FF = cfg.n_embd, cfg.n_vocab, cfg.n_ff
+    KVD = cfg.n_kv_head * cfg.head_dim
+
+    def mat(r, c, scale=0.02):
+        a = (rng.standard_normal((r, c)) * scale).astype(np.float32)
+        if qtype is not None and c % TYPE_TRAITS[qtype].blck_size == 0:
+            return QuantTensor.quantize(qtype, a, device)
+        return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+    def ones():
+        return torch.ones(D, dtype=dtype, device=device)
+
+    p = {"wte": mat(V, D), "out_norm": ones(), "blocks": []}
+    for _ in range(cfg.n_layer):
+        p["blocks"].append({
+            "attn_norm": ones(),
+            "wq": mat(D, D), "wk": mat(KVD, D), "wv": mat(KVD, D), "wo": mat(D, D),
+            "ffn_norm": ones(),
+            "w_gate": mat(FF, D), "w_up": mat(FF, D), "w_down": mat(D, FF),
+        })
+    return p
 
 
 def _from_reference_wire(qtype: GGMLType, shape, fields: dict, device) -> QuantTensor:

@@ -54,6 +54,11 @@ A QuantTensor's `layout` says which matmul runs it (`qmatmul`):
 - "int8": the reference's int8 execution layout (quantized.py:412-605),
   w8t (K/tile, N, tile) i8 and dwt (K/tile, N) f32, each (row, K-tile)
   requantized against its own max; `_int8_layout_matmul` in plain torch.
+  The types without kernels or wire fields (IQ1_S, IQ1_M, IQ2_XXS, IQ2_XS,
+  IQ2_S, IQ3_XXS, IQ3_S, IQ4_NL, IQ4_XS, TQ1_0, TQ2_0, MXFP4) load straight
+  into it: dequantized on the device by the codecs (quant/registry.py),
+  then requantized per tile, as the reference loads them (quantized.py:
+  345-369).
 
 ref: ggml's mul_mat convention — weights are (n_out, n_in) rows and
 `mul_mat(W, x)` dots rows of x with rows of W, i.e. x @ W.T here.
@@ -65,9 +70,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..quant import registry
 from ..quant.dequant_math import dequant_q8_0, unpack_q3_scales, unpack_scale_min_k4
 from ..quant.types import GGMLType, TYPE_TRAITS
 from ..utils import autotune, config
+from ..utils.device import resolve
 from .cuda import dispatch
 from .cuda import qmm as _qmm
 from .cuda import qmm_legacy as _qmm_legacy
@@ -242,31 +249,52 @@ class QuantTensor:
     @staticmethod
     def _layout(qtype: GGMLType, shape) -> str:
         """"kernel" where the type's kernels take the shape, else "wire"
-        where its fields can still be dequantized; raises otherwise."""
-        if qtype not in _FIELDS:
-            raise NotImplementedError(f"{qtype.name} weights are not ported yet")
-        k = shape[-1]
-        if qtype in _K_MULT and k % _K_MULT[qtype] == 0:
-            return "kernel"
+        where its fields can still be dequantized, "int8" for the types
+        that have only a codec; raises otherwise."""
         blck = TYPE_TRAITS[qtype].blck_size
-        if k % blck:
-            raise ValueError(f"{qtype.name} row length {k} is not a multiple of {blck}")
+        if shape[-1] % blck:
+            raise ValueError(f"{qtype.name} row length {shape[-1]} is not a multiple of {blck}")
+        if qtype not in _FIELDS:
+            if qtype not in registry._DEQUANTIZE:
+                raise NotImplementedError(f"{qtype.name} weights are not ported yet")
+            return "int8"
+        if qtype in _K_MULT and shape[-1] % _K_MULT[qtype] == 0:
+            return "kernel"
         return "wire"
 
     @classmethod
     def from_wire(cls, qtype: GGMLType, raw, shape: tuple[int, int],
                   device) -> "QuantTensor":
         """From packed wire bytes (a uint8 numpy array or tensor of N rows
-        of blocks, e.g. GGUFReader.tensor_bytes). The bytes go to the
-        device as they are and are split into fields there; the layout is
-        "kernel" where the kernels take the shape, else "wire"."""
+        of blocks, e.g. GGUFReader.tensor_bytes or registry.quantize's
+        output). The bytes go to the device as they are and are split into
+        fields there; the layout is "kernel" where the kernels take the
+        shape, else "wire"; a type with only a codec is dequantized there
+        and requantized into the int8 layout (tile from `_choose_tile`,
+        reference quantized.py:345-369)."""
         layout = cls._layout(qtype, shape)
         n, k = shape
         tt = TYPE_TRAITS[qtype]
         if not isinstance(raw, torch.Tensor):
             raw = torch.from_numpy(np.array(raw, dtype=np.uint8, copy=True))
         raw = raw.to(device).reshape(n, k // tt.blck_size, tt.type_size)
+        if layout == "int8":
+            w8t, dwt = _requant_tiles(registry.dequantize(qtype, raw, k), _choose_tile(k, None))
+            return cls(qtype, (n, k), {"w8t": w8t, "dwt": dwt}, "int8")
         return cls(qtype, (n, k), _wire_fields(qtype, raw), layout)
+
+    @classmethod
+    def quantize(cls, qtype: GGMLType, x, device=None, quant_weights=None) -> "QuantTensor":
+        """Quantize f32 (N, K) (a tensor or an array) with the codecs on
+        `device` (the card unless asked for the CPU) and load the wire bytes
+        as from_wire does (reference quantized.py:377-383). quant_weights:
+        an importance row (K,) (quant/registry.py::quantize)."""
+        device = resolve(device)
+        x = torch.as_tensor(x).to(device=device, dtype=torch.float32)
+        if x.dim() != 2:
+            raise ValueError(f"expected an (N, K) matrix, got {tuple(x.shape)}")
+        return cls.from_wire(qtype, registry.quantize(qtype, x, quant_weights),
+                             tuple(x.shape), device)
 
     @classmethod
     def from_blocks(cls, qtype: GGMLType, blocks: np.ndarray, device) -> "QuantTensor":

@@ -1,5 +1,6 @@
-"""Quant types and the Q4_0, Q4_1, Q5_0, Q5_1, Q4_K, Q5_K, Q6_K and Q8_0
-dequantization math (numpy types, torch math)."""
+"""Quant types and codecs (ref: src/ggml-quants.c, src/ggml-common.h): the
+type tables (numpy dtypes) and every codec as torch functions on the
+device of their input."""
 from .types import (  # noqa: F401
     GGMLType,
     TYPE_TRAITS,
@@ -8,4 +9,12 @@ from .types import (  # noqa: F401
     K_SCALE_SIZE,
     BLOCK_Q4_K,
     row_size,
+)
+from .registry import (  # noqa: F401
+    bytes_to_blocks,
+    dequantize,
+    dequantize_bytes,
+    quantize,
+    quantize_to_bytes,
+    supported_quant_types,
 )

@@ -38,13 +38,19 @@ def test_port_imports_no_jax_and_runs_a_cpu_forward():
     out = _run("""
         import importlib, pkgutil
         import numpy as np, torch
+        from ggml_gfx906_tpu_torch.quant.types import GGMLType as GGMLTypeQ
         import ggml_gfx906_tpu_torch as pkg
         names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
         for n in names:
             importlib.import_module(n)
         for n in ("utils.autotune", "utils.perf", "ops.cuda.dma_copy", "models.tokenizer",
-                  "models.cli", "models.speculative", "models.perplexity"):
+                  "models.cli", "models.speculative", "models.perplexity", "ops.act_quant",
+                  "quant.numerics", "quant.blocks", "quant.legacy", "quant.kquants",
+                  "quant.modern", "quant.iquants", "quant.registry", "models.convert",
+                  "models.quantize_cli", "models.imatrix"):
             assert pkg.__name__ + "." + n in names, n
+        from ggml_gfx906_tpu_torch.quant import registry
+        assert registry.dequantize(GGMLTypeQ.IQ2_XXS, bytes(66), 256).shape == (1, 256)
         import chip_smoke   # the smoke script imports nothing of JAX either
         assert not any(m.split(".")[0] in ("jax", "jaxlib", "ggml_gfx906_tpu")
                        for m in sys.modules)
@@ -118,3 +124,29 @@ def test_tool_entry_points_want_the_card(tmp_path):
                  lambda: perplexity.perplexity_llama(cfg, params, [1, 2, 3])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_quantize_tools_want_the_card(tmp_path):
+    """quantize_gguf, collect_llama, QuantTensor.quantize, random_params and
+    the quantize and imatrix commands (--device cuda by default) run on the
+    card unless asked for the CPU, and raise here before reading any file;
+    the codecs run wherever their tensors are."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry points would use it")
+    from ggml_gfx906_tpu_torch.models import imatrix, llama, quantize_cli
+    from ggml_gfx906_tpu_torch.ops.quantized import QuantTensor
+    from ggml_gfx906_tpu_torch.quant import GGMLType, quantize
+
+    absent = str(tmp_path / "absent.gguf")
+    cfg = llama.LlamaConfig(n_vocab=8, n_ctx=8, n_embd=8, n_head=1,
+                            n_kv_head=1, n_layer=1, n_ff=8)
+    params = {"out_norm": torch.ones(8), "blocks": []}
+    for call in (lambda: quantize_cli.main([absent, absent, "q4_K"]),
+                 lambda: quantize_cli.quantize_gguf(absent, absent, GGMLType.Q4_K),
+                 lambda: imatrix.main(["--model", absent, "--text", absent, "-o", absent]),
+                 lambda: imatrix.collect_llama(cfg, params, [[1, 2]]),
+                 lambda: QuantTensor.quantize(GGMLType.Q8_0, torch.zeros(1, 32)),
+                 lambda: llama.random_params(cfg, qtype=GGMLType.Q8_0)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert quantize(GGMLType.Q8_0, torch.zeros(1, 32)).device.type == "cpu"

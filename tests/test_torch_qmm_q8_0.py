@@ -123,7 +123,8 @@ def test_k5_i8_against_dense(m):
 def test_dispatch_routes_q8_0_by_m():
     """Q8_0 takes K5-i8 at M >= int8_min_m (> 0) and K5 below, as
     ops/pallas/dispatch.py routes it; int8_min_m = 0 disables the int8
-    route; a type without a ported kernel still raises."""
+    route; a type without a ported kernel still raises there, and loads
+    into the int8 layout."""
     min_m = jconfig.get("int8_min_m")
     n, k = 64, 256
     _, jq, tq = _weights(n, k, seed=9)
@@ -143,8 +144,9 @@ def test_dispatch_routes_q8_0_by_m():
     for qtype in (GGMLType.IQ4_NL, GGMLType.Q8_K):
         with pytest.raises(NotImplementedError):
             tdispatch.route(1, qtype)
-    with pytest.raises(NotImplementedError):
-        tqz.QuantTensor.from_wire(GGMLType.IQ4_NL, np.zeros(0, np.uint8), (0, 256), "cpu")
+    # IQ4_NL has no kernel: with the codecs it loads in the int8 layout
+    iq = tqz.QuantTensor.from_wire(GGMLType.IQ4_NL, np.zeros(0, np.uint8), (0, 256), "cpu")
+    assert iq.layout == "int8" and tuple(iq.fields["w8t"].shape) == (2, 0, 128)
     # Q8_K has no kernel in either package: it loads in the "wire" layout
     assert tqz.QuantTensor.from_wire(GGMLType.Q8_K, np.zeros(292, np.uint8), (1, 256),
                                      "cpu").layout == "wire"

@@ -246,3 +246,53 @@ def test_tools_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     assert pp["n_tokens"] == chip_smoke.ppl_window_count(96, 32, 8) and pp["windows"] == 3
     assert out["cli"]["serve_requests"] == 4 and "tok/s" in out["cli"]["spec_rate"]
     assert not (tmp_path / "smoke_prompts.txt").exists()
+
+
+def test_quantize_phase_runs_on_the_cpu(monkeypatch):
+    """The quantize phase end to end on a tiny 2-layer model on the CPU
+    (the card's synchronisation and memory statistics stubbed; K1, K3, K5,
+    K5-i8 and K2 counted around their wrappers): convert to F16, the
+    imatrix, the three files quantized, their sampled rows against the CPU
+    codec, each loaded and generating with the launches its types predict,
+    the Q4_K file's fields against QuantTensor.quantize, every codec's
+    checks, and no file left behind."""
+    import torch
+
+    from ggml_gfx906_tpu_torch.ops import cuda as kernels
+    from ggml_gfx906_tpu_torch.ops.cuda import dispatch, flash_attn
+    from ggml_gfx906_tpu_torch.quant.types import GGMLType
+
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    for name, val in (("N_NEW", 4), ("QUANT_CHUNK", 48), ("QUANT_ROWS", 16),
+                      ("QUANT_TYPE_ROWS", 16), ("QUANT_RATE_ROWS", 8)):
+        monkeypatch.setattr(chip_smoke, name, val)
+
+    def counted(kern, fn):
+        def run(*a, **k):
+            kern.launches += 1
+            return fn(*a, **k)
+        return run
+
+    monkeypatch.setattr(flash_attn, "causal_flash_attention",
+                        counted(kernels.K2, flash_attn.causal_flash_attention))
+    for key, kern in (((GGMLType.Q4_K, "f32"), kernels.K1), ((GGMLType.Q4_K, "i8"), kernels.K3),
+                      ((GGMLType.Q8_0, "f32"), kernels.K5), ((GGMLType.Q8_0, "i8"), kernels.K5_I8)):
+        monkeypatch.setitem(dispatch._KERNELS, key, counted(kern, dispatch._KERNELS[key]))
+    small = dict(n_vocab=512, n_ctx=512, n_embd=256, n_head=4, n_kv_head=2, n_ff=512)
+    out = chip_smoke.quantize_phase(torch.device("cpu"), small, 2)
+    assert out["imatrix_launches"] == {"causal_flash_attention": 4}
+    files = out["files"]
+    assert set(files) == {"q4_k", "q8_0", "iq4_xs"}
+    assert files["q4_k"]["launches"] == {"qmm_q4_K": 3 * 15, "qmm_q4_K_i8": 15,
+                                         "causal_flash_attention": 4 * 2}
+    assert files["q8_0"]["launches"] == {"qmm_q8_0": 3 * 15, "qmm_q8_0_i8": 15,
+                                         "causal_flash_attention": 4 * 2}
+    assert files["iq4_xs"]["launches"] == {"causal_flash_attention": 4 * 2}
+    assert files["iq4_xs"]["layouts"] == ["int8"]
+    assert files["q4_k"]["fields_equal_quantize"] == "blk.0.attn_q.weight"
+    for row in files.values():
+        assert set(row["rows_equal_cpu"].values()) == {16}
+    assert len(out["codecs"]) == 17 + 16 + 7
+    assert not list((chip_smoke.ROOT / "build").glob("smoke_llama7b_*_L2.gguf"))
