@@ -103,9 +103,27 @@ Phases (each failure raises, so the script exits non-zero):
      against QuantTensor.quantize on the card, and every codec card vs
      CPU on 64 x 4096 rows (bytes and dequantized bits) with its rate on
      4096 x 4096.
+  8. families: the other served families at published width (families_
+     phase): Mixtral-8x7B (8 of 32 layers), GPT-2-large (all 36) and
+     GPT-J-6B (8 of 28), one GGUF each in llama.cpp's Q4_K_M recipe
+     (family_type: the 8-expert Q8_0 attn_k / attn_v and Q5_K
+     attn_output, GPT-2's Q5_K attn_qkv and Q6_K tied head), after tiny
+     models of each family card vs CPU: each file loaded, prefilled,
+     decoded eagerly (== generate) and through decode_step's captured
+     graph (== eager, logits bit-equal), its launches per step, replayed
+     step and 128-token chunk asserted, its decode step, replayed step,
+     prefill and (MoE, GPT-2) 8-slot engine step traced, the 8+1
+     requests served (engine == generate where one route), and on the
+     GPT-2 file one request to n_ctx at the default harvest depth
+     (== generate, past the position table's last row); the Mixtral
+     file split by OffloadSplit (half the layers and the head on the
+     CPU) against the all-card forward, the GPT-2 file through the CLI
+     (generate, serve). Phase 3's `families` check holds K2 at head dims
+     64 and 256 and K1 / K3 / K4 at N = 50257 and 50400.
 --checks and --paths cut phases 3 and 6 to the named checks and paths,
-and --paths quantize runs phase 7 (a cut run skips phases 4 and 5 and
-prints no result line).
+--paths quantize runs phase 7 and --paths families (or mixtral,
+gpt2_large, gptj) phase 8 (a cut run skips phases 4 and 5 and prints no
+result line).
 Detailed results go to DIR/chip_smoke.json (default build/). The second-to-last
 stdout line is {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -142,7 +160,7 @@ from ggml_gfx906_tpu_torch.ops.quantized import QuantTensor
 from ggml_gfx906_tpu_torch.quant.kquants import pack_q3_scales, pack_scale_min_k4
 from ggml_gfx906_tpu_torch.quant.types import (BLOCK_Q2_K, BLOCK_Q3_K, BLOCK_Q4_0, BLOCK_Q4_1,
                                                BLOCK_Q4_K, BLOCK_Q5_0, BLOCK_Q5_1, BLOCK_Q5_K,
-                                               BLOCK_Q6_K, BLOCK_Q8_0, GGMLType)
+                                               BLOCK_Q6_K, BLOCK_Q8_0, TYPE_TRAITS, GGMLType)
 try:    # the tools slice; its phases are skipped on a tree without it
     from ggml_gfx906_tpu_torch.models import cli, perplexity, speculative, tokenizer
     HAS_TOOLS = True
@@ -154,6 +172,11 @@ try:    # the codecs and the quantize tools; the quantize phase needs them
     HAS_QUANT = True
 except ImportError:
     HAS_QUANT = False
+try:    # the other families; the families phase needs them
+    from ggml_gfx906_tpu_torch.models import gpt2, gptj, moe, offload
+    HAS_FAMILIES = True
+except ImportError:
+    HAS_FAMILIES = False
 from ggml_gfx906_tpu_torch.runtime.batched_kv import BatchedKVCache
 from ggml_gfx906_tpu_torch.runtime.engine import Engine
 from ggml_gfx906_tpu_torch.utils import autotune, config
@@ -734,6 +757,15 @@ def check_attention(device, timer, results):
     cases.append(("softcap 30 decode B=8 window=1024 f32", 8, 32, 32, 1, 1024, pos8, "f32", 30.0, False))
     cases.append(("window 200 (ragged tile) decode B=8 f32", 8, 32, 32, 1, 200,
                   torch.randint(0, 200, (8,), device=device, generator=gen).to(torch.int32), "f32", 0.0, False))
+    attention_cases(timer, results, cases, D, gen)
+    return {"rows": check_attention_rows(device)}
+
+
+def attention_cases(timer, results, cases, D: int, gen):
+    """K2 on each case (name, B, H, KVH, N, M, pos, dtypes, softcap, int8
+    K/V) at head dim D against its plain version (nmse < 1e-10 at f32 q,
+    2e-4 at bf16), timed beside it, SDPA and its bound."""
+    device = gen.device
     scale = 1.0 / D ** 0.5
     for name, B, H, KVH, N, M, pos, dt, softcap, quant in cases:
         qdt = torch.bfloat16 if dt == "bf16" else torch.float32
@@ -775,7 +807,6 @@ def check_attention(device, timer, results):
             library_ms=timer(lib) if lib is not None else None,
             bound_ms=b, bound_by=by))
         log(f"K2 {name} nmse={e:.3e} ms={results[-1]['ms']:.4f}")
-    return {"rows": check_attention_rows(device)}
 
 
 # K2's chunk edges: a chunk holds flash_attn.CHUNK = 128 positions
@@ -1408,19 +1439,20 @@ def first_divergence(a: list, b: list) -> int | None:
                 None if len(a) == len(b) else min(len(a), len(b)))
 
 
-def engine_vs_generate(recipe, cfg, params, device, prompts, done, int8_route: bool) -> dict:
+def engine_vs_generate(recipe, cfg, params, device, prompts, done, int8_route: bool,
+                       mod=llama) -> dict:
     """Each engine stream against `generate`'s for its prompt: asserted equal
     where both prefill the prompt on one matmul route, recorded (the first
     divergence) elsewhere. A flood prefills at M = B·s_pad, so on a file
     with an int8 route (Q4_K, Q8_0, Q4_0 tensors in the kernel layout) a
     flooded prompt shorter than int8_min_m takes K3 / K5-i8 / K6-i8 where
     `generate` takes the f32 kernel; a tree without the flood admits
-    request by request, on generate's route."""
+    request by request, on generate's route. `mod`: the model's module."""
     min_m = int(config.get("int8_min_m"))
     out = {"asserted": [], "recorded": {}}
     mismatches = []
     for p, got in zip(prompts, done):
-        ref = llama.generate(cfg, params, p, N_NEW, max_seq=1024, device=device)[len(p):]
+        ref = mod.generate(cfg, params, p, N_NEW, max_seq=1024, device=device)[len(p):]
         if not (HAS_FLOOD and int8_route) or len(p) >= min_m:
             out["asserted"].append(len(p))
             if got != ref:
@@ -2705,11 +2737,555 @@ def autotune_phase(device) -> dict:
     return out
 
 
+# ------------------------------------------------------------- families
+# The other served families at their published widths: Mixtral-8x7B
+# (mistralai/Mixtral-8x7B-v0.1 config.json), GPT-2-large
+# (openai-community/gpt2-large) and GPT-J-6B (EleutherAI/gpt-j-6b), each
+# a GGUF of random valid blocks (make_blocks) in llama.cpp's Q4_K_M recipe
+# with the synthetic SentencePiece vocabulary of its n_vocab.
+
+MIXTRAL_8X7B = dict(arch="moe", n_vocab=32000, n_ctx=32768, n_embd=4096, n_head=32,
+                    n_kv_head=8, n_ff=14336, n_expert=8, n_expert_used=2, rope_base=1e6)
+GPT2_LARGE = dict(arch="gpt2", n_vocab=50257, n_ctx=1024, n_embd=1280, n_head=20)
+GPTJ_6B = dict(arch="gptj", n_vocab=50400, n_ctx=2048, n_embd=4096, n_head=16, n_rot=64,
+               n_ff=16384)
+# name → (config, depth): GPT-2-large whole (36 layers, ~0.5 GB); Mixtral
+# and GPT-J cut to SHORT_LAYERS (~6.5 GB of experts at 8 of 32 layers; ~1.5
+# GB at 8 of 28)
+FAMILIES = {"mixtral": (MIXTRAL_8X7B, SHORT_LAYERS), "gpt2_large": (GPT2_LARGE, 36),
+            "gptj": (GPTJ_6B, SHORT_LAYERS)}
+if HAS_FAMILIES:
+    FAMILY_MODULES = {"moe": moe, "gpt2": gpt2, "gptj": gptj}
+
+
+# tiny configurations of the families (the Mixtral recipe's 8 experts, GPT-2's
+# head dim 64, GPT-J's 256 with n_rot 64), for the card-vs-CPU check
+TINY_FAMILIES = {"moe": dict(MIXTRAL_8X7B, n_vocab=512, n_ctx=1024, n_embd=256, n_head=4,
+                             n_kv_head=2, n_ff=512),
+                 "gpt2": dict(GPT2_LARGE, n_vocab=512, n_ctx=1024, n_embd=256, n_head=4),
+                 "gptj": dict(GPTJ_6B, n_vocab=512, n_ctx=1024, n_embd=512, n_head=2,
+                              n_ff=2048)}
+
+
+def family_matrices(cfg: dict, n_layer: int):
+    """(tensor, layer or None, rows, cols, experts) of every matrix of a
+    family's GGUF; experts > 0 for a stacked (experts, rows, cols) tensor.
+    GPT-2's head is token_embd (tied)."""
+    D, V = cfg["n_embd"], cfg["n_vocab"]
+    yield "token_embd", None, V, D, 0
+    if cfg["arch"] != "gpt2":
+        yield "output", None, V, D, 0
+    for i in range(n_layer):
+        if cfg["arch"] == "gpt2":
+            mats = (("attn_qkv", 3 * D, D, 0), ("attn_output", D, D, 0),
+                    ("ffn_up", 4 * D, D, 0), ("ffn_down", D, 4 * D, 0))
+        elif cfg["arch"] == "gptj":
+            FF = cfg["n_ff"]
+            mats = (("attn_q", D, D, 0), ("attn_k", D, D, 0), ("attn_v", D, D, 0),
+                    ("attn_output", D, D, 0), ("ffn_up", FF, D, 0), ("ffn_down", D, FF, 0))
+        else:
+            FF, E = cfg["n_ff"], cfg["n_expert"]
+            KVD = cfg["n_kv_head"] * (D // cfg["n_head"])
+            mats = (("attn_q", D, D, 0), ("attn_k", KVD, D, 0), ("attn_v", KVD, D, 0),
+                    ("attn_output", D, D, 0), ("ffn_gate_exps", FF, D, E),
+                    ("ffn_up_exps", FF, D, E), ("ffn_down_exps", D, FF, E))
+        for name, r, c, e in mats:
+            yield name, i, r, c, e
+
+
+def family_type(cfg: dict, name: str, layer: int | None, n_layer: int) -> GGMLType:
+    """llama.cpp's tensor type for LLAMA_FTYPE_MOSTLY_Q4_K_M without an
+    importance matrix (src/llama-quant.cpp, llama_tensor_get_type), for the
+    three families: the head (output.weight, or GPT-2's tied token_embd)
+    is Q6_K; with 8 experts attn_k and attn_v are Q8_0 and attn_output
+    Q5_K; a fused attn_qkv is Q5_K; attn_v and ffn_down (ffn_down_exps,
+    whose name holds "ffn_down", counted alike) are Q6_K in the
+    use_more_bits layers (k_m_type); every other matrix is Q4_K."""
+    if name == "output" or (name == "token_embd" and cfg["arch"] == "gpt2"):
+        return GGMLType.Q6_K
+    if cfg.get("n_expert") == 8:
+        if name in ("attn_k", "attn_v"):
+            return GGMLType.Q8_0
+        if name == "attn_output":
+            return GGMLType.Q5_K
+    if name == "attn_qkv":
+        return GGMLType.Q5_K
+    return k_m_type(GGMLType.Q4_K, name.replace("_exps", ""), layer, n_layer)
+
+
+def write_family_gguf(path: Path, cfg: dict, n_layer: int, random_scales: bool = False):
+    """A family's GGUF at `cfg`'s width: the matrices of family_matrices in
+    family_type's types (make_blocks, seed 0; a stacked expert tensor's ne
+    is (cols, rows, experts)), F32 norms (ones, or 1 + N(0, 0.1) with
+    random_scales), F32 biases, position embeddings and router weights
+    ~N(0, 0.02), the vocabulary spm_vocab(n_vocab); an existing file is
+    kept."""
+    if path.exists():
+        return
+    path.parent.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(0)
+    arch, D = cfg["arch"], cfg["n_embd"]
+    A = "llama" if arch == "moe" else arch
+    w = GGUFWriter()
+    w.set("general.architecture", A)
+    keys = {"vocab_size": cfg["n_vocab"], "context_length": cfg["n_ctx"],
+            "embedding_length": D, "block_count": n_layer,
+            "attention.head_count": cfg["n_head"]}
+    if arch == "moe":
+        keys.update({"attention.head_count_kv": cfg["n_kv_head"],
+                     "feed_forward_length": cfg["n_ff"], "expert_count": cfg["n_expert"],
+                     "expert_used_count": cfg["n_expert_used"]})
+        w.set(f"{A}.rope.freq_base", float(cfg["rope_base"]))
+        w.set(f"{A}.attention.layer_norm_rms_epsilon", 1e-5)
+    else:
+        w.set(f"{A}.attention.layer_norm_epsilon", 1e-5)
+    if arch == "gptj":
+        keys["rope.dimension_count"] = cfg["n_rot"]
+    for key, val in keys.items():
+        w.set(f"{A}.{key}", int(val))
+    write_vocab(w, cfg["n_vocab"])
+    for name, layer, r, c, e in family_matrices(cfg, n_layer):
+        qtype = family_type(cfg, name, layer, n_layer)
+        gname = f"{name}.weight" if layer is None else f"blk.{layer}.{name}.weight"
+        ne = (c, r, e) if e else (c, r)
+        w.add_tensor(gname, ne, qtype, make_blocks(qtype, rng, r * max(e, 1), c,
+                                                   random_scales).reshape(-1).view(np.uint8))
+
+    def vec(*shape, gain=False):
+        if gain:
+            g = 1 + 0.1 * rng.standard_normal(shape) if random_scales else np.ones(shape)
+            return g.astype(np.float32)
+        return (0.02 * rng.standard_normal(shape)).astype(np.float32)
+
+    norms = ["output_norm"] + [f"blk.{i}.{n}" for i in range(n_layer)
+                               for n in ("attn_norm", "ffn_norm") if arch != "gptj" or
+                               n == "attn_norm"]
+    for n in norms:
+        w.add_array_tensor(f"{n}.weight", vec(D, gain=True))
+        if arch != "moe":
+            w.add_array_tensor(f"{n}.bias", vec(D))
+    for i in range(n_layer):
+        b = f"blk.{i}."
+        if arch == "moe":
+            w.add_array_tensor(b + "ffn_gate_inp.weight", vec(cfg["n_expert"], D))
+        elif arch == "gpt2":
+            for n, size in (("attn_qkv", 3 * D), ("attn_output", D), ("ffn_up", 4 * D),
+                            ("ffn_down", D)):
+                w.add_array_tensor(f"{b}{n}.bias", vec(size))
+        else:
+            w.add_array_tensor(b + "ffn_up.bias", vec(cfg["n_ff"]))
+            w.add_array_tensor(b + "ffn_down.bias", vec(D))
+    if arch == "gpt2":
+        w.add_array_tensor("position_embd.weight", vec(cfg["n_ctx"], D))
+    if arch == "gptj":
+        w.add_array_tensor("output.bias", vec(cfg["n_vocab"]))
+    tmp = path.with_suffix(".tmp")
+    w.write(tmp)
+    tmp.rename(path)
+
+
+def family_launches(cfg: dict, n_layer: int, m: int) -> dict:
+    """Kernel launches of one forward over m tokens of a family's file on
+    the card: one K2 per layer and one launch per matrix product, an
+    expert stack's E products each at the capacity buffer's C = m·U rows
+    (every expert runs every step); the embedding is a row gather."""
+    out = {kernels.K2.name: n_layer}
+    for name, layer, r, c, e in family_matrices(cfg, n_layer):
+        if name == "token_embd" and cfg["arch"] != "gpt2":
+            continue
+        qtype = family_type(cfg, name, layer, n_layer)
+        rows = m * cfg["n_expert_used"] if e else m
+        kern = KERNEL_OF[(qtype, dispatch.route(rows, qtype, (r, c), cuda=True))].name
+        out[kern] = out.get(kern, 0) + max(e, 1)
+    return out
+
+
+def family_bytes(cfg: dict, n_layer: int) -> float:
+    """The bytes of a family file's matrices as the card holds them (the
+    weight stream of one decode step: every matrix once, every expert)."""
+    total = 0.0
+    for name, layer, r, c, e in family_matrices(cfg, n_layer):
+        if name == "token_embd" and cfg["arch"] != "gpt2":
+            continue
+        tt = TYPE_TRAITS[family_type(cfg, name, layer, n_layer)]
+        total += r * max(e, 1) * c // tt.blck_size * tt.type_size
+    return total
+
+
+def check_family_shapes(device, timer, results):
+    """The kernels at the families' shapes that the 7B checks never give
+    them: K2 at head dim 64 (GPT-2-large, H = 20) and 256 (GPT-J, H = 16)
+    in decode windows 128 and 1024 (8 slots, bf16 q and K/V as served) and
+    a 128-row prefill (f32); K1, K3 and K4 at GPT-2-large's odd head N =
+    50257 x K = 1280 and K1 and K4 at GPT-J's N = 50400 x K = 4096, each
+    against its plain version, timed beside the library call and its bound,
+    its rows bit for bit across M."""
+    gen = torch.Generator(device=device).manual_seed(17)
+    for D, H in ((64, 20), (256, 16)):
+        cases = []
+        for m in (128, 1024):
+            pos = torch.randint(0, m, (8,), device=device, generator=gen).to(torch.int32)
+            cases.append((f"decode B=8 H={H} D={D} window={m} bf16", 8, H, H, 1, m, pos,
+                          "bf16", 0.0, False))
+        cases.append((f"prefill B=1 H={H} D={D} N=128 M=1024 pos=256 f32", 1, H, H, 128, 1024,
+                      torch.tensor([256], dtype=torch.int32, device=device), "f32", 0.0, False))
+        attention_cases(timer, results, cases, D, gen)
+    rows = {}
+    for n, k, k3 in ((50257, 1280, True), (50400, 4096, False)):
+        qs, scm, dd = random_q4k(n, k, device, gen)
+        w_dense = qmm.dequant(qs, scm, dd)
+        for m in (1, 8, 100):
+            check_f32(timer, results, "K1", kernels.K1,
+                      lambda x: qmm.qmm_q4_K(x, qs, scm, dd),
+                      lambda x: qmm.qmm_q4_K_plain(x, qs, scm, dd),
+                      torch.randn((m, k), device=device, generator=gen), w_dense,
+                      n * k * 4.5 / 8)
+        rows[f"K1 N={n} K={k}"] = check_rows("K1", lambda x: qmm.qmm_q4_K(x, qs, scm, dd),
+                                             torch.randn((128, k), device=device, generator=gen))
+        if k3:
+            k3l = k3_launches(qs, scm, dd)
+            for m in (100, 128):
+                check_i8(timer, results, k3l, torch.randn((m, k), device=device, generator=gen),
+                         w_dense, n * k * 4.5 / 8)
+            rows[f"K3 N={n} K={k}"] = check_rows(
+                "K3", lambda x: qmm.qmm_q4_K_i8(x, qs, scm, dd),
+                torch.randn((128, k), device=device, generator=gen))
+        del w_dense, qs, scm, dd
+        nb = k // 256
+        w = (torch.randint(0, 256, (n, nb * 128), dtype=torch.uint8, device=device, generator=gen),
+             torch.randint(0, 256, (n, nb * 64), dtype=torch.uint8, device=device, generator=gen),
+             torch.randint(-128, 128, (n, nb * 16), dtype=torch.int8, device=device, generator=gen),
+             torch.rand((n, nb), device=device, generator=gen) * 1e-3)
+        w_dense = qmm_q6k.dequant(*w)
+        for m in (1, 8, 100):
+            check_f32(timer, results, "K4", kernels.K4, lambda x: qmm_q6k.qmm_q6_K(x, *w),
+                      lambda x: qmm_q6k.qmm_q6_K_plain(x, *w),
+                      torch.randn((m, k), device=device, generator=gen), w_dense,
+                      n * k * 6.5625 / 8)
+        rows[f"K4 N={n} K={k}"] = check_rows("K4", lambda x: qmm_q6k.qmm_q6_K(x, *w),
+                                             torch.randn((128, k), device=device, generator=gen))
+        del w_dense, w
+        torch.cuda.empty_cache()
+    return rows
+
+
+@torch.inference_mode()
+def family_path(device, name: str, fcfg: dict, n_layer: int) -> dict:
+    """One family file's path on the card, as main_path runs a llama file:
+    write and load it, prefill 100 tokens, decode N_NEW - 1 tokens eagerly
+    (== generate), the same steps replayed through decode_step's captured
+    graph (== the eager stream; one replayed step's logits torch.equal to
+    the eager step's), the launches per decode step, per replayed step and
+    per 128-token prefill chunk against family_launches, one decode step
+    traced; where the module has a batched forward (MoE, GPT-2), the 8+1
+    requests through the Engine, == generate where both prefill on one
+    route (engine_vs_generate), timed on a second run, and one steady 8-slot
+    engine step traced; for GPT-2 one request to n_ctx (to_n_ctx_check)."""
+    mod = FAMILY_MODULES[fcfg["arch"]]
+    out = {"layers": n_layer, "family": name}
+    path = ROOT / "build" / f"smoke_{name}_L{n_layer}.gguf"
+    t0 = time.perf_counter()
+    write_family_gguf(path, fcfg, n_layer)
+    out["gguf_write_s"] = time.perf_counter() - t0
+    out["gguf_gb"] = path.stat().st_size / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params = mod.load(path, device=device)
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    out["load_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["weights_gb"] = offload._tree_bytes(params) / 1e9
+    out["matrix_bytes_predicted_gb"] = family_bytes(fcfg, n_layer) / 1e9
+    cfg = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
+    types = {}
+
+    def count(t):
+        if isinstance(t, QuantTensor):
+            types[t.qtype.name] = types.get(t.qtype.name, 0) + 1
+            assert t.layout == "kernel" and all(f.device.type == device.type
+                                                for f in t.fields.values()), name
+        elif isinstance(t, dict):
+            for v in t.values():
+                count(v)
+        elif isinstance(t, list):
+            for v in t:
+                count(v)
+        else:
+            assert t.device.type == device.type, name
+    count(params)
+    out["tensor_types"] = types
+    log(f"loaded {n_layer}-layer {name} GGUF in {out['load_s']:.2f} s (matrices by type "
+        f"{types}, {out['weights_gb']:.2f} GB on the card)")
+    want_step = family_launches(fcfg, n_layer, 1)
+    want_chunk = family_launches(fcfg, n_layer, 128)
+
+    rng = np.random.default_rng(5)
+    kernels.reset_launches()
+    prompt = [int(t) for t in rng.integers(1, cfg.n_vocab, 100)]
+    toks = torch.tensor(prompt, device=device)
+    kv = mod.make_cache(cfg, 1024, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, kv = mod.forward(cfg, params, toks, kv, 0)
+    torch.cuda.synchronize()
+    out["prefill_100_s"] = time.perf_counter() - t0
+    assert logits.shape == (100, cfg.n_vocab) and bool(torch.isfinite(logits).all())
+    out["prefill_trace"] = trace_device(lambda: mod.forward(
+        cfg, params, toks, mod.make_cache(cfg, 1024, device=device), 0), K3_TRACE_NAMES)
+    stream = prompt + [int(logits[-1].argmax())]
+    t0 = time.perf_counter()
+    for i in range(N_NEW - 1):
+        before = launches()
+        lg, kv = mod.forward(cfg, params, torch.tensor([stream[-1]], device=device), kv,
+                             len(stream) - 1)
+        stream.append(int(lg[-1].argmax()))
+        if i == 0:
+            out["launches_per_decode_step"] = _delta(before)
+    torch.cuda.synchronize()
+    out["decode_s"] = time.perf_counter() - t0
+    if stream != mod.generate(cfg, params, prompt, N_NEW, max_seq=1024, device=device):
+        raise AssertionError(f"{name}: the eager decode differs from generate")
+    out["decode_step_trace"] = trace_device(lambda: mod.forward(
+        cfg, params, torch.tensor([stream[-1]], device=device), kv, len(stream) - 1))
+    # the same steps replayed through decode_step's captured graph
+    kv2 = mod.make_cache(cfg, 1024, device=device)
+    mod.forward(cfg, params, toks, kv2, 0)
+    tok = torch.tensor([stream[100]], device=device)
+    replayed = []
+    for i in range(N_NEW - 1):
+        if i == 1:                   # the first step captured the graph
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            before = launches()
+        tok, kv2 = mod.decode_step(cfg, params, tok, kv2, 100 + i)
+        if i == 1:
+            out["launches_per_replayed_step"] = _delta(before)
+        replayed.append(int(tok))
+    torch.cuda.synchronize()
+    out["replayed_step_ms"] = (time.perf_counter() - t0) / (N_NEW - 2) * 1e3
+    if replayed != stream[101:]:
+        raise AssertionError(f"{name}: decode_step's replayed stream differs from the eager one")
+    pos = len(stream) - 2
+    t = torch.tensor([stream[-2]], device=device)
+    mod.decode_step(cfg, params, t, kv2, pos)
+    graph_logits = llama.step_graph(cfg, params, kv2, 1, mod._forward).outputs[1].clone()
+    eager, _ = mod.forward(cfg, params, t, kv2, pos)
+    if not torch.equal(graph_logits, eager[-1:]):
+        raise AssertionError(f"{name}: the replayed step's logits differ from the eager step's")
+    out["replayed_logits_equal_eager"] = True
+    out["replayed_step_trace"] = trace_device(lambda: mod.decode_step(cfg, params, t, kv2, pos))
+    del kv2
+    before = launches()
+    mod.forward(cfg, params, torch.tensor(prompt + prompt[:28], device=device),
+                mod.make_cache(cfg, 1024, device=device), 0)
+    out["launches_per_prefill_chunk_128"] = _delta(before)
+    for key, want in (("launches_per_decode_step", want_step),
+                      ("launches_per_replayed_step", want_step),
+                      ("launches_per_prefill_chunk_128", want_chunk)):
+        if out[key] != want:
+            raise AssertionError(f"{name}: {key} {out[key]}, its tensor types predict {want}")
+    out["decode_step_ms"] = out["decode_s"] / (N_NEW - 1) * 1e3
+    out["decode_tok_s"] = (N_NEW - 1) / out["decode_s"]
+    out["replayed_tok_s"] = 1e3 / out["replayed_step_ms"]
+    out["prefill_tok_s"] = 100 / out["prefill_100_s"]
+    out["prefill_100_ms"] = out["prefill_100_s"] * 1e3
+    out["step_bytes_bound_ms"] = family_bytes(fcfg, n_layer) / HBM_BPS * 1e3
+
+    if hasattr(mod, "forward_batch"):
+        prompts = [[int(t) for t in rng.integers(1, cfg.n_vocab, n)] for n in PARITY_LENS]
+        long_prompt = [int(t) for t in rng.integers(1, cfg.n_vocab, 300)]
+        eng = Engine(mod, cfg, params, max_batch=8, max_seq=1024, device=device)
+        t0 = time.perf_counter()
+        done = serve(eng, prompts + [long_prompt], N_NEW)
+        torch.cuda.synchronize()
+        out["engine_first_run_s"] = time.perf_counter() - t0
+        out["engine_vs_generate"] = engine_vs_generate(
+            name, cfg, params, device, prompts, done,
+            int8_route=bool(I8_KERNELS & set(want_chunk)), mod=mod)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = serve(eng, prompts + [long_prompt], N_NEW)
+        torch.cuda.synchronize()
+        out["engine_s"] = time.perf_counter() - t0
+        if again != done:
+            raise AssertionError(f"{name}: the engine's second run differs from its first")
+        out["engine_tokens"] = sum(map(len, again))
+        out["engine_tok_s"] = out["engine_tokens"] / out["engine_s"]
+        del eng
+        gc.collect()
+        eng = Engine(mod, cfg, params, max_batch=8, max_seq=1024, device=device)
+        for p in prompts:
+            eng.submit(p, 64)
+        while eng.queue or eng.pending is not None:
+            eng.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            eng.step()
+        out["engine_decode_step_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+        out["engine_step_trace"] = trace_device(eng.step)
+        del eng
+        gc.collect()
+    for key, step_ms in (("decode_step_trace", out["decode_step_ms"]),
+                         ("replayed_step_trace", out["replayed_step_ms"]),
+                         ("engine_step_trace", out.get("engine_decode_step_ms")),
+                         ("prefill_trace", out["prefill_100_ms"])):
+        if key in out:
+            busy = out[key]["busy_ms"]
+            out[key]["busy_share"] = None if busy is None else busy / step_ms
+    if fcfg["arch"] == "gpt2":
+        out["to_n_ctx"] = to_n_ctx_check(name, mod, cfg, params, device, rng)
+    out["launches"] = launches()
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if fcfg["arch"] == "moe":
+        out["offload"] = offload_check(device, cfg, params, n_layer)
+    if fcfg["arch"] == "gpt2":
+        out["cli"] = family_cli(device, mod, dataclasses.replace(cfg, compute_dtype=torch.float32),
+                                params, path)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    path.unlink()
+    return out
+
+
+def to_n_ctx_check(name, mod, cfg, params, device, rng) -> dict:
+    """One request whose prompt and N_NEW tokens fill max_seq = n_ctx (the
+    rows of GPT-2's position table), served alone by a fresh Engine at the
+    default harvest depth: its slot steps on past n_ctx to the end of its
+    pipelined windows, where the port reads the table's last row as the
+    reference's gather does. Its stream == generate's (every prefill chunk
+    on the int8 route on both sides)."""
+    prompt = [int(t) for t in rng.integers(1, cfg.n_vocab, cfg.n_ctx - N_NEW)]
+    eng = Engine(mod, cfg, params, max_batch=8, max_seq=cfg.n_ctx, device=device)
+    t0 = time.perf_counter()
+    got = serve(eng, [prompt], N_NEW)[0]
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    del eng
+    gc.collect()
+    ref = mod.generate(cfg, params, prompt, N_NEW, max_seq=cfg.n_ctx, device=device)
+    if got != ref[len(prompt):]:
+        raise AssertionError(f"{name}: the engine's stream to n_ctx differs from generate "
+                             f"(first divergence {first_divergence(got, ref[len(prompt):])})")
+    log(f"  {name}: a {len(prompt)}-token prompt + {N_NEW} tokens to n_ctx = {cfg.n_ctx} "
+        f"through the Engine at harvest depth {config.get('engine_harvest_depth')} "
+        f"({serve_s:.2f} s) == generate")
+    return {"prompt_tokens": len(prompt), "n_new": N_NEW, "max_seq": cfg.n_ctx,
+            "harvest_depth": int(config.get("engine_harvest_depth")), "serve_s": serve_s,
+            "equal_generate": True}
+
+
+OFFLOAD_BOUND = 1e-9      # the f32 route's card-vs-CPU bound (small_model_check)
+
+
+def offload_check(device, cfg, params, n_layer: int) -> dict:
+    """The file split by OffloadSplit with layers [n_layer / 2, n_layer) and
+    the head on the CPU (plain versions): an 8-token prefill's logits
+    against the all-card forward at f32 compute (the f32 route, C = 16),
+    nmse < OFFLOAD_BOUND."""
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    toks = [int(t) for t in np.random.default_rng(21).integers(1, cfg.n_vocab, 8)]
+    t0 = time.perf_counter()
+    split = offload.OffloadSplit.build(cfg32, params, n_layer // 2, device=device,
+                                       ffn=moe.block_ffn(cfg32))
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got, _ = split.forward(toks, split.make_caches(64), 0)
+    fwd_s = time.perf_counter() - t0
+    ref, _ = moe.forward(cfg32, params, torch.tensor(toks, device=device),
+                         moe.make_cache(cfg32, 64, device=device), 0)
+    e = nmse(got, ref.cpu())
+    if not e < OFFLOAD_BOUND:
+        raise AssertionError(f"offload split: logits nmse {e} against the all-card forward")
+    del split
+    gc.collect()
+    log(f"  offload split (layers {n_layer // 2}-{n_layer - 1} and the head on the CPU): "
+        f"build {build_s:.1f} s, 8-token prefill {fwd_s:.2f} s, logits nmse {e:.3e} against "
+        f"the all-card forward")
+    return {"n_device_layers": n_layer // 2, "build_s": build_s, "forward_s": fwd_s,
+            "logits_nmse": e, "bound": OFFLOAD_BOUND}
+
+
+def family_cli(device, mod, cfg, params, path: Path) -> dict:
+    """The CLI in-process on a family file: greedy generate's ids equal
+    mod.generate's on the encoded text, and `serve` of the 8+1 prompts as
+    text equals a direct Engine run of the same ids and settings."""
+    tok = tokenizer.from_gguf(GGUFReader(path))
+    text = synthetic_text(24, 24, cfg.n_vocab)
+    ids = tok.encode(text)
+    dev = ["--device", device.type]
+    g_out, g_err, rate = _cli(["-m", str(path), "-p", text, "-n", str(N_NEW), "--greedy"] + dev)
+    if g_out != tok.decode(mod.generate(cfg, params, ids, N_NEW, device=device)) + "\n":
+        raise AssertionError(f"cli --greedy on {path.name}: differs from generate")
+    out = {"greedy_rate": rate}
+    lines = [synthetic_text(n, 30 + n, cfg.n_vocab) for n in SERVE_WORDS]
+    pfile = path.with_name("smoke_family_prompts.txt")
+    pfile.write_text("\n".join(lines) + "\n")
+    v_out, _, out["serve_rate"] = _cli(["serve", "-m", str(path), "--prompts", str(pfile),
+                                        "-n", str(N_NEW), "--max-batch", "8",
+                                        "--max-seq", "1024"] + dev)
+    pfile.unlink()
+    served = {int(ln[1:ln.index("]")]): ln[ln.index("]") + 2:] for ln in v_out.splitlines()}
+    eng = Engine(mod, cfg, params, max_batch=8, max_seq=1024, device=device)
+    rids = [eng.submit(tok.encode(ln), N_NEW, eos_id=tok.eos_id, top_k=40, top_p=0.9, seed=i)
+            for i, ln in enumerate(lines)]
+    direct = {r.rid: tok.decode(r.out) for r in eng.run()}
+    del eng
+    gc.collect()
+    if sorted(served) != list(range(len(lines))) or any(served[i] != direct[r]
+                                                       for i, r in enumerate(rids)):
+        raise AssertionError(f"cli serve on {path.name}: completions differ from the Engine's")
+    out["serve_requests"] = len(served)
+    log(f"  cli on {path.name}: greedy == generate ({rate}); serve {len(served)} requests == "
+        f"Engine ({out['serve_rate']})")
+    return out
+
+
+def small_family_check(device) -> dict:
+    """The card's forward against the CPU's (plain versions) on a tiny model
+    of each family, loaded from a GGUF with random scales and norm weights
+    1 + N(0, 0.1) (write_family_gguf): 7 tokens on the f32 route at nmse <
+    1e-9, 70 tokens within the int8 route's error class (2e-4)."""
+    res = {}
+    for arch, fcfg in TINY_FAMILIES.items():
+        mod = FAMILY_MODULES[arch]
+        path = ROOT / "build" / f"smoke_small_{arch}.gguf"
+        write_family_gguf(path, fcfg, 2, random_scales=True)
+        (cfg, pc), (_, pg) = mod.load(path, device="cpu"), mod.load(path, device=device)
+        rng = np.random.default_rng(3)
+        for n_tok, tol in ((7, 1e-9), (70, 2e-4)):
+            toks = torch.from_numpy(rng.integers(0, 512, n_tok))
+            with torch.inference_mode():
+                lc, _ = mod.forward(cfg, pc, toks, mod.make_cache(cfg, 128, device="cpu"), 0)
+                lg, _ = mod.forward(cfg, pg, toks.to(device),
+                                    mod.make_cache(cfg, 128, device=device), 0)
+            e = nmse(lg.cpu(), lc)
+            if not e < tol:
+                raise AssertionError(f"small {arch} model {n_tok} tokens: card vs CPU nmse {e}")
+            res[f"{arch}_nmse_{n_tok}_tokens"] = e
+    return res
+
+
+def families_phase(device, names) -> dict:
+    """The families phase: tiny models card vs CPU, then each family file's
+    path (family_path; the Mixtral file also through OffloadSplit, the
+    GPT-2-large file also through the CLI)."""
+    t0 = time.perf_counter()
+    out = {"small": small_family_check(device)}
+    log(f"small family models card vs CPU: {out['small']}")
+    for name in names:
+        fcfg, depth = FAMILIES[name]
+        out[name] = family_path(device, name, fcfg, depth)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # phase 3, by name (--checks)
 CHECKS = {"qmm": check_qmm, "attention": check_attention, "q6k": check_q6k,
           "q8_0": check_q8_0, "q4_0": check_q4_0, "q5k": check_q5k,
           "legacy": check_legacy, "q23k": check_q23k, "pipe": check_pipe,
-          "dma": check_dma}
+          "dma": check_dma, "families": check_family_shapes}
 
 
 def main(argv=None) -> int:
@@ -2724,9 +3300,10 @@ def main(argv=None) -> int:
                     help="comma-separated kernel checks of phase 3 (default: all; "
                          "'none' for no check)")
     ap.add_argument("--paths", default=None,
-                    help="comma-separated main paths of phase 6 (default: all), and "
-                         "'quantize' for phase 7; a run cut by --checks or --paths skips "
-                         "phases 4 and 5 and prints no result line")
+                    help="comma-separated main paths of phase 6 (default: all), "
+                         "'quantize' for phase 7, 'families' (or mixtral, gpt2_large, gptj) "
+                         "for phase 8; a run cut by --checks or --paths skips phases 4 and 5 "
+                         "and prints no result line")
     args = ap.parse_args(argv)
     checks = [] if args.checks == "none" else args.checks.split(",")
     unknown = set(checks) - set(CHECKS)
@@ -2976,6 +3553,43 @@ def main(argv=None) -> int:
             + ", ".join(f"{k} {v['gb_per_s']:.3f}" for k, v in quant["codecs"].items()
                         if "gb_per_s" in v)
             + f"; quantize phase {quant['seconds']:.1f} s")
+    fams = None
+    asked = set((args.paths or "").split(","))
+    fam_names = [n for n in FAMILIES if not partial or n in asked or "families" in asked]
+    if not (HAS_FAMILIES or partial):
+        raise AssertionError("models/moe.py, gpt2.py or gptj.py is missing: the families "
+                             "phase cannot run")
+    if HAS_FAMILIES and fam_names:
+        fams = families_phase(device, fam_names)
+        for name in fam_names:
+            fp = fams[name]
+            log(f"family {name} ({fp['layers']} layers) [{label}]: {fp['gguf_gb']:.2f} GB file "
+                f"written in {fp['gguf_write_s']:.1f} s, load {fp['load_s']:.2f} s "
+                f"({fp['weights_gb']:.2f} GB on the card), prefill {fp['prefill_tok_s']:.1f} "
+                f"tok/s (100-token prompt), decode {fp['decode_tok_s']:.2f} tok/s eager "
+                f"({fp['decode_step_ms']:.3f} ms/step; the weights' bytes bound "
+                f"{fp['step_bytes_bound_ms']:.3f} ms), decode_step replayed "
+                f"{fp['replayed_tok_s']:.2f} tok/s ({fp['replayed_step_ms']:.3f} ms/step, "
+                f"after its capture) == eager, "
+                + (f"engine {fp['engine_tok_s']:.1f} tok/s aggregate "
+                   f"(steady 8-slot step {fp['engine_decode_step_ms']:.3f} ms), "
+                   if "engine_tok_s" in fp else "no engine (no batched forward), ")
+                + f"peak device memory {fp['peak_mem_gb']:.2f} GB")
+            log(f"  launches per decode step {fp['launches_per_decode_step']}, per replayed "
+                f"step {fp['launches_per_replayed_step']}, per 128-token prefill chunk "
+                f"{fp['launches_per_prefill_chunk_128']}")
+            for key in ("decode_step_trace", "replayed_step_trace", "engine_step_trace",
+                        "prefill_trace"):
+                if key in fp:
+                    t = fp[key]
+                    log(f"  {key} [{label}]: device busy {t['busy_ms']} ms "
+                        f"({t['device_activities']} activities), busy share {t['busy_share']}; "
+                        f"busiest {t['top_ms'][:5]}")
+            if "engine_vs_generate" in fp:
+                ev = fp["engine_vs_generate"]
+                log(f"  engine == generate asserted for prompt lengths {ev['asserted']}; "
+                    f"recorded (first divergence, None = equal) {ev['recorded']}")
+        log(f"families phase {fams['seconds']:.1f} s")
     rep = {"qmm_q4_K": "M=8 N=11008 K=4096",
            "qmm_q4_K_i8": "M=128 N=11008 K=4096",
            "causal_flash_attention": "decode B=8 H=32 window=1024 f32q_bf16kv",
@@ -2995,7 +3609,7 @@ def main(argv=None) -> int:
     if partial:
         detail = {"device": smi, "build_s": build_s, "build": build.BUILD_LOG,
                   "kernels": results, "row_checks": row_checks, "main_paths": paths,
-                  "quantize": quant, "checks": checks, "partial": True}
+                  "quantize": quant, "families": fams, "checks": checks, "partial": True}
         for mp in paths.values():
             mp.pop("probe_logits", None)
         args.out.mkdir(parents=True, exist_ok=True)
@@ -3008,6 +3622,7 @@ def main(argv=None) -> int:
     log(f"q4_k int8 layout vs kernel layout [{label}]: one decode step's logits nmse "
         f"{int8_nmse:.3e}")
     runs = ([tune] + list(paths.values()) + ([quant] if quant else [])
+            + ([fams[n] for n in fam_names] if fams else [])
             + [mp[k] for mp in paths.values() for k in ("graphs", "pipeline", "tools") if k in mp])
     line = []
     for kern in kernels.KERNELS:
@@ -3023,7 +3638,7 @@ def main(argv=None) -> int:
             "shape": r["shape"]})
     detail = {"device": smi, "build_s": build_s, "build": build.BUILD_LOG,
               "kernels": results, "row_checks": row_checks, "autotune": tune,
-              "main_paths": paths, "quantize": quant, "small_model": small}
+              "main_paths": paths, "quantize": quant, "families": fams, "small_model": small}
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke.json").write_text(json.dumps(detail, indent=1, default=str))
     log(json.dumps({"kernels": line}))

@@ -14,9 +14,11 @@ Continuous-batching serving through the port's Engine (completions as
 
 One flag the reference lacks, `--device` (default cuda), asks for the CPU
 as `device=` does on the port's entry points; without a CUDA device and
-without `--device cpu` the commands raise. The llama architecture is
-served; gpt2, gptj and the mixture-of-experts llama are not yet ported and
-exit with an error that says so.
+without `--device cpu` the commands raise. The llama (dense and mixture
+of experts), gpt2 and gptj architectures are served, as in the reference:
+`--spec` takes the dense llama only, and `serve` takes the models with a
+batched forward (llama, the expert llama, gpt2), so on a gptj file it
+exits 1 with a message where the reference's Engine would fail.
 """
 from __future__ import annotations
 
@@ -26,34 +28,26 @@ import time
 
 import torch
 
-NOT_PORTED = ("gpt2", "gptj", "llama (mixture of experts)")
-
-
-def _arch_name(reader) -> str:
+def _model_module(reader):
+    """(arch, the model module that serves it) from a GGUF's metadata, as
+    the reference's :29-43 dispatch; module None for another
+    architecture. Nothing is loaded."""
     arch = reader.kv.get("general.architecture")
-    if arch == "llama" and int(reader.kv.get("llama.expert_count", 0)) >= 2:
-        return "llama (mixture of experts)"
-    return arch
-
-
-def _load_model(reader, path, device):
-    """(arch, module, cfg, params); module None for an architecture the
-    port does not serve."""
-    from . import llama
-
-    arch = _arch_name(reader)
-    if arch != "llama":
-        return arch, None, None, None
-    cfg, params = llama.load(path, device=device)
-    return arch, llama, cfg, params
+    if arch == "gpt2":
+        from . import gpt2 as mod
+    elif arch == "gptj":
+        from . import gptj as mod
+    elif arch == "llama" and int(reader.kv.get("llama.expert_count", 0)) >= 2:
+        from . import moe as mod
+    elif arch == "llama":
+        from . import llama as mod
+    else:
+        mod = None
+    return arch, mod
 
 
 def _unsupported(arch) -> int:
-    if arch in NOT_PORTED:
-        print(f"error: architecture {arch!r} is not yet ported to ggml_gfx906_tpu_torch",
-              file=sys.stderr)
-    else:
-        print(f"error: unsupported architecture {arch!r}", file=sys.stderr)
+    print(f"error: unsupported architecture {arch!r}", file=sys.stderr)
     return 1
 
 
@@ -115,16 +109,15 @@ def serve_main(argv):
 
     device = resolve(args.device)
     reader = GGUFReader(args.model)
-    if args.weights_layout:   # scoped to the load (in-process callers)
-        prev = config.get("weights_layout")
-        config.set("weights_layout", args.weights_layout)
-    try:
-        arch, mod, cfg, params = _load_model(reader, args.model, device)
-    finally:
-        if args.weights_layout:
-            config.set("weights_layout", prev)
+    arch, mod = _model_module(reader)
     if mod is None:
         return _unsupported(arch)
+    if not hasattr(mod, "forward_batch"):
+        print(f"error: serve needs a batched forward, which the {arch!r} architecture "
+              "does not have (as in the reference); use the generate command",
+              file=sys.stderr)
+        return 1
+    cfg, params = mod.load(args.model, device=device, layout=args.weights_layout)
     tok = tokenizer.from_gguf(reader)
 
     src = sys.stdin if args.prompts == "-" else open(args.prompts)
@@ -197,13 +190,17 @@ def generate_main(argv):
     from ..gguf import GGUFReader
     from ..runtime.sampling import greedy, prng_key, sample_top_k_top_p, split
     from ..utils.device import resolve
-    from . import tokenizer
+    from . import llama, tokenizer
 
     device = resolve(args.device)
     reader = GGUFReader(args.model)
-    arch, mod, cfg, params = _load_model(reader, args.model, device)
+    arch, mod = _model_module(reader)
     if mod is None:
         return _unsupported(arch)
+    if args.spec and mod is not llama:
+        print("error: --spec supports the llama architecture", file=sys.stderr)
+        return 1
+    cfg, params = mod.load(args.model, device=device)
 
     tok = tokenizer.from_gguf(reader)
     if args.tokens is not None:

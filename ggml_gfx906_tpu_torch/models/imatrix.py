@@ -67,11 +67,7 @@ def collect_llama(cfg, params: dict, token_chunks, max_seq: int = 512,
             v = qmatmul(h, blk["wv"]).reshape(S, KVH, HD)
             q = llama_mod._rope(cfg, q, pos)
             k = llama_mod._rope(cfg, k, pos)
-            kv = kv.update_layer(li, k, v, 0)
-            kc, vc, _, _ = kv.layer_kv(li)
-            att = ops.causal_flash_attn(q.transpose(0, 1)[None], kc[None], vc[None], zero,
-                                        scale=1.0 / (HD ** 0.5))
-            att = att[0].transpose(0, 1).reshape(S, H * HD)
+            att = llama_mod.attend(kv, li, q[None], k[None], v[None], 0, zero)[0]
             _sq(f"blk.{li}.attn_output.weight", att, acc)
             x = x + qmatmul(att, blk["wo"])
             h2 = llama_mod._rms(x, blk["ffn_norm"], cfg.rms_eps)

@@ -30,6 +30,7 @@ programs with their donated caches as in-place writes.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -42,7 +43,7 @@ from ..quant.types import GGMLType, TYPE_TRAITS
 from ..runtime.kv_cache import KVCache
 from ..runtime.graphs import GraphCache
 from ..utils import abort, autotune, config
-from ..utils.device import resolve
+from ..utils.device import resolve, tree_device
 
 ARCH = "llama"
 
@@ -81,7 +82,8 @@ class LlamaConfig:
 
 
 def params_device(params: dict) -> torch.device:
-    return params["out_norm"].device
+    """The device of a params tree (this module's, or another model's)."""
+    return tree_device(params)
 
 
 def _to_param(reader: GGUFReader, name: str, device):
@@ -160,7 +162,9 @@ def params_from_numpy(tree: dict, device=None) -> dict:
     JAX layouts: "kernel" (Q4_0, Q4_1, Q5_0, Q5_1, Q2_K, Q3_K, Q4_K, Q5_K,
     Q6_K or Q8_0), "wire" (the ggml block fields, ops/quantized.py:29-42)
     or "int8" (w8t, dwt, carried as they are).
-    Returns the port's params, which compute the same function."""
+    Any nesting of dicts and lists is carried (the expert lists of
+    models/moe.py, the other models' trees). Returns the port's params,
+    which compute the same function."""
     device = resolve(device)
 
     def conv(leaf):
@@ -174,12 +178,13 @@ def params_from_numpy(tree: dict, device=None) -> dict:
                 return _from_reference_wire(qtype, shape, leaf["fields"], device)
             return QuantTensor.from_reference_kernel_layout(
                 qtype, shape, leaf["fields"], device)
+        if isinstance(leaf, dict):
+            return {k: conv(v) for k, v in leaf.items()}
+        if isinstance(leaf, (list, tuple)):
+            return [conv(v) for v in leaf]
         return torch.from_numpy(np.array(leaf, copy=True)).to(device)
 
-    out = {k: conv(v) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [{k: conv(v) for k, v in blk.items()}
-                     for blk in tree["blocks"]]
-    return out
+    return conv(tree)
 
 
 def random_params(cfg: LlamaConfig, seed: int = 0, qtype: GGMLType | None = None,
@@ -245,20 +250,56 @@ def _block_ffn(blk, x, eps):
     return x + qmatmul(gate * up, blk["w_down"])
 
 
-def _forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor, kv: KVCache,
-             start) -> torch.Tensor:
-    """`forward` without advancing kv.length (the body a captured decode
-    step runs: it reads its position from a device buffer)."""
-    S = tokens.shape[0]
-    HD = cfg.head_dim
+def _positions(tokens: torch.Tensor, start):
+    """(start as a (1,) int32 device tensor, the tokens' positions (S,))."""
     dev = tokens.device
     if isinstance(start, torch.Tensor):
         pos_b = start.reshape(1).to(torch.int32)
     else:
         pos_b = torch.full((1,), int(start), dtype=torch.int32, device=dev)
-    pos = pos_b + torch.arange(S, dtype=torch.int32, device=dev)
-    x = embed_rows(params["wte"], tokens).to(cfg.compute_dtype)
-    for li, blk in enumerate(params["blocks"]):
+    return pos_b, pos_b + torch.arange(tokens.shape[0], dtype=torch.int32, device=dev)
+
+
+def attend(kv, li, q, k, v, start, pos_b=None, attn_window=None, window_delta=None):
+    """Layer li's cached attention, shared by every model: how a layer
+    writes its K/V and reads the cache back (dense, paged or int8; strict
+    or window delta). q (B, S, H, HD), k and v (B, S, KVH, HD) → att
+    (B, S, H·HD); the K/V rows go into the cache, or into the delta under
+    window_delta, in place.
+
+    kv: a single-stream KVCache (B = 1; K/V written at `start`, a host int
+    or a one-element device tensor; attention reads the position from
+    pos_b, the same position as a (1,) int32 tensor), or a BatchedKVCache /
+    PagedKVCache (start (B,) for both; attn_window as in `forward_batch`).
+    window_delta: `forward_batch`'s (delta, step, len0) triple."""
+    B, S, H, HD = q.shape
+    scale = 1.0 / (HD ** 0.5)
+    if window_delta is not None:
+        delta, step, len0 = window_delta
+        delta.write(li, k, v, step)
+        kc, vc, kd, vd = kv.layer_kv(li, attn_window)
+        att = ops.causal_attn_delta(q.transpose(1, 2), kc, vc, kd, vd, len0, delta.k[li],
+                                    delta.v[li], step, scale=scale)
+    elif isinstance(kv, KVCache):
+        kv.update_layer(li, k[0], v[0], start)
+        kc, vc, kd, vd = (None if t is None else t[None] for t in kv.layer_kv(li))
+        att = ops.causal_flash_attn(q.transpose(1, 2), kc, vc, pos_b, scale=scale,
+                                    k_scale=kd, v_scale=vd)
+    else:
+        kv.update_layer(li, k, v, start)
+        kc, vc, kd, vd = kv.layer_kv(li, attn_window)
+        att = ops.causal_flash_attn(q.transpose(1, 2), kc, vc, start, scale=scale,
+                                    k_scale=kd, v_scale=vd)
+    return att.transpose(1, 2).reshape(B, S, H * HD)
+
+
+def _layers(cfg, blocks, x, kv: KVCache, start, pos_b, pos, ffn=_block_ffn):
+    """x (S, D) through `blocks`, block i on layer i of `kv`; `ffn(blk, x,
+    eps)` is the residual FFN sublayer (the dense SwiGLU here, the routed
+    experts in models/moe.py)."""
+    S = x.shape[0]
+    HD = cfg.head_dim
+    for li, blk in enumerate(blocks):
         H = blk["wq"].shape[0] // HD
         KVH = blk["wk"].shape[0] // HD
         h = _rms(x, blk["attn_norm"], cfg.rms_eps)
@@ -267,18 +308,25 @@ def _forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor, kv: KVCache,
         v = qmatmul(h, blk["wv"]).reshape(S, KVH, HD)
         q = _rope(cfg, q, pos)
         k = _rope(cfg, k, pos)
-        kv = kv.update_layer(li, k, v, start)
-        kc, vc, kd, vd = kv.layer_kv(li)
-        att = ops.causal_flash_attn(q.transpose(0, 1)[None], kc[None], vc[None],
-                                    pos_b, scale=1.0 / (HD ** 0.5),
-                                    k_scale=None if kd is None else kd[None],
-                                    v_scale=None if vd is None else vd[None])
-        att = att[0].transpose(0, 1).reshape(S, H * HD)
-        x = x + qmatmul(att, blk["wo"])
-        x = _block_ffn(blk, x, cfg.rms_eps)
+        att = attend(kv, li, q[None], k[None], v[None], start, pos_b)
+        x = x + qmatmul(att[0], blk["wo"])
+        x = ffn(blk, x, cfg.rms_eps)
+    return x
+
+
+def _head(cfg, params: dict, x) -> torch.Tensor:
     x = _rms(x, params["out_norm"], cfg.rms_eps)
-    head = params.get("lm_head", params["wte"])
+    head = params["lm_head"] if "lm_head" in params else params["wte"]
     return qmatmul(x, head).float()
+
+
+def _forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor, kv: KVCache,
+             start, ffn=_block_ffn) -> torch.Tensor:
+    """`forward` without advancing kv.length (the body a captured decode
+    step runs: it reads its position from a device buffer)."""
+    pos_b, pos = _positions(tokens, start)
+    x = embed_rows(params["wte"], tokens).to(cfg.compute_dtype)
+    return _head(cfg, params, _layers(cfg, params["blocks"], x, kv, start, pos_b, pos, ffn))
 
 
 def forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
@@ -291,7 +339,7 @@ def forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
 
 def forward_batch(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
                   kv, start: torch.Tensor, attn_window: int | None = None,
-                  window_delta=None):
+                  window_delta=None, ffn=_block_ffn):
     """Batched serving forward: tokens (B, S) at per-slot positions
     start (B,) against a BatchedKVCache or PagedKVCache → (logits (B, S,
     V) f32, kv).
@@ -306,14 +354,14 @@ def forward_batch(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
     `step` (no write into the cache; the engine absorbs the window once,
     BatchedKVCache.absorb_delta) and attention merges the cache rows
     [0, len0) with the delta rows [0, step] (ops.causal_attn_delta).
-    Returns (logits, delta) instead of (logits, kv) (reference :329-400)."""
+    Returns (logits, delta) instead of (logits, kv) (reference :329-400).
+
+    ffn: the residual FFN sublayer, as in `_layers`."""
     B, S = tokens.shape
     HD = cfg.head_dim
     dev = tokens.device
     pos = start[:, None] + torch.arange(S, dtype=torch.int32, device=dev)[None, :]
     x = embed_rows(params["wte"], tokens).to(cfg.compute_dtype)
-    if window_delta is not None:
-        delta, step, len0 = window_delta
     for li, blk in enumerate(params["blocks"]):
         H = blk["wq"].shape[0] // HD
         KVH = blk["wk"].shape[0] // HD
@@ -323,23 +371,11 @@ def forward_batch(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
         v = qmatmul(h, blk["wv"]).reshape(B, S, KVH, HD)
         q = _rope(cfg, q, pos)
         k = _rope(cfg, k, pos)
-        if window_delta is not None:
-            delta = delta.write(li, k, v, step)
-            kc, vc, kd, vd = kv.layer_kv(li, attn_window)
-            att = ops.causal_attn_delta(q.transpose(1, 2), kc, vc, kd, vd, len0,
-                                        delta.k[li], delta.v[li], step,
-                                        scale=1.0 / (HD ** 0.5))
-        else:
-            kv = kv.update_layer(li, k, v, start)
-            kc, vc, kd, vd = kv.layer_kv(li, attn_window)
-            att = ops.causal_flash_attn(q.transpose(1, 2), kc, vc, start,
-                                        scale=1.0 / (HD ** 0.5), k_scale=kd, v_scale=vd)
-        att = att.transpose(1, 2).reshape(B, S, H * HD)
+        att = attend(kv, li, q, k, v, start, attn_window=attn_window,
+                     window_delta=window_delta)
         x = x + qmatmul(att, blk["wo"])
-        x = _block_ffn(blk, x, cfg.rms_eps)
-    x = _rms(x, params["out_norm"], cfg.rms_eps)
-    head = params.get("lm_head", params["wte"])
-    return qmatmul(x, head).float(), (delta if window_delta is not None else kv)
+        x = ffn(blk, x, cfg.rms_eps)
+    return _head(cfg, params, x), (kv if window_delta is None else window_delta[0])
 
 
 def make_cache(cfg: LlamaConfig, max_seq: int | None = None, dtype=None,
@@ -367,21 +403,27 @@ def generate(cfg: LlamaConfig, params: dict, prompt_tokens, n_predict: int,
     Eager, one forward per token, as the reference's re-dispatches its
     jitted forward (:305-326): `sampler` is any Python callable. The
     captured greedy loop is `decode_chunk` / `decode_scan`."""
-    from ..runtime.sampling import greedy
-
     device = _check_device(params, device)
     kv = make_cache(cfg, max_seq, device=device, quant=kv_quant)
+    return run_generate(functools.partial(forward, cfg, params), kv, prompt_tokens,
+                        n_predict, sampler, device)
+
+
+def run_generate(fwd, kv, prompt_tokens, n_predict: int, sampler, device) -> list[int]:
+    """The eager decode loop of every model's `generate`: fwd(tokens (S,),
+    kv, start) → (logits (S, V), kv) prefills the prompt, then runs one
+    step per token; `sampler` (greedy by default) picks each token."""
+    from ..runtime.sampling import greedy
+
     toks = torch.as_tensor(np.asarray(prompt_tokens, np.int64), device=device)
-    logits, kv = forward(cfg, params, toks, kv, 0)
+    logits, kv = fwd(toks, kv, 0)
     out = list(map(int, prompt_tokens))
     sampler = sampler or greedy
     out.append(int(sampler(logits[-1])))
     pos = len(prompt_tokens)
     for _ in range(n_predict - 1):
         abort.check()   # cooperative-cancel poll point between steps
-        logits, kv = forward(cfg, params,
-                             torch.tensor([out[-1]], dtype=torch.int64, device=device),
-                             kv, pos)
+        logits, kv = fwd(torch.tensor([out[-1]], dtype=torch.int64, device=device), kv, pos)
         pos += 1
         out.append(int(sampler(logits[-1])))
     return out
@@ -427,40 +469,45 @@ def _decoder(kv: KVCache) -> _Decoder:
     return kv.graphs
 
 
-def step_graph(cfg: LlamaConfig, params: dict, kv: KVCache, n_steps: int = 1):
+def step_graph(cfg: LlamaConfig, params: dict, kv: KVCache, n_steps: int = 1,
+               fwd=None):
     """The captured program of `n_steps` chained greedy decode steps on
     `kv` (a `runtime.graphs.StepGraph`): each step runs `forward` on the
     token buffer at the position buffer, takes the argmax as the next
     token and advances both buffers in place. Its outputs are (tokens
     (n_steps,) int32, the last step's logits (1, V) f32). One graph serves
     every position: the position is read from the device and attention
-    reads the whole cache, as the eager step's does."""
+    reads the whole cache, as the eager step's does. fwd: the model's
+    `_forward` (cfg, params, tokens, kv, start) → logits, this module's by
+    default (models/moe.py, gpt2.py and gptj.py pass theirs)."""
     d = _decoder(kv)
+    fwd = fwd or _forward
 
     def body():
         toks = []
         for _ in range(n_steps):
-            logits = _forward(cfg, params, d.tok, kv, d.pos)
+            logits = fwd(cfg, params, d.tok, kv, d.pos)
             nxt = torch.argmax(logits[-1]).to(torch.int32)[None]
             d.tok.copy_(nxt)
             d.pos.add_(1)
             toks.append(nxt)
         return torch.cat(toks), logits
 
-    key = ("decode", id(params), kv.k[0].data_ptr(), 1, 1, kv.max_seq, n_steps, cfg)
+    key = ("decode", id(params), kv.k[0].data_ptr(), 1, 1, kv.max_seq, n_steps, cfg, fwd)
     return d.graphs.get(key, body, state=(d.tok, d.pos))
 
 
 @torch.inference_mode()
-def decode_step(cfg: LlamaConfig, params: dict, tok, kv: KVCache, start):
+def decode_step(cfg: LlamaConfig, params: dict, tok, kv: KVCache, start, fwd=None):
     """One greedy decode step with the argmax inside the program: (tok
     (1,), kv, start) → (next_tok (1,) int32, kv) (reference :285-293). The
     step is a replay of the cache's one-step graph; the cache is updated in
     place and kv.length advances on the host. Feed the returned token back
-    as the next input: the real autoregressive dependence."""
+    as the next input: the real autoregressive dependence. fwd: as in
+    `step_graph`."""
     d = _decoder(kv)
     d.load(tok, start)
-    toks, _ = step_graph(cfg, params, kv, 1).replay()
+    toks, _ = step_graph(cfg, params, kv, 1, fwd).replay()
     return toks.clone(), kv.advance(1)
 
 

@@ -82,6 +82,20 @@ def perplexity_llama(cfg, params, tokens, n_ctx: int = 512, device=None, **kw) -
     return perplexity_stream(fw, params, tokens, n_ctx, device=device, **kw)
 
 
+def perplexity_gpt2(cfg, params, tokens, n_ctx: int = 512, device=None, **kw) -> dict:
+    """perplexity_stream over the gpt2 forward (reference :83-93), on the
+    card unless device="cpu"; one n_ctx-row cache serves every window."""
+    from . import gpt2, llama
+
+    device = llama._check_device(params, device)
+    kv = gpt2.make_cache(cfg, n_ctx, device=device)
+
+    def fw(p, toks):
+        return gpt2._forward(cfg, p, toks, kv, 0)
+
+    return perplexity_stream(fw, params, tokens, n_ctx, device=device, **kw)
+
+
 def main(argv=None):
     """CLI: perplexity of a GGUF llama model over a text file."""
     import argparse

@@ -1,7 +1,20 @@
-"""Op surface of the port: norms, rope, attention, quantized matmul,
-activation quantization."""
+"""Op surface of the port (the JAX package's ops/__init__.py, name for
+name, without the conv and recurrent-mixing ops): elementwise, norms,
+softmax, rows, rope, attention, quantized matmul, MoE routing, activation
+quantization."""
 from .act_quant import dequantize_q8, quantize_q8, quantize_q8_with_sums  # noqa: F401
-from .attention import attention_ref, causal_attn_delta, causal_flash_attn  # noqa: F401
-from .basic import rms_norm, silu  # noqa: F401
-from .quantized import QuantTensor, dequant, embed_rows, qmatmul  # noqa: F401
-from .rope import ROPE_TYPE_NEOX, ROPE_TYPE_NORMAL, rope_ext  # noqa: F401
+from .attention import (attention_ref, causal_attn_delta,  # noqa: F401
+                        causal_flash_attn, flash_attn_ext)
+from .basic import (  # noqa: F401
+    abs_, acc, add1, alibi_slopes, arange, argmax, argsort, causal_mask,
+    clamp, concat, count_equal, cross_entropy_loss, diag_mask_inf, elu,
+    embedding, exp, geglu, geglu_erf, geglu_quick, gelu, gelu_erf, gelu_quick,
+    get_rows, group_norm, hardsigmoid, hardswish, l2_norm, leaky_relu, mean,
+    neg, norm, out_prod, pad, pad_reflect_1d, reglu, relu, repeat, rms_norm, roll, scale,
+    set_rows, sgn, sigmoid, silu, soft_max, soft_max_ext, softcap, step, sum_,
+    sum_rows, swiglu, swiglu_oai, tanh, timestep_embedding, top_k, UNARY,
+)
+from .quantized import QuantTensor, dequant, embed_rows, qmatmul, to_int8_layout  # noqa: F401
+from .recurrent import mul_mat_id  # noqa: F401
+from .rope import (ROPE_TYPE_NEOX, ROPE_TYPE_NORMAL, rope_ext,  # noqa: F401
+                   yarn_corr_dims)

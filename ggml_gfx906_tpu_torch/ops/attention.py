@@ -1,6 +1,9 @@
 """Attention (the counterpart of ggml_gfx906_tpu/ops/attention.py:
-attention_ref, _causal_ref, _int8_score_dot, _causal_postscale,
+attention_ref, flash_attn_ext, _causal_ref, _int8_score_dot, _causal_postscale,
 causal_attn_delta, causal_flash_attn).
+
+`attention_ref` and `flash_attn_ext` take an explicit additive mask, with
+ALiBi slopes (max_bias) and sinks.
 
 Array convention (numpy order): q (B, H, N, D), k/v (B, H_kv, M, D) with
 grouped-query broadcast when H > H_kv. `causal_flash_attn` is the hot path:
@@ -24,15 +27,15 @@ from __future__ import annotations
 import torch
 
 from ..utils import config
+from .basic import alibi_slopes
 from .cuda import flash_attn as _fa
 
 
 def attention_ref(q, k, v, mask=None, scale: float | None = None,
                   max_bias: float = 0.0, logit_softcap: float = 0.0,
                   sinks=None):
-    """Naive reference attention with an additive mask (f32 math)."""
-    if max_bias != 0.0:
-        raise NotImplementedError("ALiBi (max_bias) is not ported yet")
+    """Naive reference attention with an additive mask (f32 math); the mask
+    is scaled per head by the ALiBi slopes of max_bias (ones at 0)."""
     B, H, N, D = q.shape
     Hkv = k.shape[1]
     if scale is None:
@@ -44,7 +47,8 @@ def attention_ref(q, k, v, mask=None, scale: float | None = None,
     if logit_softcap != 0.0:
         s = torch.tanh(s * _fa._f32(1.0 / logit_softcap)) * _fa._f32(logit_softcap)
     if mask is not None:
-        s = s + mask.float()
+        slope = alibi_slopes(H, max_bias, q.device).reshape(1, H, 1, 1)
+        s = s + slope * mask.float()
     m = s.amax(-1, keepdim=True)
     if sinks is not None:
         sk = sinks.float().reshape(1, H, 1, 1)
@@ -54,6 +58,15 @@ def attention_ref(q, k, v, mask=None, scale: float | None = None,
     if sinks is not None:
         denom = denom + torch.exp(sk - m)
     return ((e / denom) @ v.float()).to(q.dtype)
+
+
+def flash_attn_ext(q, k, v, mask=None, scale: float | None = None,
+                   max_bias: float = 0.0, logit_softcap: float = 0.0, sinks=None):
+    """The public entry with ggml's explicit-mask semantics (reference
+    :59-66): any mask, in plain torch, as the reference's runs XLA. The
+    causal hot path is `causal_flash_attn` (K2), which takes positions
+    instead of a mask."""
+    return attention_ref(q, k, v, mask, scale, max_bias, logit_softcap, sinks)
 
 
 def _causal_ref(q, k, v, pos, scale, logit_softcap, k_scale=None,

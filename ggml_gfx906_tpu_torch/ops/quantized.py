@@ -74,7 +74,7 @@ from ..quant import registry
 from ..quant.dequant_math import dequant_q8_0, unpack_q3_scales, unpack_scale_min_k4
 from ..quant.types import GGMLType, TYPE_TRAITS
 from ..utils import autotune, config
-from ..utils.device import resolve
+from ..utils.device import resolve, tree_device
 from .cuda import dispatch
 from .cuda import qmm as _qmm
 from .cuda import qmm_legacy as _qmm_legacy
@@ -444,13 +444,6 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def _first_device(tree) -> torch.device:
-    found = []
-    _tree_map(lambda t: found.append(t.device) if isinstance(t, torch.Tensor) else None,
-              tree)
-    return found[0]
-
-
 def apply_weights_layout(params, layout: str | None = None):
     """Every QuantTensor of a params tree (or one QuantTensor) in the
     execution layout `layout` (None reads config "weights_layout"; "auto"
@@ -461,7 +454,7 @@ def apply_weights_layout(params, layout: str | None = None):
     if layout not in WEIGHTS_LAYOUTS:
         raise ValueError(f"weights_layout {layout!r} is not one of {WEIGHTS_LAYOUTS}")
     if layout == "auto":
-        layout = autotune.choose(_first_device(params))
+        layout = autotune.choose(tree_device(params))
     if layout != "int8":
         return params
     return _tree_map(lambda t: to_int8_layout(t)

@@ -98,7 +98,7 @@ import numpy as np
 import torch
 
 from ..utils import abort, config
-from ..utils.device import resolve, to_device, upload
+from ..utils.device import resolve, to_device, tree_device, upload
 from .batched_kv import BatchedKVCache, WindowDelta, absorb_temp
 from .graphs import GraphCache, HostCopy
 from .paged_kv import PagedKVCache
@@ -155,7 +155,7 @@ class _Firsts:
 
 class Engine:
     """Continuous batching over a model module exposing forward /
-    forward_batch / make_cache (models/llama.py)."""
+    forward_batch / make_cache (models/llama.py, moe.py, gpt2.py)."""
 
     def __init__(self, model_mod, cfg, params, max_batch: int = 8,
                  max_seq: int = 1024, chunk_size: int | None = None,
@@ -166,7 +166,7 @@ class Engine:
         tokens. Admission waits (active slots keep decoding) while the pool
         is full. Config kv_quant makes the caches int8."""
         self.device = dev = resolve(device)
-        dev_p = params["out_norm"].device
+        dev_p = tree_device(params)
         if dev_p.type != dev.type:
             raise ValueError(f"params live on {dev_p}, engine asked for {dev}")
         self.m = model_mod

@@ -33,3 +33,19 @@ def to_device(src, device) -> torch.Tensor:
     """`src` (host data) as a new tensor on `device`, by `upload`."""
     src = torch.as_tensor(src)
     return upload(torch.empty(src.shape, dtype=src.dtype, device=device), src)
+
+
+def tree_device(tree) -> torch.device:
+    """The device of the first tensor of a params tree (dicts, lists, and
+    QuantTensors through their `fields`)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.device
+    if hasattr(tree, "fields"):
+        tree = tree.fields
+    items = tree.values() if isinstance(tree, dict) else tree
+    for v in items:
+        try:
+            return tree_device(v)
+        except (ValueError, TypeError):
+            continue
+    raise ValueError("the tree holds no tensor")

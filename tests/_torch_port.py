@@ -1,5 +1,7 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py): the
 same numpy inputs go through the JAX package and its PyTorch port."""
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,19 +31,19 @@ def nmse(got, ref) -> float:
     return float(((got - ref) ** 2).mean() / max((ref ** 2).mean(), 1e-30))
 
 
-def jax_params_to_numpy(params: dict) -> dict:
-    """The JAX llama params pytree with numpy leaves; each QuantTensor as
-    {"qtype", "shape", "layout", "fields"} (models/llama.params_from_numpy)."""
-    def conv(leaf):
-        if isinstance(leaf, JQuantTensor):
-            return {"qtype": int(leaf.qtype), "shape": tuple(leaf.shape),
-                    "layout": leaf.layout,
-                    "fields": {k: np.asarray(v) for k, v in leaf.fields.items()}}
-        return np.asarray(leaf)
-
-    out = {k: conv(v) for k, v in params.items() if k != "blocks"}
-    out["blocks"] = [{k: conv(v) for k, v in b.items()} for b in params["blocks"]]
-    return out
+def jax_params_to_numpy(params):
+    """A JAX params pytree (any nesting of dicts and lists: the llama, moe,
+    gpt2 and gptj trees) with numpy leaves; each QuantTensor as {"qtype",
+    "shape", "layout", "fields"} (models/llama.params_from_numpy)."""
+    if isinstance(params, JQuantTensor):
+        return {"qtype": int(params.qtype), "shape": tuple(params.shape),
+                "layout": params.layout,
+                "fields": {k: np.asarray(v) for k, v in params.fields.items()}}
+    if isinstance(params, dict):
+        return {k: jax_params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [jax_params_to_numpy(v) for v in params]
+    return np.asarray(params)
 
 
 def tiny_cfg(n_ctx: int = 128):
@@ -174,3 +176,87 @@ def write_recipe_gguf(path, cfg, weights, seed: int = 5, vocab: bool = False):
             w.add_array_tensor(f"blk.{i}.{nm}.weight",
                                (1 + 0.1 * rng.standard_normal(cfg.n_embd)).astype(np.float32))
     w.write(path)
+
+
+# ------------------------------------------- HF-style state dicts
+
+# the widths of the HF-style state dicts (hf_llama_state, hf_gpt_state)
+HF_D, HF_FF, HF_V, HF_L = 256, 512, 256, 2
+D, FF, V, L = HF_D, HF_FF, HF_V, HF_L
+
+
+def _randn(rng, *shape, scale=0.02):
+    return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
+
+
+def hf_llama_state(seed: int = 0, head: bool = True, experts: int = 0):
+    """(state dict, config) of a tiny HF LlamaForCausalLM, or with experts
+    a MixtralForCausalLM, with seeded weights ~N(0, 0.02) and norm weights
+    1 + N(0, 0.1), as models/convert.py takes them."""
+    rng = np.random.default_rng(seed)
+    sd = {"model.embed_tokens.weight": _randn(rng, V, D),
+          "model.norm.weight": 1 + _randn(rng, D, scale=0.1)}
+    if head:
+        sd["lm_head.weight"] = _randn(rng, V, D)
+    for i in range(L):
+        p = f"model.layers.{i}."
+        sd[p + "input_layernorm.weight"] = 1 + _randn(rng, D, scale=0.1)
+        sd[p + "post_attention_layernorm.weight"] = 1 + _randn(rng, D, scale=0.1)
+        for s, r in (("q", D), ("k", D // 2), ("v", D // 2), ("o", D)):
+            sd[p + f"self_attn.{s}_proj.weight"] = _randn(rng, r, D)
+        if experts:
+            sd[p + "block_sparse_moe.gate.weight"] = _randn(rng, experts, D)
+            for e in range(experts):
+                q = p + f"block_sparse_moe.experts.{e}."
+                sd[q + "w1.weight"] = _randn(rng, FF, D)
+                sd[q + "w2.weight"] = _randn(rng, D, FF)
+                sd[q + "w3.weight"] = _randn(rng, FF, D)
+        else:
+            sd[p + "mlp.gate_proj.weight"] = _randn(rng, FF, D)
+            sd[p + "mlp.up_proj.weight"] = _randn(rng, FF, D)
+            sd[p + "mlp.down_proj.weight"] = _randn(rng, D, FF)
+    cfg = types.SimpleNamespace(vocab_size=V, max_position_embeddings=128, hidden_size=D,
+                                num_hidden_layers=L, intermediate_size=FF,
+                                num_attention_heads=4, num_key_value_heads=2,
+                                rms_norm_eps=1e-5, rope_theta=10000.0,
+                                num_local_experts=experts, num_experts_per_tok=2)
+    return sd, cfg
+
+
+def hf_gpt_state(arch: str, seed: int = 1):
+    """(state dict, config) of a tiny HF GPT2LMHeadModel ("gpt2") or
+    GPTJForCausalLM ("gptj"), seeded as hf_llama_state."""
+    rng = np.random.default_rng(seed)
+    sd = {"transformer.wte.weight": _randn(rng, V, D),
+          "transformer.ln_f.weight": 1 + _randn(rng, D, scale=0.1),
+          "transformer.ln_f.bias": _randn(rng, D)}
+    for i in range(L):
+        p = f"transformer.h.{i}."
+        sd[p + "ln_1.weight"] = 1 + _randn(rng, D, scale=0.1)
+        sd[p + "ln_1.bias"] = _randn(rng, D)
+        if arch == "gpt2":
+            sd[p + "ln_2.weight"] = 1 + _randn(rng, D, scale=0.1)
+            sd[p + "ln_2.bias"] = _randn(rng, D)
+            sd[p + "attn.c_attn.weight"] = _randn(rng, D, 3 * D)     # Conv1D: (in, out)
+            sd[p + "attn.c_attn.bias"] = _randn(rng, 3 * D)
+            sd[p + "attn.c_proj.weight"] = _randn(rng, D, D)
+            sd[p + "attn.c_proj.bias"] = _randn(rng, D)
+            sd[p + "mlp.c_fc.weight"] = _randn(rng, D, FF)
+            sd[p + "mlp.c_fc.bias"] = _randn(rng, FF)
+            sd[p + "mlp.c_proj.weight"] = _randn(rng, FF, D)
+            sd[p + "mlp.c_proj.bias"] = _randn(rng, D)
+        else:
+            for s in ("q", "k", "v", "out"):
+                sd[p + f"attn.{s}_proj.weight"] = _randn(rng, D, D)
+            sd[p + "mlp.fc_in.weight"] = _randn(rng, FF, D)
+            sd[p + "mlp.fc_in.bias"] = _randn(rng, FF)
+            sd[p + "mlp.fc_out.weight"] = _randn(rng, D, FF)
+            sd[p + "mlp.fc_out.bias"] = _randn(rng, D)
+    if arch == "gpt2":
+        sd["transformer.wpe.weight"] = _randn(rng, 64, D)
+    else:
+        sd["lm_head.weight"] = _randn(rng, V, D)
+        sd["lm_head.bias"] = _randn(rng, V)
+    cfg = types.SimpleNamespace(vocab_size=V, n_positions=64, n_embd=D, n_layer=L, n_head=4,
+                                rotary_dim=32, layer_norm_epsilon=1e-5)
+    return sd, cfg

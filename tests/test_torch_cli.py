@@ -3,8 +3,11 @@ One tiny Q4_K llama GGUF with the smoke's synthetic SentencePiece
 vocabulary goes through the JAX CLI and the port's (`--device cpu`):
 equal stdout for greedy, `--spec 4` and seeded sampled generate, equal
 `serve` lines at --max-batch 2 (dense, int8 KV, paged pool; window delta
-off on the JAX side, the port's default), the architectures the port does
-not serve yet, perplexity.main, and `python -m` of the CLI."""
+off on the JAX side, the port's default), the same for tiny gpt2, gptj and
+expert-llama files in the Q4_K_M recipe (serve for gpt2 and the expert
+llama), what the port does not serve (an unknown architecture, serve on
+gptj, --spec beyond the dense llama), perplexity.main, and `python -m` of
+the CLI."""
 import os
 import subprocess
 import sys
@@ -14,6 +17,7 @@ import numpy as np
 import pytest
 
 import chip_smoke
+from ggml_gfx906_tpu.gguf import GGUFReader as JReader
 from ggml_gfx906_tpu.models import cli as jcli
 from ggml_gfx906_tpu.models import perplexity as jppl
 from ggml_gfx906_tpu.quant.types import GGMLType
@@ -109,21 +113,79 @@ def _arch_file(path, arch, experts=0):
     return str(path)
 
 
-@pytest.mark.parametrize("arch,experts,name", [("gpt2", 0, "gpt2"), ("gptj", 0, "gptj"),
-                                               ("llama", 8, "llama (mixture of experts)"),
-                                               ("falcon", 0, "falcon")])
-def test_architectures_not_served_exit_1(tmp_path, capsys, arch, experts, name):
-    """gpt2, gptj and the expert llama are not yet ported: both commands
-    exit 1 and say so; any other architecture is unsupported, as in the
+@pytest.fixture(scope="module")
+def family_files(tmp_path_factory):
+    """Tiny GGUFs of the three other families in llama.cpp's Q4_K_M recipe,
+    with the synthetic SentencePiece vocabulary (chip_smoke's writer); the
+    expert llama with 4 experts (the reference's interpret-mode kernels
+    take most of this file's time)."""
+    d = tmp_path_factory.mktemp("families")
+    out = {}
+    for arch, fcfg in chip_smoke.TINY_FAMILIES.items():
+        if arch == "moe":
+            fcfg = dict(fcfg, n_expert=4)
+        out[arch] = d / f"tiny_{arch}.gguf"
+        chip_smoke.write_family_gguf(out[arch], fcfg, 2, random_scales=True)
+    return {k: str(v) for k, v in out.items()}
+
+
+@pytest.fixture
+def reference_reads_stacked_experts(monkeypatch):
+    """The reference's moe.load splits a quantized expert stack's blocks as
+    (E·n_out, nb) rows (its :234-238), which its reader gives as (E, n_out,
+    nb): the blocks are handed to it flattened."""
+    real = JReader.tensor_blocks
+    monkeypatch.setattr(JReader, "tensor_blocks",
+                        lambda self, name: (lambda b: b.reshape(-1, b.shape[-1]))(real(self, name)))
+
+
+@pytest.mark.parametrize("arch", ["gpt2", "gptj", "moe"])
+def test_family_cli_equals_reference(family_files, capsys, tmp_path, restore_configs,
+                                     reference_reads_stacked_experts, arch):
+    """gpt2, gptj and the expert llama are served: greedy generate's stdout
+    equals the reference CLI's, and for gpt2 and the expert llama so do the
+    `serve` lines at --max-batch 2 (window delta off on the JAX side, the
+    port's default)."""
+    path = family_files[arch]
+    argv = ["-m", path, "-p", _prompt(4), "-n", "6", "--greedy"]
+    want, _ = _run(jcli.main, argv, capsys)
+    got, err = _run(tcli.main, argv + CPU, capsys)
+    assert got == want and got.strip() and "device: cpu" in err
+    if arch == "gptj":
+        return
+    prompts = tmp_path / "prompts.txt"
+    prompts.write_text("\n".join(_prompt(s, n) for s, n in ((2, 3), (3, 9), (4, 5))) + "\n")
+    argv = ["serve", "-m", path, "--prompts", str(prompts), "-n", "4", "--max-batch", "2",
+            "--max-seq", "64"]
+    jconfig.set("engine_window_delta", False)
+    want, _ = _run(jcli.main, argv, capsys)
+    got, err = _run(tcli.main, argv + CPU, capsys)
+    assert got == want and sorted(ln.split("]")[0] for ln in got.splitlines()) == \
+        ["[0", "[1", "[2"]
+
+
+@pytest.mark.parametrize("case", ["falcon generate", "falcon serve", "gptj serve",
+                                  "gpt2 --spec", "moe --spec"])
+def test_architectures_not_served_exit_1(family_files, tmp_path, capsys, case):
+    """What the port does not serve exits 1 and says why: an architecture
+    it does not know (falcon), as in the reference, for both commands;
+    `serve` on a gptj file (no batched forward: the reference's Engine
+    would fail); `--spec` on anything but the dense llama, as in the
     reference."""
-    path = _arch_file(tmp_path / f"{arch}.gguf", arch, experts)
+    arch, cmd = case.split()
+    path = _arch_file(tmp_path / "falcon.gguf", "falcon") if arch == "falcon" \
+        else family_files[arch]
     prompts = tmp_path / "p.txt"
     prompts.write_text("ab\n")
-    for argv in (["-m", path, "-p", "ab"], ["serve", "-m", path, "--prompts", str(prompts)]):
-        assert tcli.main(argv + CPU) == 1
-        err = capsys.readouterr().err
-        assert repr(name) in err
-        assert ("not yet ported" in err) == (name in tcli.NOT_PORTED)
+    argv = (["serve", "-m", path, "--prompts", str(prompts)] if cmd == "serve"
+            else ["-m", path, "-p", "ab"] + (["--spec", "4"] if cmd == "--spec" else []))
+    assert tcli.main(argv + CPU) == 1
+    err = capsys.readouterr().err
+    want = {"falcon": "unsupported architecture 'falcon'",
+            "gptj": "serve needs a batched forward",
+            "gpt2": "--spec supports the llama architecture",
+            "moe": "--spec supports the llama architecture"}[arch]
+    assert want in err
 
 
 def test_perplexity_main_matches_reference(model, capsys, tmp_path):

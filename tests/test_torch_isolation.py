@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither jax nor the JAX package, and
-its entry points run on the card unless device="cpu" is asked for."""
+"""The port stands alone: it imports neither jax, nor transformers, nor the
+JAX package, and its entry points run on the card unless device="cpu" is
+asked for."""
 import os
 import subprocess
 import sys
@@ -17,7 +18,7 @@ _BLOCKED = textwrap.dedent("""
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
             top = name.split(".")[0]
-            if top in ("jax", "jaxlib") or top == "ggml_gfx906_tpu":
+            if top in ("jax", "jaxlib", "transformers") or top == "ggml_gfx906_tpu":
                 raise ImportError(f"blocked import of {name}")
             return None
 
@@ -47,12 +48,13 @@ def test_port_imports_no_jax_and_runs_a_cpu_forward():
                   "models.cli", "models.speculative", "models.perplexity", "ops.act_quant",
                   "quant.numerics", "quant.blocks", "quant.legacy", "quant.kquants",
                   "quant.modern", "quant.iquants", "quant.registry", "models.convert",
-                  "models.quantize_cli", "models.imatrix"):
+                  "models.quantize_cli", "models.imatrix", "models.moe", "models.gpt2",
+                  "models.gptj", "models.offload", "ops.recurrent"):
             assert pkg.__name__ + "." + n in names, n
         from ggml_gfx906_tpu_torch.quant import registry
         assert registry.dequantize(GGMLTypeQ.IQ2_XXS, bytes(66), 256).shape == (1, 256)
         import chip_smoke   # the smoke script imports nothing of JAX either
-        assert not any(m.split(".")[0] in ("jax", "jaxlib", "ggml_gfx906_tpu")
+        assert not any(m.split(".")[0] in ("jax", "jaxlib", "ggml_gfx906_tpu", "transformers")
                        for m in sys.modules)
         from ggml_gfx906_tpu_torch.models import llama
         from ggml_gfx906_tpu_torch.ops.quantized import QuantTensor
@@ -150,3 +152,34 @@ def test_quantize_tools_want_the_card(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert quantize(GGMLType.Q8_0, torch.zeros(1, 32)).device.type == "cpu"
+
+
+def test_family_entry_points_want_the_card(tmp_path):
+    """gpt2, gptj and the expert llama: load, random_params, generate and
+    params_from_numpy run on cuda unless asked for the CPU, and raise here
+    before reading any file; so do OffloadSplit.build (its device side) and
+    auto_split."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry points would use it")
+    from ggml_gfx906_tpu_torch.models import gpt2, gptj, llama, moe, offload
+
+    absent = tmp_path / "absent.gguf"
+    gcfg = gpt2.GPT2Config(n_vocab=8, n_ctx=8, n_embd=8, n_head=1, n_layer=1)
+    jcfg = gptj.GPTJConfig(n_vocab=8, n_ctx=8, n_embd=8, n_head=1, n_layer=1, n_rot=4)
+    mcfg = moe.MoEConfig(n_vocab=8, n_ctx=8, n_embd=8, n_head=1, n_kv_head=1, n_layer=1,
+                         n_ff=8, n_expert=2, n_expert_used=1)
+    lcfg = llama.LlamaConfig(n_vocab=8, n_ctx=8, n_embd=8, n_head=1, n_kv_head=1, n_layer=1,
+                             n_ff=8)
+    one = torch.ones(8)
+    calls = [lambda mod=mod: mod.load(absent) for mod in (gpt2, gptj, moe)]
+    calls += [lambda: gpt2.random_params(gcfg), lambda: moe.random_params(mcfg),
+              lambda: gpt2.generate(gcfg, {"ln_f_g": one, "blocks": []}, [1], 1),
+              lambda: gptj.generate(jcfg, {"ln_f_g": one, "blocks": []}, [1], 1),
+              lambda: moe.generate(mcfg, {"out_norm": one, "blocks": []}, [1], 1),
+              lambda: gpt2.params_from_numpy({"ln_f_g": [1.0], "blocks": []}),
+              lambda: offload.OffloadSplit.build(lcfg, {"wte": one, "out_norm": one,
+                                                        "lm_head": one, "blocks": []}, 1),
+              lambda: offload.auto_split(lcfg, {"wte": one, "blocks": []}, 8)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

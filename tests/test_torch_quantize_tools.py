@@ -4,7 +4,6 @@ writer's codec paths, and a file of a type without kernels end to end.
 Files are held byte for byte against the reference's on the same inputs
 (made from a seed with numpy); the imatrix within a relative 1e-5 (its
 column sums reduce in another order than XLA's)."""
-import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,82 +21,12 @@ from ggml_gfx906_tpu_torch.gguf import GGUFReader, GGUFWriter
 from ggml_gfx906_tpu_torch.models import convert, imatrix, llama, quantize_cli
 from ggml_gfx906_tpu_torch.ops.quantized import QuantTensor
 
-from _torch_port import (jax_params_to_numpy, nmse, one_torch_thread,  # noqa: F401
+from _torch_port import (HF_D, HF_FF, HF_L, HF_V, hf_gpt_state,  # noqa: F401
+                         hf_llama_state, jax_params_to_numpy, nmse, one_torch_thread,
                          port_cfg, recipe_logits, tiny_cfg)
 
-D, FF, V, L = 256, 512, 256, 2
-
-
-def _randn(rng, *shape, scale=0.02):
-    return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
-
-
-def _llama_state(seed: int = 0, head: bool = True, experts: int = 0):
-    rng = np.random.default_rng(seed)
-    sd = {"model.embed_tokens.weight": _randn(rng, V, D),
-          "model.norm.weight": 1 + _randn(rng, D, scale=0.1)}
-    if head:
-        sd["lm_head.weight"] = _randn(rng, V, D)
-    for i in range(L):
-        p = f"model.layers.{i}."
-        sd[p + "input_layernorm.weight"] = 1 + _randn(rng, D, scale=0.1)
-        sd[p + "post_attention_layernorm.weight"] = 1 + _randn(rng, D, scale=0.1)
-        for s, r in (("q", D), ("k", D // 2), ("v", D // 2), ("o", D)):
-            sd[p + f"self_attn.{s}_proj.weight"] = _randn(rng, r, D)
-        if experts:
-            sd[p + "block_sparse_moe.gate.weight"] = _randn(rng, experts, D)
-            for e in range(experts):
-                q = p + f"block_sparse_moe.experts.{e}."
-                sd[q + "w1.weight"] = _randn(rng, FF, D)
-                sd[q + "w2.weight"] = _randn(rng, D, FF)
-                sd[q + "w3.weight"] = _randn(rng, FF, D)
-        else:
-            sd[p + "mlp.gate_proj.weight"] = _randn(rng, FF, D)
-            sd[p + "mlp.up_proj.weight"] = _randn(rng, FF, D)
-            sd[p + "mlp.down_proj.weight"] = _randn(rng, D, FF)
-    cfg = types.SimpleNamespace(vocab_size=V, max_position_embeddings=128, hidden_size=D,
-                                num_hidden_layers=L, intermediate_size=FF,
-                                num_attention_heads=4, num_key_value_heads=2,
-                                rms_norm_eps=1e-5, rope_theta=10000.0,
-                                num_local_experts=experts, num_experts_per_tok=2)
-    return sd, cfg
-
-
-def _gpt_state(arch: str, seed: int = 1):
-    rng = np.random.default_rng(seed)
-    sd = {"transformer.wte.weight": _randn(rng, V, D),
-          "transformer.ln_f.weight": 1 + _randn(rng, D, scale=0.1),
-          "transformer.ln_f.bias": _randn(rng, D)}
-    for i in range(L):
-        p = f"transformer.h.{i}."
-        sd[p + "ln_1.weight"] = 1 + _randn(rng, D, scale=0.1)
-        sd[p + "ln_1.bias"] = _randn(rng, D)
-        if arch == "gpt2":
-            sd[p + "ln_2.weight"] = 1 + _randn(rng, D, scale=0.1)
-            sd[p + "ln_2.bias"] = _randn(rng, D)
-            sd[p + "attn.c_attn.weight"] = _randn(rng, D, 3 * D)     # Conv1D: (in, out)
-            sd[p + "attn.c_attn.bias"] = _randn(rng, 3 * D)
-            sd[p + "attn.c_proj.weight"] = _randn(rng, D, D)
-            sd[p + "attn.c_proj.bias"] = _randn(rng, D)
-            sd[p + "mlp.c_fc.weight"] = _randn(rng, D, FF)
-            sd[p + "mlp.c_fc.bias"] = _randn(rng, FF)
-            sd[p + "mlp.c_proj.weight"] = _randn(rng, FF, D)
-            sd[p + "mlp.c_proj.bias"] = _randn(rng, D)
-        else:
-            for s in ("q", "k", "v", "out"):
-                sd[p + f"attn.{s}_proj.weight"] = _randn(rng, D, D)
-            sd[p + "mlp.fc_in.weight"] = _randn(rng, FF, D)
-            sd[p + "mlp.fc_in.bias"] = _randn(rng, FF)
-            sd[p + "mlp.fc_out.weight"] = _randn(rng, D, FF)
-            sd[p + "mlp.fc_out.bias"] = _randn(rng, D)
-    if arch == "gpt2":
-        sd["transformer.wpe.weight"] = _randn(rng, 64, D)
-    else:
-        sd["lm_head.weight"] = _randn(rng, V, D)
-        sd["lm_head.bias"] = _randn(rng, V)
-    cfg = types.SimpleNamespace(vocab_size=V, n_positions=64, n_embd=D, n_layer=L, n_head=4,
-                                rotary_dim=32, layer_norm_epsilon=1e-5)
-    return sd, cfg
+D, FF, V, L = HF_D, HF_FF, HF_V, HF_L
+_llama_state, _gpt_state = hf_llama_state, hf_gpt_state
 
 
 CONVERTS = [("llama", GGMLType.F16), ("llama", GGMLType.Q4_K), ("gptj", GGMLType.F32),

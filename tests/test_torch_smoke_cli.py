@@ -296,3 +296,85 @@ def test_quantize_phase_runs_on_the_cpu(monkeypatch):
         assert set(row["rows_equal_cpu"].values()) == {16}
     assert len(out["codecs"]) == 17 + 16 + 7
     assert not list((chip_smoke.ROOT / "build").glob("smoke_llama7b_*_L2.gguf"))
+
+
+def test_family_recipes_follow_llama_cpp_q4_k_m():
+    """The families' files in llama.cpp's Q4_K_M: Mixtral's attn_k / attn_v
+    Q8_0 and attn_output Q5_K (8 experts), GPT-2's attn_qkv Q5_K and tied
+    head Q6_K, attn_v / ffn_down Q6_K in the use_more_bits layers (0, 3, 6
+    and 7 of 8); the launches of a decode step and a 128-token chunk per
+    kernel; the Mixtral decode step's weight stream."""
+    from ggml_gfx906_tpu_torch.quant.types import GGMLType
+
+    mix, gpt2_l, gptj = (chip_smoke.FAMILIES[n][0] for n in ("mixtral", "gpt2_large", "gptj"))
+    t = chip_smoke.family_type
+    assert [t(mix, n, 1, 8) for n in ("attn_q", "attn_k", "attn_v", "attn_output")] == \
+        [GGMLType.Q4_K, GGMLType.Q8_0, GGMLType.Q8_0, GGMLType.Q5_K]
+    assert [t(mix, "ffn_down_exps", i, 8) for i in range(8)].count(GGMLType.Q6_K) == 4
+    assert t(mix, "ffn_down_exps", 3, 8) == GGMLType.Q6_K == t(mix, "output", None, 8)
+    assert t(gpt2_l, "attn_qkv", 5, 36) == GGMLType.Q5_K == t(gptj, "attn_qkv", 0, 8)
+    assert t(gpt2_l, "token_embd", None, 36) == GGMLType.Q6_K
+    assert t(gptj, "token_embd", None, 8) == GGMLType.Q4_K
+    assert t(gptj, "attn_v", 7, 8) == GGMLType.Q6_K and t(gptj, "attn_v", 1, 8) == GGMLType.Q4_K
+    step = chip_smoke.family_launches(mix, 8, 1)
+    assert step == {"causal_flash_attention": 8, "qmm_q4_K": 8 + 2 * 8 * 8 + 4 * 8,
+                    "qmm_q8_0": 16, "qmm_q5_K": 8, "qmm_q6_K": 1 + 4 * 8}
+    chunk = chip_smoke.family_launches(mix, 8, 128)
+    assert chunk["qmm_q4_K_i8"] == 8 + 2 * 8 * 8 + 4 * 8 and chunk["qmm_q8_0_i8"] == 16
+    assert chip_smoke.family_launches(gpt2_l, 36, 1)["qmm_q5_K"] == 36
+    assert 7.1e9 < chip_smoke.family_bytes(mix, 8) < 7.2e9
+
+
+def test_families_phase_runs_on_the_cpu(monkeypatch):
+    """The families phase end to end on tiny models of the three families on
+    the CPU (the card's synchronisation, memory statistics and traces
+    stubbed; every kernel on their paths counted around its wrapper): the
+    tiny card-vs-CPU check, each file's launches as its types predict,
+    decode_step == eager, engine == generate (MoE, GPT-2; for GPT-2 also a
+    request to n_ctx), the offload split and the CLI, and no family file
+    left behind."""
+    import torch
+
+    from ggml_gfx906_tpu_torch.ops import cuda as kernels
+    from ggml_gfx906_tpu_torch.ops.cuda import dispatch, flash_attn
+    from ggml_gfx906_tpu_torch.quant.types import GGMLType
+
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(chip_smoke, "trace_device", lambda fn, match=(): (fn(), {
+        "busy_ms": 1.0, "device_activities": 0, "profiled_wall_ms": 1.0, "matched_ms": 0.0,
+        "top_ms": []})[1])
+    for name, val in (("N_NEW", 4), ("SERVE_WORDS", (3, 6, 9, 40)),
+                      ("PARITY_LENS", (5, 9, 70))):
+        monkeypatch.setattr(chip_smoke, name, val)
+
+    def counted(kern, fn):
+        def run(*a, **k):
+            kern.launches += 1
+            return fn(*a, **k)
+        return run
+
+    monkeypatch.setattr(flash_attn, "causal_flash_attention",
+                        counted(kernels.K2, flash_attn.causal_flash_attention))
+    for key, kern in (((GGMLType.Q4_K, "f32"), kernels.K1), ((GGMLType.Q4_K, "i8"), kernels.K3),
+                      ((GGMLType.Q6_K, "f32"), kernels.K4), ((GGMLType.Q8_0, "f32"), kernels.K5),
+                      ((GGMLType.Q8_0, "i8"), kernels.K5_I8), ((GGMLType.Q5_K, "f32"), kernels.K7)):
+        monkeypatch.setitem(dispatch._KERNELS, key, counted(kern, dispatch._KERNELS[key]))
+    tiny = {name: (chip_smoke.TINY_FAMILIES[arch], 2)
+            for name, arch in (("mixtral", "moe"), ("gpt2_large", "gpt2"), ("gptj", "gptj"))}
+    monkeypatch.setattr(chip_smoke, "FAMILIES", tiny)
+    out = chip_smoke.families_phase(torch.device("cpu"), list(tiny))
+    assert set(out["small"]) == {f"{a}_nmse_{n}_tokens" for a in ("moe", "gpt2", "gptj")
+                                 for n in (7, 70)}
+    mix = out["mixtral"]
+    assert mix["launches_per_decode_step"] == chip_smoke.family_launches(tiny["mixtral"][0], 2, 1)
+    # attn_q 2, gate and up 2 x 2 x 8 experts, layer 0's ffn_down 8 (layer 1's is Q6_K)
+    assert mix["launches_per_prefill_chunk_128"]["qmm_q4_K_i8"] == 2 + 2 * 2 * 8 + 8
+    assert mix["replayed_logits_equal_eager"] and mix["offload"]["logits_nmse"] < 1e-9
+    assert mix["engine_vs_generate"]["asserted"] == [70]
+    assert out["gpt2_large"]["cli"]["serve_requests"] == 4
+    assert out["gpt2_large"]["to_n_ctx"]["equal_generate"]
+    assert out["gpt2_large"]["to_n_ctx"]["prompt_tokens"] == 1024 - 4
+    assert "engine_tok_s" not in out["gptj"] and out["gptj"]["launches"]["qmm_q6_K"] > 0
+    assert not list((chip_smoke.ROOT / "build").glob("smoke_*_L2.gguf"))
