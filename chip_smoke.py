@@ -29,6 +29,12 @@ Phases (each failure raises, so the script exits non-zero):
      for bit across the window, N, B and the chunk split at its chunk edges
      (check_attention_rows); K10 and K1 at M = 1 also in a chain of 56
      decode products, 8 layers' seven, one CUDA-event interval (chain_ms);
+     the IQ grid searches S1 (IQ3_XXS, IQ3_S), S2 (IQ2_XXS, IQ2_XS, IQ2_S)
+     and S3 (IQ1_S, IQ1_M) byte for byte against their plain versions on
+     the CPU, with and without an importance row, timed at 4096 x 4096
+     beside each kernel's plain version on the card, and the six lattice
+     tables rebuilt on the card against the shipped files
+     (check_iq_search, `--checks iq_search`);
   4. a small-model check of the card's forward against the CPU's, for a
      tiny Q4_K, Q4_K_M-mixture, Q8_0, Q5_K_M-mixture, Q4_0, Q4_1, Q5_0,
      Q5_1, Q2_K-mixture and Q3_K_M-mixture model, and the Q4_K and Q3_K_M
@@ -96,13 +102,15 @@ Phases (each failure raises, so the script exits non-zero):
      SHORT_LAYERS depth (quantize_phase): a seeded state dict converted to
      an F16 GGUF, an imatrix collected over two 512-token chunks of
      synthetic text, the file quantized on the card to Q4_K (with the
-     imatrix), Q8_0 and IQ4_XS (with the imatrix), 256 sampled rows of
-     five matrices of each held against the CPU codec byte for byte, each
-     file loaded and generating 32 greedy tokens after 100 with its
-     launches asserted (IQ4_XS in the int8 layout), the Q4_K file's fields
-     against QuantTensor.quantize on the card, and every codec card vs
-     CPU on 64 x 4096 rows (bytes and dequantized bits) with its rate on
-     4096 x 4096.
+     imatrix), Q8_0, IQ4_XS and IQ2_XXS (with the imatrix; S2 on every
+     matrix), 256 sampled rows of five matrices of each (64 of the IQ2_XXS
+     file) held against the CPU codec byte for byte, each file loaded and
+     generating 32 greedy tokens after 100 with its launches asserted
+     (IQ4_XS and IQ2_XXS in the int8 layout: K2 only), the Q4_K file's
+     fields against QuantTensor.quantize on the card, and every codec card
+     vs CPU on 64 x 4096 rows (bytes and dequantized bits; the seven IQ
+     searches with the importance row, and without where they take none)
+     with its rate on 4096 x 4096.
   8. families: the other served families at published width (families_
      phase): Mixtral-8x7B (8 of 32 layers), GPT-2-large (all 36) and
      GPT-J-6B (8 of 28), one GGUF each in llama.cpp's Q4_K_M recipe
@@ -2201,13 +2209,16 @@ def tools_phase(device, cfg, params, n_layer: int, path: Path) -> dict:
 # ------------------------------------------------------------ quantize
 
 # the files the quantize phase writes from one F16 file: (name, type, with
-# the imatrix); llama.cpp's Q4_K north-star file, Q8_0, and IQ4_XS (int8
-# layout)
+# the imatrix); llama.cpp's Q4_K north-star file, Q8_0, IQ4_XS and IQ2_XXS
+# (the last two in the int8 layout)
 QUANT_FILES = (("q4_k", GGMLType.Q4_K, True), ("q8_0", GGMLType.Q8_0, False),
-               ("iq4_xs", GGMLType.IQ4_XS, True))
+               ("iq4_xs", GGMLType.IQ4_XS, True), ("iq2_xxs", GGMLType.IQ2_XXS, True))
 QUANT_CALIB = 2            # calibration chunks of QUANT_CHUNK tokens for the imatrix
 QUANT_CHUNK = 512
 QUANT_ROWS = 256           # rows of each sampled matrix quantized again on the CPU
+# a quarter of them for the grid searches, whose plain versions take ~2 s
+# per 1024 super-blocks on the CPU: 64 rows of the IQ2_XXS file
+QUANT_ROWS_DIV = {GGMLType.IQ2_XXS: 4}
 QUANT_TYPE_ROWS = 64       # rows of the per-type card-vs-CPU codec checks
 QUANT_RATE_ROWS = 4096     # rows of the per-type timing on the card (64 MB of f32 at 4096)
 QUANT_SAMPLED = ("blk.0.attn_q.weight", "blk.0.ffn_gate.weight", "blk.0.ffn_down.weight",
@@ -2287,11 +2298,11 @@ def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 def codec_checks(device, width: int) -> dict:
     """Every type the registry quantizes, on QUANT_TYPE_ROWS x width rows
-    (codec_rows) on the card and on the CPU, with and without an importance
-    row: the wire bytes must be equal, and so must every dequantizer's bits
-    (the reference's 24 types; random wire blocks for the grid-search
-    types). Each type's rate on the card: f32 input GB/s of one call on
-    QUANT_RATE_ROWS x width Gaussian rows."""
+    (codec_rows) on the card and on the CPU, without an importance row
+    where the type takes none (supported_quant_types) and with one where it
+    takes or ignores one: the wire bytes must be equal, and so must every
+    dequantizer's bits. Each type's rate on the card: f32 input GB/s of
+    one call on QUANT_RATE_ROWS x width Gaussian rows."""
     rng = np.random.default_rng(19)
     x = torch.from_numpy(codec_rows(rng, QUANT_TYPE_ROWS, width))
     qw = torch.from_numpy(rng.uniform(0.05, 3.0, width).astype(np.float32))
@@ -2299,13 +2310,18 @@ def codec_checks(device, width: int) -> dict:
     big = torch.randn(QUANT_RATE_ROWS, width, generator=torch.Generator(device=device)
                       .manual_seed(20), device=device)
     out = {}
-    for t in registry.supported_quant_types():
+    plain = set(registry.supported_quant_types())
+    for t in sorted(plain | set(registry._QUANTIZE_IMATRIX)):
         for weighted in (False, True):
+            if not weighted and t not in plain:
+                continue
             if weighted and t not in registry._QUANTIZE_IMATRIX \
                     and t not in registry._IMATRIX_IGNORED:
                 continue
             card = registry.quantize(t, xd, qwd if weighted else None)
+            t0 = time.perf_counter()
             cpu = registry.quantize(t, x, qw if weighted else None)
+            cpu_s = time.perf_counter() - t0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             registry.quantize(t, big, qwd if weighted else None)
@@ -2317,18 +2333,99 @@ def codec_checks(device, width: int) -> dict:
             if not _bits_equal(registry.dequantize(t, card, width),
                                registry.dequantize(t, cpu, width)):
                 raise AssertionError(f"{key}: dequantization differs between card and CPU")
-            out[key] = {"rate_s": sec, "gb_per_s": big.numel() * 4 / sec / 1e9}
-    for t in sorted(registry.SEARCH_TYPES):
-        raw = torch.from_numpy(_random_wire(t, rng, QUANT_TYPE_ROWS, width))
-        card = registry.dequantize(t, raw.to(device), width)
-        if not _bits_equal(card, registry.dequantize(t, raw, width)):
-            raise AssertionError(f"{t.name}: dequantization differs between card and CPU")
-        out[t.name] = {"dequant_only": True}
+            out[key] = {"rate_s": sec, "gb_per_s": big.numel() * 4 / sec / 1e9,
+                        "cpu_s": cpu_s}
     return out
 
 
+IQ_SEARCH_ROWS = 8          # codec_rows x 4096 per type, held card vs the CPU's plain version
+IQ_SEARCH_RATE = 4096       # rows of 4096 of the timed call (64 MiB of f32)
+# the row of each search kernel in the kernels line, whose plain version is timed
+IQ_REP = {"iq3_search": "IQ3_XXS", "iq2_search": "IQ2_XXS+imatrix",
+          "iq1_search": "IQ1_S+imatrix"}
+
+
+def check_iq_search(device, timer, results):
+    """S1-S3, the IQ grid searches: every type, with and without an
+    importance row (with one only where the type requires it), on
+    IQ_SEARCH_ROWS x 4096 codec_rows and an importance row with zeros: the
+    kernel's bytes equal the plain version's on the CPU copy, and so do
+    their dequantized bits; one launch each. Each type timed at
+    IQ_SEARCH_RATE x 4096 Gaussian rows (ms, f32 GB/s; bound: f32 in and
+    wire bytes out over the card's memory rate), the plain version on the
+    card for each kernel's IQ_REP type (one call, host clock). Then the six
+    lattice tables rebuilt on the card (iquants.build_machinery) against
+    the shipped files."""
+    from ggml_gfx906_tpu_torch.ops.cuda import iq_search
+    from ggml_gfx906_tpu_torch.quant import iquants
+
+    rng = np.random.default_rng(18)
+    width = 4096
+    x = torch.from_numpy(codec_rows(rng, IQ_SEARCH_ROWS, width))
+    qw = torch.from_numpy(rng.uniform(0.05, 3.0, width).astype(np.float32))
+    qw[::13] = 0
+    xd, qwd = x.to(device), qw.to(device)
+    big = torch.randn(IQ_SEARCH_RATE, width, generator=torch.Generator(device=device)
+                      .manual_seed(21), device=device)
+    for t, (kern, _, _, _, _) in iq_search.ROUTES.items():
+        for weighted in (False, True):
+            if not weighted and t in iq_search.IMATRIX_REQUIRED:
+                continue
+            key = t.name + ("+imatrix" if weighted else "")
+            w, wd = (qw, qwd) if weighted else (None, None)
+            before = kern.launches
+            t0 = time.perf_counter()
+            card = iq_search.quantize(t, xd, wd)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            if kern.launches != before + 1:
+                raise AssertionError(f"{key}: {kern.name} launched {kern.launches - before} times")
+            cpu = iq_search.quantize_plain(t, x, w)
+            if not torch.equal(card.cpu(), cpu):
+                bad = torch.nonzero((card.cpu() != cpu).any(1))[:, 0].tolist()
+                raise AssertionError(f"{key}: {kern.name}'s bytes differ from the plain "
+                                     f"version's in rows {bad}")
+            deq_card = registry.dequantize(t, card, width)
+            deq_cpu = registry.dequantize(t, cpu, width)
+            if not _bits_equal(deq_card, deq_cpu):
+                raise AssertionError(f"{key}: dequantization differs between card and CPU")
+            ms = timer(lambda: iq_search.quantize(t, big, wd), iters=3, warmup=1)
+            out_bytes = big.shape[0] * TYPE_TRAITS[t].type_size * width // 256
+            b, by = bound(big.numel() * 4 + out_bytes + (width * 4 if weighted else 0), 0.0,
+                          "f32")
+            row = dict(kernel=kern.name, shape=f"{key} {IQ_SEARCH_RATE}x{width}", nmse=0.0,
+                       max_abs_err=float((deq_card.cpu() - deq_cpu).abs().max()), ms=ms,
+                       gb_per_s=big.numel() * 4 / ms / 1e6, bound_ms=b, bound_by=by,
+                       library_ms=None, plain_ms=None, first_call_s=first_s,
+                       rows_equal=IQ_SEARCH_ROWS)
+            if IQ_REP[kern.name] == key:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                iq_search.quantize_plain(t, big, wd)
+                torch.cuda.synchronize()
+                row["plain_ms"] = (time.perf_counter() - t0) * 1e3
+            results.append(row)
+            log(f"{kern.name} {key}: {IQ_SEARCH_ROWS}x{width} rows == plain version, "
+                f"{IQ_SEARCH_RATE}x{width} in {ms:.3f} ms ({row['gb_per_s']:.3f} GB/s of f32; "
+                f"bound {b:.4f} ms; plain {row['plain_ms']} ms)")
+    tables = {}
+    for kind in iquants.MACHINERY_KINDS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        built = iquants.build_machinery(kind, device)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        shipped = iquants.machinery(kind, torch.device("cpu"))
+        for f in ("grid", "kmap", "neigh"):
+            if not torch.equal(getattr(built, f).cpu(), getattr(shipped, f)):
+                raise AssertionError(f"machinery {kind}: the rebuilt {f} differs from the file")
+        tables[kind] = {"build_s": sec, "neigh": int(built.neigh.numel())}
+    log(f"lattice tables rebuilt on the card == the shipped files: {tables}")
+    return {"machinery": tables}
+
+
 def rows_vs_cpu(f16: Path, dst: Path, qtype, im) -> dict:
-    """QUANT_ROWS rows of each QUANT_SAMPLED matrix of the F16 file,
+    """QUANT_ROWS (/ QUANT_ROWS_DIV) rows of each QUANT_SAMPLED matrix of the F16 file,
     quantized again on the CPU (with the file's importance row), against the
     rows of `dst` that the card wrote: equal bytes, or the phase fails."""
     src, got = GGUFReader(f16), GGUFReader(dst)
@@ -2336,7 +2433,8 @@ def rows_vs_cpu(f16: Path, dst: Path, qtype, im) -> dict:
     out = {}
     for name in QUANT_SAMPLED:
         n_rows = src.tensors[name].shape[0]
-        idx = np.sort(rng.choice(n_rows, min(QUANT_ROWS, n_rows), replace=False))
+        want = QUANT_ROWS // QUANT_ROWS_DIV.get(qtype, 1)
+        idx = np.sort(rng.choice(n_rows, min(want, n_rows), replace=False))
         x = torch.from_numpy(src.tensor_array(name)[idx].astype(np.float32))
         qw = None if im is None else torch.from_numpy(im[name])
         cpu = registry.quantize(qtype, x, qw).numpy()
@@ -2345,6 +2443,19 @@ def rows_vs_cpu(f16: Path, dst: Path, qtype, im) -> dict:
             raise AssertionError(f"{dst.name} {name}: the card's rows differ from the CPU's")
         out[name] = len(idx)
     return out
+
+
+def search_launches(cfg: dict, n_layer: int, qtype) -> dict:
+    """The search kernel's launches that quantizing every matrix of a
+    cfg-width llama file to qtype takes: one per chunk of rows
+    (registry._CHUNK elements); none for a type without a search."""
+    from ggml_gfx906_tpu_torch.ops.cuda import iq_search
+
+    if qtype not in iq_search.ROUTES:
+        return {}
+    n = sum(-(-rows // max(1, registry._CHUNK // cols))
+            for _, _, rows, cols in _matrices(cfg, n_layer))
+    return {iq_search.ROUTES[qtype][0].name: n}
 
 
 def load_and_generate(device, path: Path, qtype, n_layer: int, prompt):
@@ -2397,7 +2508,8 @@ def quantize_phase(device, cfg: dict, n_layer: int) -> dict:
     the card to each of QUANT_FILES (seconds, GB/s), hold sampled rows of
     each against the CPU codec (rows_vs_cpu), load and generate from each
     (load_and_generate: K1 and K3 on Q4_K, K5 and K5-i8 on Q8_0, K2 alone
-    on IQ4_XS in the int8 layout), hold the Q4_K file's fields against
+    on IQ4_XS and IQ2_XXS in the int8 layout; S2 quantized the IQ2_XXS
+    file), hold the Q4_K file's fields against
     QuantTensor.quantize on the card, and every codec card vs CPU
     (codec_checks). Files are deleted once used. Launch counts are set to 0
     before and read after."""
@@ -2454,6 +2566,7 @@ def quantize_phase(device, cfg: dict, n_layer: int) -> dict:
     for name, qtype, use_im in QUANT_FILES:
         dst = work / f"smoke_llama7b_{name}_L{n_layer}.gguf"
         torch.cuda.synchronize()
+        before = launches()
         t0 = time.perf_counter()
         b_in, b_out = quantize_cli.quantize_gguf(f16, dst, qtype, verbose=False,
                                                  imatrix=im if use_im else None, device=device)
@@ -2461,7 +2574,11 @@ def quantize_phase(device, cfg: dict, n_layer: int) -> dict:
         sec = time.perf_counter() - t0
         row = {"type": qtype.name, "imatrix": use_im, "quantize_s": sec,
                "gb_in": b_in / 1e9, "gb_out": b_out / 1e9, "gb_per_s": b_in / sec / 1e9,
-               "file_gb": dst.stat().st_size / 1e9}
+               "file_gb": dst.stat().st_size / 1e9, "quantize_launches": _delta(before)}
+        want = search_launches(cfg, n_layer, qtype)
+        if row["quantize_launches"] != want:
+            raise AssertionError(f"{name}: quantize launches {row['quantize_launches']}, "
+                                 f"its matrices' chunks predict {want}")
         t0 = time.perf_counter()
         row["rows_equal_cpu"] = rows_vs_cpu(f16, dst, qtype, im if use_im else None)
         row["rows_check_s"] = time.perf_counter() - t0
@@ -2489,6 +2606,9 @@ def quantize_phase(device, cfg: dict, n_layer: int) -> dict:
     out["codecs"] = codec_checks(device, cfg["n_embd"])
     out["codec_checks_s"] = time.perf_counter() - t0
     out["launches"] = launches()
+    missing = [k.name for k in (kernels.S1, kernels.S2, kernels.S3) if not out["launches"][k.name]]
+    if missing:
+        raise AssertionError(f"quantize phase: kernels never launched: {missing}")
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -3285,7 +3405,7 @@ def families_phase(device, names) -> dict:
 CHECKS = {"qmm": check_qmm, "attention": check_attention, "q6k": check_q6k,
           "q8_0": check_q8_0, "q4_0": check_q4_0, "q5k": check_q5k,
           "legacy": check_legacy, "q23k": check_q23k, "pipe": check_pipe,
-          "dma": check_dma, "families": check_family_shapes}
+          "dma": check_dma, "families": check_family_shapes, "iq_search": check_iq_search}
 
 
 def main(argv=None) -> int:
@@ -3605,7 +3725,8 @@ def main(argv=None) -> int:
            "qmm_q2_K": "M=8 N=11008 K=4096",
            "qmm_q3_K": "M=8 N=11008 K=4096",
            "qmm_q4_K_pipelined": "M=1 N=11008 K=4096",
-           "dma_copy": "copy 4096x4096 f32"}
+           "dma_copy": "copy 4096x4096 f32",
+           **{k: f"{v} {IQ_SEARCH_RATE}x4096" for k, v in IQ_REP.items()}}
     if partial:
         detail = {"device": smi, "build_s": build_s, "build": build.BUILD_LOG,
                   "kernels": results, "row_checks": row_checks, "main_paths": paths,

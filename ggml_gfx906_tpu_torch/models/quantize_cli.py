@@ -11,11 +11,12 @@ imatrix, the output is byte-identical to the reference's.
     python -m ggml_gfx906_tpu_torch.models.quantize_cli in.gguf out.gguf q4_K \
         [--imatrix cal.imatrix.npz] [--device cpu]
 
-Two differences from the reference's command, both deliberate: `--device`
-(default cuda: the card; the command raises where there is none unless
-given --device cpu), and the refusals (a type that needs an imatrix given
-none, a type whose quantizer is not ported) print an error and exit 1
-where the reference's command raises.
+It takes every type the reference's does, the IQ grid searches included
+(ops/cuda/iq_search.py: the kernels S1-S3 on the card). Two differences
+from the reference's command, both deliberate: `--device` (default cuda:
+the card; the command raises where there is none unless given --device
+cpu), and a type that needs an imatrix given none (IQ2_XXS, IQ2_XS,
+IQ1_S) prints an error and exits 1 where the reference's command raises.
 """
 from __future__ import annotations
 
@@ -29,12 +30,10 @@ import torch
 
 from ..gguf import GGUFReader, GGUFWriter
 from ..quant import GGMLType, TYPE_TRAITS
+from ..ops.cuda.iq_search import IMATRIX_REQUIRED
 from ..quant.registry import _QUANTIZE_IMATRIX, quantize, supported_quant_types
 from ..utils.device import resolve
 from .convert import QUANT_PATTERNS
-
-# types whose reference quantizer asserts on a missing imatrix
-IMATRIX_REQUIRED = {GGMLType.IQ2_XXS, GGMLType.IQ2_XS, GGMLType.IQ1_S}
 
 
 def _read_float(r: GGUFReader, name: str, device) -> torch.Tensor:
@@ -120,7 +119,7 @@ def main(argv=None):
     try:
         quantize_gguf(args.src, args.dst, ftype, verbose=not args.quiet, imatrix=im,
                       device=device)
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
     return 0

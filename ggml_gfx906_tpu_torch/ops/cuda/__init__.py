@@ -2,7 +2,9 @@
 JAX package's ops/pallas/).
 
 Each kernel has a `Kernel` record here: its name, its CUDA source, the TPU
-kernel it replaces, and a plain-integer launch count that its wrapper
+kernel it replaces (for S1-S3, the numpy search they replace: the JAX
+package runs the IQ grid searches on the host), and a plain-integer launch
+count that its wrapper
 raises by one at every launch (and nowhere else). A wrapper given a CPU
 tensor runs the kernel's plain PyTorch version instead; given a CUDA tensor
 it launches the kernel or raises.
@@ -52,8 +54,14 @@ K10 = Kernel("qmm_q4_K_pipelined", "ggml_gfx906_tpu_torch/csrc/qmm_q4k_pipe.cu",
              "ggml_gfx906_tpu/ops/pallas/qmm.py:349")
 K11 = Kernel("dma_copy", "ggml_gfx906_tpu_torch/csrc/dma_copy.cu",
              "ggml_gfx906_tpu/utils/autotune.py:142")
+S1 = Kernel("iq3_search", "ggml_gfx906_tpu_torch/csrc/iq_search.cu",
+            "ggml_gfx906_tpu/quant/iquants.py:351")
+S2 = Kernel("iq2_search", "ggml_gfx906_tpu_torch/csrc/iq_search.cu",
+            "ggml_gfx906_tpu/quant/iquants.py:648")
+S3 = Kernel("iq1_search", "ggml_gfx906_tpu_torch/csrc/iq_search.cu",
+            "ggml_gfx906_tpu/quant/iquants.py:983")
 KERNELS = (K1, K2, K3, K4, K5, K5_I8, K6, K6_I8, K7, K8_Q4_1, K8_Q5_0, K8_Q5_1,
-           K9_Q2_K, K9_Q3_K, K10, K11)
+           K9_Q2_K, K9_Q3_K, K10, K11, S1, S2, S3)
 
 
 def reset_launches() -> None:

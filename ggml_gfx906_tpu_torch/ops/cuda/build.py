@@ -3,8 +3,8 @@
 Each `csrc/<name>.cu` becomes `build/torch_kernels/lib<name>-<hash>.so` at
 the root of the checkout, compiled for Hopper (`sm_90a`) with a plain C
 interface. The hash covers the source, the headers in `csrc/` and the
-flags, so an edited source or header builds anew and an unchanged one is
-reused. Builds happen at first use,
+source's flags (`flags`), so an edited source or header builds anew and an
+unchanged one is reused. Builds happen at first use,
 never at import: `build_all()` starts one nvcc per source, all at once, and
 waits for them; `library(name)` builds one source if it is missing.
 
@@ -26,6 +26,11 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# flags of one source after NVCC_FLAGS: the IQ searches must round every
+# f32 product and sum as numpy does, so nvcc may not contract a*b + c into
+# an FMA there (the matmul kernels keep their FMAs)
+SOURCE_FLAGS = {"iq_search": ["--fmad=false"]}
 
 # C signatures: name → (source, argtypes)
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -50,6 +55,9 @@ SIGNATURES = {
     "flash_attn_fwd": ("flash_attn", [_P] * 8 + [_I] * 6 + [_L, _L]
                        + [_F, _F, _F, _I, _I, _P]),
     "dma_copy_f32": ("dma_copy", [_P, _P, _L, _P]),
+    "iq3_search": ("iq_search", [_I, _P, _P, _I, _L] + [_P] * 4 + [_I, _P]),
+    "iq2_search": ("iq_search", [_I, _P, _P, _I, _L] + [_P] * 4 + [_I, _P]),
+    "iq1_search": ("iq_search", [_I, _P, _P, _I, _L] + [_P] * 4 + [_I, _P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -68,15 +76,20 @@ def _nvcc() -> str:
     return found
 
 
+def flags(name: str) -> list[str]:
+    """nvcc's flags for `csrc/<name>.cu`: NVCC_FLAGS, then its own."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, [])
+
+
 def digest(name: str, csrc: Path = CSRC) -> str:
     """The hash of `csrc/<name>.cu`, of every header in `csrc/` (a source
-    may include any of them) and of the flags, which names its build."""
+    may include any of them) and of its flags, which names its build."""
     h = hashlib.sha256()
     h.update((csrc / f"{name}.cu").read_bytes())
     for header in sorted(csrc.glob("*.cuh")):
         h.update(header.name.encode())
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags(name)).encode())
     return h.hexdigest()[:16]
 
 
@@ -97,7 +110,7 @@ def build_all(names: list[str] | None = None) -> dict[str, Path]:
         if target.exists():
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, target, time.perf_counter())

@@ -8,13 +8,15 @@ moves data between devices. `quantize` returns the wire bytes as a uint8
 tensor of (rows, row_size), which QuantTensor.from_wire takes as it is;
 `dequantize` takes such bytes and returns f32 (rows, n_per_row).
 
-Seven types have dequantizers but no quantizer yet: IQ1_S, IQ1_M,
-IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS and IQ3_S, whose quantizers are grid
-searches (ROADMAP.md, Queue 1 item 1). `quantize` raises
-NotImplementedError for them, and `supported_quant_types` lists the types
-the port does quantize.
+The seven IQ grid searches (IQ1_S, IQ1_M, IQ2_XXS, IQ2_XS, IQ2_S,
+IQ3_XXS, IQ3_S) go through ops/cuda/iq_search.py: their plain versions on
+the CPU, the kernels S1-S3 on the card. IQ2_XXS, IQ2_XS and IQ1_S need an
+importance row: without one `quantize` raises NotImplementedError, where
+the reference's table lookup raises KeyError.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -22,12 +24,16 @@ import torch
 from . import iquants, kquants, legacy, modern
 from .types import GGMLType, TYPE_TRAITS, row_size
 
-# the types whose quantizers, grid searches (ggml_gfx906_tpu/quant/iquants.py:
-# 235-1238), are still to port: in the reference's _QUANTIZE_IMATRIX (all
-# seven) and _QUANTIZE (IQ3_XXS, IQ3_S, IQ2_S, IQ1_M), not in the tables here
-SEARCH_TYPES = frozenset({GGMLType.IQ3_XXS, GGMLType.IQ3_S, GGMLType.IQ2_XXS,
-                          GGMLType.IQ2_XS, GGMLType.IQ2_S, GGMLType.IQ1_S,
-                          GGMLType.IQ1_M})
+
+def _search(t: GGMLType, x, quant_weights=None):
+    """An IQ grid search (ops/cuda/iq_search.py; imported here at the call,
+    since the ops package imports this module)."""
+    from ..ops.cuda import iq_search
+    return iq_search.quantize(t, x, quant_weights)
+
+
+def _searches(*types) -> dict:
+    return {t: functools.partial(_search, t) for t in types}
 
 
 # codecs taking an importance matrix (ggml_quantize_chunk's imatrix,
@@ -44,6 +50,8 @@ _QUANTIZE_IMATRIX = {
     GGMLType.Q6_K: kquants.quantize_q6_K_imatrix,
     GGMLType.IQ4_NL: modern.quantize_iq4_nl,
     GGMLType.IQ4_XS: modern.quantize_iq4_xs,
+    **_searches(GGMLType.IQ3_XXS, GGMLType.IQ3_S, GGMLType.IQ2_XXS, GGMLType.IQ2_XS,
+                GGMLType.IQ2_S, GGMLType.IQ1_S, GGMLType.IQ1_M),
 }
 
 # types whose reference chunk API accepts but ignores the imatrix
@@ -72,6 +80,7 @@ _QUANTIZE = {
     GGMLType.TQ2_0: modern.quantize_tq2_0,
     GGMLType.IQ4_NL: modern.quantize_iq4_nl,
     GGMLType.IQ4_XS: modern.quantize_iq4_xs,
+    **_searches(GGMLType.IQ3_XXS, GGMLType.IQ3_S, GGMLType.IQ2_S, GGMLType.IQ1_M),
 }
 
 _DEQUANTIZE = {
@@ -108,7 +117,8 @@ _CHUNK = 1 << 25
 
 
 def supported_quant_types() -> list[GGMLType]:
-    """The types `quantize` takes (the reference's minus SEARCH_TYPES)."""
+    """The types `quantize` takes without an importance row (the
+    reference's)."""
     return sorted(_QUANTIZE)
 
 
@@ -123,10 +133,6 @@ def quantize(t: GGMLType, x, quant_weights=None) -> torch.Tensor:
     n)), on x's device. quant_weights: an importance row (n,) applied to
     every row (the imatrix), for the types of _QUANTIZE_IMATRIX; the types
     of _IMATRIX_IGNORED ignore it, any other raises."""
-    if t in SEARCH_TYPES:
-        raise NotImplementedError(
-            f"{t.name} quantization (a grid search) is not ported yet: ROADMAP.md "
-            "Queue 1 item 1 (the IQ grid-search quantizers); its files load")
     x = _as_tensor(x).to(torch.float32)
     n = x.shape[-1]
     rows = x.reshape(-1, n)
@@ -144,7 +150,9 @@ def quantize(t: GGMLType, x, quant_weights=None) -> torch.Tensor:
         else:
             raise NotImplementedError(f"{t.name} has no imatrix-aware path")
     elif t not in _QUANTIZE:
-        raise NotImplementedError(f"{t.name} has no quantizer")
+        raise NotImplementedError(f"{t.name} has no quantizer"
+                                  + (" without an importance row (imatrix)"
+                                     if t in _QUANTIZE_IMATRIX else ""))
     else:
         fn = _QUANTIZE[t]
     step = max(1, _CHUNK // n)

@@ -189,10 +189,13 @@ def _randn(rng, *shape, scale=0.02):
     return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
 
 
-def hf_llama_state(seed: int = 0, head: bool = True, experts: int = 0):
+def hf_llama_state(seed: int = 0, head: bool = True, experts: int = 0,
+                   dims: tuple = (HF_D, HF_FF, HF_V, HF_L)):
     """(state dict, config) of a tiny HF LlamaForCausalLM, or with experts
     a MixtralForCausalLM, with seeded weights ~N(0, 0.02) and norm weights
-    1 + N(0, 0.1), as models/convert.py takes them."""
+    1 + N(0, 0.1), as models/convert.py takes them; dims = (width, ffn
+    width, vocabulary, layers)."""
+    D, FF, V, L = dims
     rng = np.random.default_rng(seed)
     sd = {"model.embed_tokens.weight": _randn(rng, V, D),
           "model.norm.weight": 1 + _randn(rng, D, scale=0.1)}
@@ -221,6 +224,25 @@ def hf_llama_state(seed: int = 0, head: bool = True, experts: int = 0):
                                 rms_norm_eps=1e-5, rope_theta=10000.0,
                                 num_local_experts=experts, num_experts_per_tok=2)
     return sd, cfg
+
+
+def tiny_iq_gguf(path):
+    """A tiny F32 llama GGUF (width 64, ffn 256, one layer; the reference's
+    converter) whose only matrix with rows of a multiple of 256 is
+    ffn_down: the quantize tools quantize it and copy the rest, so the
+    reference's IQ searches take seconds. Returns its imatrix, an
+    importance row per matrix under the GGUF names."""
+    from ggml_gfx906_tpu.models import convert as jconvert
+
+    sd, cfg = hf_llama_state(seed=21, dims=(64, 256, 64, 1))
+    jconvert.convert_llama(sd, cfg, path)
+    rng = np.random.default_rng(22)
+    im = {f"blk.0.{n}.weight": rng.uniform(0.01, 2.0, k).astype(np.float32)
+          for n, k in (("attn_q", 64), ("attn_k", 64), ("attn_v", 64), ("attn_output", 64),
+                       ("ffn_gate", 64), ("ffn_up", 64), ("ffn_down", 256))}
+    im.update({n: rng.uniform(0.01, 2.0, 64).astype(np.float32)
+               for n in ("token_embd.weight", "output.weight")})
+    return im
 
 
 def hf_gpt_state(arch: str, seed: int = 1):

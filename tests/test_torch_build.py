@@ -111,3 +111,67 @@ def test_the_flags_change_every_digest(csrc, monkeypatch):
     before = _digests(csrc)
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ["-lineinfo"])
     assert all(d != before[name] for name, d in _digests(csrc).items())
+
+
+def _digest_with(name, csrc, flags):
+    """The digest as build.digest computes it, with the given flags."""
+    import hashlib
+
+    h = hashlib.sha256()
+    h.update((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
+def test_per_source_flags_leave_the_other_sources_alone(csrc):
+    """Only the IQ searches take flags of their own: every other source
+    builds with NVCC_FLAGS and keeps the digest those flags give."""
+    assert set(build.SOURCE_FLAGS) == {"iq_search"}
+    for name in build.sources():
+        if name == "iq_search":
+            continue
+        assert build.flags(name) == build.NVCC_FLAGS
+        assert build.digest(name, csrc) == _digest_with(name, csrc, build.NVCC_FLAGS)
+
+
+def test_the_searches_build_without_fma_contraction(csrc, monkeypatch):
+    """csrc/iq_search.cu: --fmad=false after NVCC_FLAGS (its products and
+    sums round as numpy's), never fast math; the flags are in its digest
+    and on nvcc's command line."""
+    fl = build.flags("iq_search")
+    assert fl == build.NVCC_FLAGS + ["--fmad=false"]
+    assert not any("fast_math" in f or "fast-math" in f for f in fl)
+    assert build.digest("iq_search", csrc) == _digest_with("iq_search", csrc, fl)
+    assert build.digest("iq_search", csrc) != _digest_with("iq_search", csrc, build.NVCC_FLAGS)
+    cmds = []
+
+    class Proc:
+        returncode = 1
+
+        def __init__(self, cmd, **kw):
+            cmds.append(cmd)
+
+        def communicate(self):
+            return "", None
+
+    monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(build.subprocess, "Popen", Proc)
+    monkeypatch.setattr(build, "BUILD_DIR", csrc.parent / "out")
+    with pytest.raises(RuntimeError):
+        build.build_all(["iq_search", "qmm_q6k"])
+    by_src = {cmd[-1].rsplit("/", 1)[-1]: cmd[1:-3] for cmd in cmds}
+    assert by_src == {"iq_search.cu": fl, "qmm_q6k.cu": build.NVCC_FLAGS}
+
+
+def test_search_entry_points_are_bound(csrc):
+    """iq3_search (S1), iq2_search (S2), iq1_search (S3): a type code, x,
+    the importance row, its super-blocks, the super-block count, out, the
+    three tables, the kmap size and the stream."""
+    text = (csrc / "iq_search.cu").read_text()
+    for fn in ("iq3_search", "iq2_search", "iq1_search"):
+        source, argtypes = build.SIGNATURES[fn]
+        assert source == "iq_search" and len(argtypes) == 11
+        assert f'extern "C" int {fn}(int type,' in text

@@ -49,7 +49,7 @@ def test_port_imports_no_jax_and_runs_a_cpu_forward():
                   "quant.numerics", "quant.blocks", "quant.legacy", "quant.kquants",
                   "quant.modern", "quant.iquants", "quant.registry", "models.convert",
                   "models.quantize_cli", "models.imatrix", "models.moe", "models.gpt2",
-                  "models.gptj", "models.offload", "ops.recurrent"):
+                  "models.gptj", "models.offload", "ops.recurrent", "ops.cuda.iq_search"):
             assert pkg.__name__ + "." + n in names, n
         from ggml_gfx906_tpu_torch.quant import registry
         assert registry.dequantize(GGMLTypeQ.IQ2_XXS, bytes(66), 256).shape == (1, 256)

@@ -1,9 +1,10 @@
 """Port parity: the codecs (ggml_gfx906_tpu/quant/, ops/act_quant.py) and
-the int8-layout load of the types without kernels. Every ported quantizer's
-wire bytes equal the reference's exactly, with and without an importance
-row; every dequantizer's f32 output equals the reference's bit for bit;
-activation quantization likewise. The inputs are made from a seed with
-numpy, a few rows per type (the reference's numpy searches are slow)."""
+the int8-layout load of the types without kernels. Every quantizer's wire
+bytes equal the reference's exactly, with and without an importance row
+(the IQ grid searches through their plain versions); every dequantizer's
+f32 output equals the reference's bit for bit; activation quantization
+likewise. The inputs are made from a seed with numpy, a few rows per type
+(the reference's numpy searches are slow)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,15 +16,18 @@ from ggml_gfx906_tpu.quant import registry as ref
 from ggml_gfx906_tpu.quant.types import GGMLType, TYPE_TRAITS
 from ggml_gfx906_tpu_torch.ops import act_quant as tact
 from ggml_gfx906_tpu_torch.ops import quantized as tqz
+from ggml_gfx906_tpu_torch.ops.cuda import iq_search
 from ggml_gfx906_tpu_torch.quant import registry as port
 from ggml_gfx906_tpu_torch.quant.numerics import seq_sum
 
 from _torch_port import one_torch_thread  # noqa: F401
 
 N = 512
-QUANTIZED = port.supported_quant_types()
+# every type the registry quantizes: supported_quant_types, and the three
+# that only take an importance row (IQ2_XXS, IQ2_XS, IQ1_S)
+QUANTIZED = sorted(set(port.supported_quant_types()) | set(port._QUANTIZE_IMATRIX))
 WEIGHTED = [t for t in QUANTIZED if t in ref._QUANTIZE_IMATRIX or t in ref._IMATRIX_IGNORED]
-SEARCH = sorted(port.SEARCH_TYPES)
+SEARCHES = set(iq_search.ROUTES)
 
 
 def _rows(seed: int) -> np.ndarray:
@@ -60,9 +64,11 @@ def _mxfp4_edges() -> np.ndarray:
 def _ref_bytes(t, x, qw=None) -> np.ndarray:
     """The reference's wire bytes, (rows, row size). Its IQ4 imatrix paths
     take the importance row for a single row only (their broadcast fails on
-    more), so those go row by row."""
+    more), and its IQ3 searches index it by super-block without wrapping,
+    so those go row by row."""
     parts = [x[i:i + 1] for i in range(len(x))] \
-        if qw is not None and t in (GGMLType.IQ4_NL, GGMLType.IQ4_XS) else [x]
+        if qw is not None and t in (GGMLType.IQ4_NL, GGMLType.IQ4_XS, GGMLType.IQ3_XXS,
+                                    GGMLType.IQ3_S) else [x]
     return np.concatenate([np.ascontiguousarray(ref.quantize(t, p, qw)).view(np.uint8)
                            .reshape(len(p), -1) for p in parts])
 
@@ -74,6 +80,14 @@ def _weights(seed: int) -> np.ndarray:
 @pytest.mark.parametrize("weighted", [False, True], ids=["plain", "imatrix"])
 @pytest.mark.parametrize("qtype", QUANTIZED, ids=lambda t: t.name)
 def test_quantizer_bytes_equal_reference(qtype, weighted):
+    if not weighted and qtype not in port.supported_quant_types():
+        # IQ2_XXS, IQ2_XS, IQ1_S: both refuse (the reference's table lookup
+        # with KeyError)
+        with pytest.raises(NotImplementedError, match="has no quantizer"):
+            port.quantize(qtype, torch.zeros(1, N))
+        with pytest.raises(KeyError):
+            ref.quantize(qtype, np.zeros((1, N), np.float32))
+        return
     if weighted and qtype not in WEIGHTED:
         with pytest.raises(NotImplementedError):
             port.quantize(qtype, torch.zeros(1, N), torch.ones(N))
@@ -108,10 +122,11 @@ def _random_blocks(qtype, rng, rows: int, nb: int) -> np.ndarray:
 @pytest.mark.parametrize("qtype", sorted(ref._DEQUANTIZE), ids=lambda t: t.name)
 def test_dequantizer_bits_equal_reference(qtype):
     """All 24 dequantizers: the reference's blocks where the port quantizes
-    the type, random blocks with finite scales otherwise."""
+    the type without a search, random blocks with finite scales otherwise
+    (the searches' own blocks: test_torch_iq_search.py)."""
     tt = TYPE_TRAITS[qtype]
     rng = np.random.default_rng(100 + int(qtype))
-    if qtype in QUANTIZED:
+    if qtype in QUANTIZED and qtype not in SEARCHES:
         blocks = ref.quantize(qtype, _rows(int(qtype)))
     else:
         blocks = _random_blocks(qtype, rng, 6, N // tt.blck_size)
@@ -120,16 +135,6 @@ def test_dequantizer_bits_equal_reference(qtype):
     got = port.dequantize(qtype, raw, N).numpy()
     assert np.isfinite(want).all()
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
-
-
-@pytest.mark.parametrize("qtype", SEARCH, ids=lambda t: t.name)
-def test_search_types_are_refused(qtype):
-    """The grid-search quantizers are not ported: quantize raises, names the
-    ROADMAP item, and the type is not among supported_quant_types."""
-    assert qtype not in QUANTIZED
-    for qw in (None, torch.ones(256)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-            port.quantize(qtype, torch.zeros(1, 256), qw)
 
 
 @pytest.mark.parametrize("width", [16, 32, 256])
@@ -164,7 +169,7 @@ def test_int8_layout_load_matches_reference(qtype):
     rng = np.random.default_rng(int(qtype))
     tt = TYPE_TRAITS[qtype]
     for k in (1024, 768):
-        if qtype in QUANTIZED:
+        if qtype in QUANTIZED and qtype not in SEARCHES:
             blocks = ref.quantize(qtype, rng.standard_normal((8, k)).astype(np.float32) * 0.05)
         else:
             blocks = _random_blocks(qtype, rng, 8, k // tt.blck_size)

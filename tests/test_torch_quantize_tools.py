@@ -23,7 +23,7 @@ from ggml_gfx906_tpu_torch.ops.quantized import QuantTensor
 
 from _torch_port import (HF_D, HF_FF, HF_L, HF_V, hf_gpt_state,  # noqa: F401
                          hf_llama_state, jax_params_to_numpy, nmse, one_torch_thread,
-                         port_cfg, recipe_logits, tiny_cfg)
+                         port_cfg, recipe_logits, tiny_cfg, tiny_iq_gguf)
 
 D, FF, V, L = HF_D, HF_FF, HF_V, HF_L
 _llama_state, _gpt_state = hf_llama_state, hf_gpt_state
@@ -85,21 +85,33 @@ def test_quantize_gguf_is_byte_identical(tmp_path, f32_file, ftype, with_im):
 
 def test_quantize_refusals(tmp_path, f32_file, capsys):
     """A type that needs an imatrix without one: ValueError in both
-    packages; a grid-search type: NotImplementedError; the CLI exits 1 for
-    both and writes no file."""
+    packages, and the CLI exits 1 and writes no file. The grid searches,
+    once refused, run: `iq2_xxs --imatrix` and `iq3_xxs` through the
+    function and main write the reference's files (on a tiny file whose
+    ffn_down alone is quantized, _torch_port.tiny_iq_gguf)."""
     src, im = f32_file
     dst = tmp_path / "out.gguf"
     for mod, kw in ((jqcli, {}), (quantize_cli, {"device": "cpu"})):
         with pytest.raises(ValueError, match="requires an imatrix"):
             mod.quantize_gguf(src, dst, GGMLType.IQ2_XXS, verbose=False, **kw)
-    for qtype, imx in ((GGMLType.IQ2_XXS, im), (GGMLType.IQ3_XXS, None)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-            quantize_cli.quantize_gguf(src, dst, qtype, verbose=False, imatrix=imx, device="cpu")
+    assert quantize_cli.main([str(src), str(dst), "iq2_xxs", "-q", "--device", "cpu"]) == 1
+    assert "requires an imatrix" in capsys.readouterr().err and not dst.exists()
+    tiny = tmp_path / "tiny.gguf"
+    tim = tiny_iq_gguf(tiny)
     imf = tmp_path / "im.npz"
-    imatrix.save(im, imf)
-    for argv in (["iq2_xxs"], ["iq3_xxs"], ["iq2_xs", "--imatrix", str(imf)]):
-        assert quantize_cli.main([str(src), str(dst), *argv, "-q", "--device", "cpu"]) == 1
-    assert "not ported yet" in capsys.readouterr().err and not dst.exists()
+    imatrix.save(tim, imf)
+    for qtype, imx, argv in ((GGMLType.IQ2_XXS, tim, ["--imatrix", str(imf)]),
+                             (GGMLType.IQ3_XXS, None, [])):
+        want = jqcli.quantize_gguf(tiny, tmp_path / "ref.gguf", qtype, verbose=False,
+                                   imatrix=imx)
+        assert quantize_cli.quantize_gguf(tiny, dst, qtype, verbose=False, imatrix=imx,
+                                          device="cpu") == want
+        assert dst.read_bytes() == (tmp_path / "ref.gguf").read_bytes()
+        dst.unlink()
+        assert quantize_cli.main([str(tiny), str(dst), qtype.name.lower(), *argv, "-q",
+                                  "--device", "cpu"]) == 0
+        assert dst.read_bytes() == (tmp_path / "ref.gguf").read_bytes()
+        dst.unlink()
 
 
 def test_quantize_cli_main_matches_reference(tmp_path, f32_file):

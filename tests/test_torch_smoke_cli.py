@@ -252,14 +252,15 @@ def test_quantize_phase_runs_on_the_cpu(monkeypatch):
     """The quantize phase end to end on a tiny 2-layer model on the CPU
     (the card's synchronisation and memory statistics stubbed; K1, K3, K5,
     K5-i8 and K2 counted around their wrappers): convert to F16, the
-    imatrix, the three files quantized, their sampled rows against the CPU
+    imatrix, the four files quantized (S1-S3 counted around their wrapper),
+    their sampled rows against the CPU
     codec, each loaded and generating with the launches its types predict,
     the Q4_K file's fields against QuantTensor.quantize, every codec's
     checks, and no file left behind."""
     import torch
 
     from ggml_gfx906_tpu_torch.ops import cuda as kernels
-    from ggml_gfx906_tpu_torch.ops.cuda import dispatch, flash_attn
+    from ggml_gfx906_tpu_torch.ops.cuda import dispatch, flash_attn, iq_search
     from ggml_gfx906_tpu_torch.quant.types import GGMLType
 
     for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
@@ -280,21 +281,34 @@ def test_quantize_phase_runs_on_the_cpu(monkeypatch):
     for key, kern in (((GGMLType.Q4_K, "f32"), kernels.K1), ((GGMLType.Q4_K, "i8"), kernels.K3),
                       ((GGMLType.Q8_0, "f32"), kernels.K5), ((GGMLType.Q8_0, "i8"), kernels.K5_I8)):
         monkeypatch.setitem(dispatch._KERNELS, key, counted(kern, dispatch._KERNELS[key]))
+    search = iq_search.quantize
+
+    def counted_search(t, x, qw=None):
+        iq_search.ROUTES[t][0].launches += 1
+        return search(t, x, qw)
+
+    monkeypatch.setattr(iq_search, "quantize", counted_search)
     small = dict(n_vocab=512, n_ctx=512, n_embd=256, n_head=4, n_kv_head=2, n_ff=512)
     out = chip_smoke.quantize_phase(torch.device("cpu"), small, 2)
     assert out["imatrix_launches"] == {"causal_flash_attention": 4}
     files = out["files"]
-    assert set(files) == {"q4_k", "q8_0", "iq4_xs"}
+    assert set(files) == {"q4_k", "q8_0", "iq4_xs", "iq2_xxs"}
     assert files["q4_k"]["launches"] == {"qmm_q4_K": 3 * 15, "qmm_q4_K_i8": 15,
                                          "causal_flash_attention": 4 * 2}
     assert files["q8_0"]["launches"] == {"qmm_q8_0": 3 * 15, "qmm_q8_0_i8": 15,
                                          "causal_flash_attention": 4 * 2}
-    assert files["iq4_xs"]["launches"] == {"causal_flash_attention": 4 * 2}
-    assert files["iq4_xs"]["layouts"] == ["int8"]
+    for name in ("iq4_xs", "iq2_xxs"):
+        assert files[name]["launches"] == {"causal_flash_attention": 4 * 2}
+        assert files[name]["layouts"] == ["int8"]
+    # S2 once per matrix (each one chunk of rows): the head, token_embd, 7 a layer
+    assert files["iq2_xxs"]["quantize_launches"] == {"iq2_search": 2 + 7 * 2}
+    assert files["q4_k"]["quantize_launches"] == {}
     assert files["q4_k"]["fields_equal_quantize"] == "blk.0.attn_q.weight"
-    for row in files.values():
-        assert set(row["rows_equal_cpu"].values()) == {16}
-    assert len(out["codecs"]) == 17 + 16 + 7
+    for name, row in files.items():
+        assert set(row["rows_equal_cpu"].values()) == {16 if name != "iq2_xxs" else 4}
+    # every type without an importance row where it takes none (21), and
+    # with one where it takes (18) or ignores (5) one
+    assert len(out["codecs"]) == 21 + 18 + 5
     assert not list((chip_smoke.ROOT / "build").glob("smoke_llama7b_*_L2.gguf"))
 
 
@@ -336,7 +350,7 @@ def test_families_phase_runs_on_the_cpu(monkeypatch):
     import torch
 
     from ggml_gfx906_tpu_torch.ops import cuda as kernels
-    from ggml_gfx906_tpu_torch.ops.cuda import dispatch, flash_attn
+    from ggml_gfx906_tpu_torch.ops.cuda import dispatch, flash_attn, iq_search
     from ggml_gfx906_tpu_torch.quant.types import GGMLType
 
     for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
