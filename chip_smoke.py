@@ -128,10 +128,23 @@ Phases (each failure raises, so the script exits non-zero):
      CPU) against the all-card forward, the GPT-2 file through the CLI
      (generate, serve). Phase 3's `families` check holds K2 at head dims
      64 and 256 and K1 / K3 / K4 at N = 50257 and 50400.
+  9. vision: the vision and classifier models at published width
+     (vision_phase), random weights from fixed seeds: YOLOv3-tiny at 416
+     (its GGUF loaded on the card and the CPU, both heads card vs CPU with
+     cuDNN's TF32 flag at PyTorch's default, the forward timed, detect end
+     to end on a 480x640 photo with the host time of letterbox, forward and
+     decode + NMS); SAM ViT-B (an HF-style state dict through from_hf,
+     save_gguf and load_gguf; the first 3 encoder layers and the decoder
+     card vs CPU on a 1024 image, TF32 flag on; then all 12 layers on the
+     card: encode, one point prompt, decode, shapes and finite values,
+     encode and decode timed, peak memory, one encode and one decode
+     traced); Magika (64 synthetic files of 0 bytes to 1 MB card vs CPU,
+     files/s one by one and in one batch). No counted kernel launches in
+     the phase.
 --checks and --paths cut phases 3 and 6 to the named checks and paths,
---paths quantize runs phase 7 and --paths families (or mixtral,
-gpt2_large, gptj) phase 8 (a cut run skips phases 4 and 5 and prints no
-result line).
+--paths quantize runs phase 7, --paths families (or mixtral,
+gpt2_large, gptj) phase 8 and --paths vision phase 9 (a cut run skips
+phases 4 and 5 and prints no result line).
 Detailed results go to DIR/chip_smoke.json (default build/). The second-to-last
 stdout line is {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -157,6 +170,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ggml_gfx906_tpu_torch.gguf import GGUFReader, GGUFWriter
 from ggml_gfx906_tpu_torch.models import llama
@@ -185,6 +199,11 @@ try:    # the other families; the families phase needs them
     HAS_FAMILIES = True
 except ImportError:
     HAS_FAMILIES = False
+try:    # the vision and classifier models; the vision phase needs them
+    from ggml_gfx906_tpu_torch.models import magika, sam, yolo
+    HAS_VISION = True
+except ImportError:
+    HAS_VISION = False
 from ggml_gfx906_tpu_torch.runtime.batched_kv import BatchedKVCache
 from ggml_gfx906_tpu_torch.runtime.engine import Engine
 from ggml_gfx906_tpu_torch.utils import autotune, config
@@ -3401,6 +3420,372 @@ def families_phase(device, names) -> dict:
     return out
 
 
+# ------------------------------------------------------------- vision
+# The vision and classifier models at their published widths, random
+# weights from fixed seeds: YOLOv3-tiny at 416 (darknet yolov3-tiny.cfg;
+# examples/yolo/yolov3-tiny.cpp:113-136), SAM ViT-B (sam_vit_b of
+# facebookresearch/segment-anything: 768 wide, 12 layers, 12 heads, image
+# 1024, window 14, global layers 2, 5, 8, 11, the 256-wide two-way decoder)
+# and Magika (examples/magika/main.cpp:181-251: 1536 input bytes, 257 →
+# 128, 384 x 512, 256, 113 labels). None of them reaches a quantized kernel.
+
+VISION_BOUND = 1e-9          # card vs CPU nmse of every f32 vision output
+YOLO_CHANS = ((3, 16), (16, 32), (32, 64), (64, 128), (128, 256), (256, 512),
+              (512, 1024), (1024, 256), (256, 512), (512, 255), (256, 128),
+              (384, 256), (256, 255))
+YOLO_KSIZE = (3,) * 7 + (1, 3, 1, 1, 3, 1)
+YOLO_NET = 416
+YOLO_IMAGE = (3, 480, 640)   # detect's photo: a letterbox downscale
+YOLO_OBJ_BIAS = -0.5         # the objectness bias of both heads (yolo_gguf)
+SAM_VIT_B = dict(n_enc_state=768, n_enc_layer=12, n_enc_head=12, n_img_size=1024)
+SAM_CHECK_LAYERS = 3         # card vs CPU: layers 0 and 1 windowed, 2 global
+SAM_POINT = ((500.0, 375.0),)
+MAGIKA_LABELS = 113
+MAGIKA_FILES = 64
+MAGIKA_MAX_BYTES = 1 << 20
+
+
+def yolo_gguf(path: Path, rng, obj_bias: float | None = None):
+    """A YOLOv3-tiny GGUF of random weights with the reference's tensor
+    names and shapes (load_model yolov3-tiny.cpp:122-136), drawn in the
+    order of the reference's test recipe (tests/test_vision_models.py).
+    obj_bias sets the objectness bias of both heads, as a trained net's
+    prior does (most cells hold no object): random heads with the
+    recipe's bias put about half of the 2,535 cells at 416 over the 0.5
+    threshold (1,225 candidates, 3.9 s of NMS on the host), at -0.5 a
+    tenth of them, and NMS is quadratic in the candidates."""
+    w = GGUFWriter()
+    for i, ((ic, oc), k) in enumerate(zip(YOLO_CHANS, YOLO_KSIZE)):
+        w.add_array_tensor(f"l{i}_weights",
+                           (rng.standard_normal((oc, ic, k, k)) * 0.05).astype(np.float32))
+        bias = (rng.standard_normal((oc, 1, 1)) * 0.1).astype(np.float32)
+        if obj_bias is not None and oc == 255:
+            bias[4::85] = obj_bias
+        w.add_array_tensor(f"l{i}_biases", bias)
+        if i not in yolo.NO_BN:
+            w.add_array_tensor(f"l{i}_scales",
+                               (1 + 0.1 * rng.standard_normal((oc, 1, 1))).astype(np.float32))
+            w.add_array_tensor(f"l{i}_rolling_mean",
+                               (0.1 * rng.standard_normal((oc, 1, 1))).astype(np.float32))
+            w.add_array_tensor(f"l{i}_rolling_variance",
+                               (1 + 0.1 * rng.random((oc, 1, 1))).astype(np.float32))
+    w.write(path)
+
+
+def sam_state(n_enc_state: int, n_enc_layer: int, n_enc_head: int, n_img_size: int,
+              seed: int = 0) -> dict:
+    """An HF SamModel state dict (the keys sam.from_hf reads; torch
+    tensors) of random weights at the given encoder widths and the
+    published 256-wide decoder: matrices N(0, 1/fan_in), norm weights
+    1 + N(0, 0.1), small biases, the relative-position tables sized for a
+    window of sam.WINDOW (global layers, sam.GLOBAL_ATTN: the grid)."""
+    rng = np.random.default_rng(seed)
+    C, E, grid = n_enc_state, 256, n_img_size // 16
+    sd = {}
+
+    def w(*shape, fan=None):
+        fan = fan or shape[-1]
+        return torch.from_numpy((rng.standard_normal(shape) / np.sqrt(fan)).astype(np.float32))
+
+    def lin(prefix, n_out, n_in, *kernel):
+        sd[prefix + ".weight"] = w(n_out, n_in, *kernel, fan=n_in * int(np.prod(kernel)))
+        sd[prefix + ".bias"] = w(n_out, fan=100)
+
+    def ln(prefix, n):
+        sd[prefix + ".weight"] = 1 + w(n, fan=100)
+        sd[prefix + ".bias"] = w(n, fan=100)
+
+    v = "vision_encoder."
+    lin(v + "patch_embed.projection", C, 3, 16, 16)
+    sd[v + "pos_embed"] = w(1, grid, grid, C, fan=100)
+    for i in range(n_enc_layer):
+        p = f"{v}layers.{i}."
+        n_rel = 2 * (grid if i in sam.GLOBAL_ATTN else sam.WINDOW) - 1
+        ln(p + "layer_norm1", C)
+        lin(p + "attn.qkv", 3 * C, C)
+        lin(p + "attn.proj", C, C)
+        sd[p + "attn.rel_pos_h"] = w(n_rel, C // n_enc_head, fan=100)
+        sd[p + "attn.rel_pos_w"] = w(n_rel, C // n_enc_head, fan=100)
+        ln(p + "layer_norm2", C)
+        lin(p + "mlp.lin1", 4 * C, C)
+        lin(p + "mlp.lin2", C, 4 * C)
+    sd[v + "neck.conv1.weight"] = w(E, C, 1, 1, fan=C)
+    ln(v + "neck.layer_norm1", E)
+    sd[v + "neck.conv2.weight"] = w(E, E, 3, 3, fan=9 * E)
+    ln(v + "neck.layer_norm2", E)
+    sd["prompt_encoder.shared_embedding.positional_embedding"] = w(2, E // 2, fan=1)
+    sd["shared_image_embedding.positional_embedding"] = w(2, E // 2, fan=1)
+    for name in ("point_embed.0", "point_embed.1", "not_a_point_embed", "no_mask_embed"):
+        sd[f"prompt_encoder.{name}.weight"] = w(1, E, fan=1)
+    m = "mask_decoder."
+    sd[m + "iou_token.weight"] = w(1, E, fan=1)
+    sd[m + "mask_tokens.weight"] = w(4, E, fan=1)
+    lin(m + "upscale_conv1", E, E // 4, 2, 2)         # ConvTranspose2d: (IC, OC, KH, KW)
+    sd[m + "upscale_conv1.bias"] = w(E // 4, fan=100)
+    ln(m + "upscale_layer_norm", E // 4)
+    lin(m + "upscale_conv2", E // 4, E // 8, 2, 2)
+    sd[m + "upscale_conv2.bias"] = w(E // 8, fan=100)
+    for prefix, n_out in [(f"{m}output_hypernetworks_mlps.{i}.", E // 8) for i in range(4)] + [
+            (m + "iou_prediction_head.", 4)]:
+        lin(prefix + "proj_in", E, E)
+        lin(prefix + "layers.0", E, E)
+        lin(prefix + "proj_out", n_out, E)
+
+    def attn(prefix, inner):
+        for s in ("q", "k", "v"):
+            lin(f"{prefix}{s}_proj", inner, E)
+        lin(prefix + "out_proj", E, inner)
+
+    t = m + "transformer."
+    for i in range(2):
+        p = f"{t}layers.{i}."
+        attn(p + "self_attn.", E)
+        attn(p + "cross_attn_token_to_image.", E // 2)
+        attn(p + "cross_attn_image_to_token.", E // 2)
+        for j in range(1, 5):
+            ln(p + f"layer_norm{j}", E)
+        lin(p + "mlp.lin1", 2048, E)
+        lin(p + "mlp.lin2", E, 2048)
+    attn(t + "final_attn_token_to_image.", E // 2)
+    ln(t + "layer_norm_final_attn", E)
+    return sd
+
+
+def magika_gguf(path: Path, seed: int = 0):
+    """A Magika GGUF of random weights under the reference's TF-style
+    tensor names, drawn as the reference's golden test draws its params."""
+    rng = np.random.default_rng(seed)
+    shapes = {"dense_w": (128, 257), "dense_b": (128,), "ln_g": (384,), "ln_b": (384,),
+              "dense1_w": (256, 512), "dense1_b": (256,), "dense2_w": (256, 256),
+              "dense2_b": (256,), "ln1_g": (256,), "ln1_b": (256,),
+              "label_w": (MAGIKA_LABELS, 256), "label_b": (MAGIKA_LABELS,)}
+    w = GGUFWriter()
+    for key, shape in shapes.items():
+        scale = 1.0 if key in ("ln_g", "ln1_g") else 0.1
+        w.add_array_tensor(magika.TENSORS[key],
+                           (rng.standard_normal(shape) * scale).astype(np.float32))
+    w.write(path)
+
+
+@contextlib.contextmanager
+def cudnn_tf32_default():
+    """cuDNN's TF32 flag at PyTorch's default (True) for the enclosed
+    checks, the smoke's setting restored after: the conv ops keep f32
+    whatever their caller set."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def yolo_check(device) -> dict:
+    """YOLOv3-tiny at YOLO_NET: the file loaded on the card and the CPU,
+    both heads card vs CPU (cuDNN's TF32 flag at its default), one conv of
+    the net through F.conv2d under TF32 (the error the ops keep out), the
+    forward timed, and detect end to end on a YOLO_IMAGE photo beside the
+    host time of its steps."""
+    path = ROOT / "build" / "smoke_yolo.gguf"
+    yolo_gguf(path, np.random.default_rng(11), YOLO_OBJ_BIAS)
+    out = {"gguf_mb": path.stat().st_size / 1e6}
+    lg, out["load_s"] = _timed(lambda: yolo.load(path, device=device))
+    lc = yolo.load(path, device="cpu")
+    path.unlink()
+    out["params"] = sum(t.numel() for lyr in lc for t in lyr.values())
+    timer = Timer(device)
+    x = torch.from_numpy(np.random.default_rng(12).random((1, 3, YOLO_NET, YOLO_NET),
+                                                           dtype=np.float32))
+    xd = x.to(device)
+    with torch.inference_mode():
+        with cudnn_tf32_default():
+            got = [h.cpu() for h in yolo.forward(lg, xd)]
+            h6 = torch.randn(1, 512, YOLO_NET // 32, YOLO_NET // 32,
+                             generator=torch.Generator().manual_seed(13))
+            tf32 = F.conv2d(h6.to(device), lg[6]["w"], padding=1).cpu()
+        ref = yolo.forward(lc, x)
+        out["tf32_conv_nmse"] = nmse(tf32, F.conv2d(h6, lc[6]["w"], padding=1))
+        out["forward_ms"] = timer(lambda: yolo.forward(lg, xd), iters=5, warmup=1)
+    out["images_per_s"] = 1e3 / out["forward_ms"]
+    for name, g, r in zip(("layer_15", "layer_22"), got, ref):
+        e = nmse(g, r)
+        if not (e < VISION_BOUND and g.shape == r.shape):
+            raise AssertionError(f"yolo {name} card vs CPU nmse {e} (bound {VISION_BOUND})")
+        out[f"{name}_nmse"] = e
+        out[f"{name}_shape"] = list(g.shape)
+    photo = np.random.default_rng(14).random(YOLO_IMAGE, dtype=np.float32)
+    dets, out["detect_s"] = _timed(lambda: yolo.detect(lg, photo, YOLO_NET, YOLO_NET))
+    sized, out["letterbox_s"] = _timed(lambda: yolo.letterbox(photo, YOLO_NET, YOLO_NET))
+    with torch.inference_mode():
+        heads, out["detect_forward_s"] = _timed(lambda: [h[0].cpu().numpy() for h in yolo.forward(
+            lg, torch.from_numpy(sized[None]).to(device))])
+    _, img_h, img_w = YOLO_IMAGE
+
+    def decode():
+        d = yolo.decode_yolo_layer(heads[0], yolo.MASK16, YOLO_NET, YOLO_NET, img_w, img_h, 0.5)
+        d += yolo.decode_yolo_layer(heads[1], yolo.MASK23, YOLO_NET, YOLO_NET, img_w, img_h, 0.5)
+        return len(d), yolo.nms(d)
+
+    (out["candidates"], split), out["decode_nms_s"] = _timed(decode)
+    out["detections"] = len(dets)
+    if not all(np.isfinite(d.box).all() and np.isfinite(d.classes).all() for d in dets):
+        raise AssertionError("yolo detect gave a box or class vector that is not finite")
+    if [d.box for d in split] != [d.box for d in dets]:
+        raise AssertionError(f"detect kept {len(dets)} boxes, its steps {len(split)}")
+    return out
+
+
+def sam_flops(n_enc_state: int, n_enc_layer: int, n_enc_head: int, n_img_size: int) -> float:
+    """Operations (2 per multiply-add) of encode_image as formulated: the
+    patch conv; each layer's qkv, proj and MLP products over its tokens (a
+    windowed layer's include the window padding: 25 windows of 196 tokens
+    at grid 64), its materialised scores, their product with v and the
+    two relative-position products; the neck's two convs."""
+    C, grid, hd = n_enc_state, n_img_size // 16, n_enc_state // n_enc_head
+    total = 2.0 * grid * grid * C * 3 * 16 * 16
+    for i in range(n_enc_layer):
+        side = grid if i in sam.GLOBAL_ATTN else sam.WINDOW
+        n_win = 1 if i in sam.GLOBAL_ATTN else (-(-grid // sam.WINDOW)) ** 2
+        T = side * side
+        total += 2.0 * n_win * T * C * C * (3 + 1 + 4 + 4)
+        total += n_win * n_enc_head * (2.0 * 2 * T * T * hd + 2.0 * 2 * T * side * hd)
+    return total + 2.0 * grid * grid * 256 * (C + 256 * 9)
+
+
+def _tensors(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for v in (tree.values() if isinstance(tree, dict) else tree)
+            for t in _tensors(v)]
+
+
+def sam_check(device) -> dict:
+    """SAM ViT-B (SAM_VIT_B): the params of an HF-style state dict
+    written by save_gguf and read by load_gguf on the card and the CPU;
+    the first SAM_CHECK_LAYERS encoder layers and the decoder card vs CPU
+    on a full image (cuDNN's TF32 flag at its default); then every layer
+    on the card: encode, one point prompt, decode, checked for shape and
+    finite values, timed, and one encode and one decode traced."""
+    cfg0 = sam.SamConfig(**SAM_VIT_B)
+    path = ROOT / "build" / "smoke_sam.gguf"
+    _, p0 = sam.from_hf(sam_state(**SAM_VIT_B, seed=21), cfg0.n_enc_layer, device="cpu")
+    _, write_s = _timed(lambda: sam.save_gguf(path, cfg0, p0))
+    del p0
+    out = {"gguf_mb": path.stat().st_size / 1e6, "gguf_write_s": write_s}
+    (cfg, pg), out["load_s"] = _timed(lambda: sam.load_gguf(path, device=device))
+    _, pc = sam.load_gguf(path, device="cpu")
+    path.unlink()
+    out["params"] = sum(t.numel() for t in _tensors(pc))
+    img = torch.from_numpy(np.random.default_rng(22).standard_normal(
+        (1, 3, cfg.n_img_size, cfg.n_img_size)).astype(np.float32))
+    x = img.to(device)
+    pts = np.asarray([SAM_POINT], np.float32)
+    lbl = np.ones((1, len(SAM_POINT)), np.int32)
+    cut = dataclasses.replace(cfg, n_enc_layer=SAM_CHECK_LAYERS)
+
+    def run(c, p, im):
+        enc = dict(p["enc"], blocks=p["enc"]["blocks"][:c.n_enc_layer])
+        emb = sam.encode_image(c, enc, im)
+        masks, iou = sam.decode_masks(c, p["dec"], p["pe"], emb,
+                                      sam.encode_points(c, p["pe"], pts, lbl))
+        return emb, masks, iou
+
+    with torch.inference_mode():
+        with cudnn_tf32_default():
+            got = [t.cpu() for t in run(cut, pg, x)]
+        ref, out["cpu_check_s"] = _timed(lambda: run(cut, pc, img))
+        del pc
+        for name, g, r in zip(("embeddings", "masks", "iou"), got, ref):
+            e = nmse(g, r)
+            if not e < VISION_BOUND:
+                raise AssertionError(f"sam {SAM_CHECK_LAYERS}-layer {name} card vs CPU nmse {e}")
+            out[f"check_{name}_nmse"] = e
+        torch.cuda.reset_peak_memory_stats()
+        emb, masks, iou = run(cfg, pg, x)
+        out["shapes"] = [list(t.shape) for t in (emb, masks, iou)]
+        want = [[1, cfg.n_embed, cfg.n_grid, cfg.n_grid],
+                [1, 4, 4 * cfg.n_grid, 4 * cfg.n_grid], [1, 4]]
+        if out["shapes"] != want or not all(bool(torch.isfinite(t).all())
+                                            for t in (emb, masks, iou)):
+            raise AssertionError(f"sam {cfg.n_enc_layer} layers: shapes {out['shapes']} "
+                                 f"(want {want}) or values not finite")
+        timer = Timer(device)
+        out["encode_ms"] = timer(lambda: sam.encode_image(cfg, pg["enc"], x), iters=3, warmup=1)
+        out["decode_ms"] = timer(lambda: sam.decode_masks(
+            cfg, pg["dec"], pg["pe"], emb, sam.encode_points(cfg, pg["pe"], pts, lbl)),
+            iters=3, warmup=1)
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["encode_trace"] = trace_device(lambda: sam.encode_image(cfg, pg["enc"], x))
+        out["decode_trace"] = trace_device(lambda: sam.decode_masks(
+            cfg, pg["dec"], pg["pe"], emb, sam.encode_points(cfg, pg["pe"], pts, lbl)))
+    out["iou"] = iou.cpu().tolist()
+    for key in ("encode", "decode"):
+        t = out[f"{key}_trace"]
+        out[f"{key}_busy_share"] = (t["busy_ms"] / t["profiled_wall_ms"]
+                                    if t["busy_ms"] is not None else None)
+    out["encode_flops"] = sam_flops(**SAM_VIT_B)
+    out["encode_bound_ms"] = out["encode_flops"] / PEAK["f32"] * 1e3
+    return out
+
+
+def synthetic_files(n: int, max_bytes: int, seed: int) -> list[bytes]:
+    """n files of 0 to max_bytes bytes (the edges of the 512-byte blocks,
+    then sizes spaced geometrically), random bytes, text, or half zeros."""
+    rng = np.random.default_rng(seed)
+    sizes = [0, 1, 511, 512, 513, 1535, 1536, 1537]
+    sizes += np.geomspace(2048, max_bytes, max(n - len(sizes), 0)).astype(int).tolist()
+    letters = np.frombuffer(_LETTERS.encode() + b" \n", np.uint8)
+    files = []
+    for k, size in enumerate(sizes[:n]):
+        b = rng.choice(letters, size) if k % 3 == 1 else rng.integers(0, 256, size, np.uint8)
+        if k % 3 == 2:
+            b[: size // 2] = 0
+        files.append(b.tobytes())
+    return files
+
+
+def magika_check(device) -> dict:
+    """Magika: the file loaded on the card and the CPU; MAGIKA_FILES
+    synthetic files classified on the card one by one (classify_bytes) and
+    as one batch, against the CPU's batch: probabilities within 1e-6, the
+    same labels; files/s of both on the card."""
+    path = ROOT / "build" / "smoke_magika.gguf"
+    magika_gguf(path, seed=31)
+    pg, pc = magika.load(path, device=device), magika.load(path, device="cpu")
+    path.unlink()
+    files = synthetic_files(MAGIKA_FILES, MAGIKA_MAX_BYTES, seed=32)
+    magika.classify_bytes(pg, files[0])       # warm-up
+    one, one_s = _timed(lambda: np.stack([magika.classify_bytes(pg, f) for f in files]))
+
+    def batch(p, dev):
+        toks = torch.from_numpy(np.stack([magika.prepare_input(f) for f in files])).to(dev)
+        with torch.inference_mode():
+            return magika.forward(p, toks).cpu().numpy()
+
+    many, many_s = _timed(lambda: batch(pg, device))
+    ref = batch(pc, "cpu")
+    err = float(max(np.abs(one - ref).max(), np.abs(many - ref).max()))
+    same = bool((one.argmax(1) == ref.argmax(1)).all() and (many.argmax(1) == ref.argmax(1)).all())
+    if not (err < 1e-6 and same):
+        raise AssertionError(f"magika card vs CPU: max abs {err}, labels equal {same}")
+    return {"files": len(files), "max_bytes": max(len(f) for f in files), "max_abs_err": err,
+            "labels_equal": same, "labels": np.bincount(ref.argmax(1)).nonzero()[0].tolist(),
+            "files_per_s_batch1": len(files) / one_s, "files_per_s_batch": len(files) / many_s}
+
+
+def vision_phase(device) -> dict:
+    """The vision phase: YOLOv3-tiny, SAM ViT-B and Magika (yolo_check,
+    sam_check, magika_check); no counted kernel launches in it."""
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    out = {"yolo": yolo_check(device), "sam": sam_check(device),
+           "magika": magika_check(device), "launches": launches()}
+    if _nonzero(out["launches"]):
+        raise AssertionError(f"the vision phase launched {_nonzero(out['launches'])}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # phase 3, by name (--checks)
 CHECKS = {"qmm": check_qmm, "attention": check_attention, "q6k": check_q6k,
           "q8_0": check_q8_0, "q4_0": check_q4_0, "q5k": check_q5k,
@@ -3422,8 +3807,8 @@ def main(argv=None) -> int:
     ap.add_argument("--paths", default=None,
                     help="comma-separated main paths of phase 6 (default: all), "
                          "'quantize' for phase 7, 'families' (or mixtral, gpt2_large, gptj) "
-                         "for phase 8; a run cut by --checks or --paths skips phases 4 and 5 "
-                         "and prints no result line")
+                         "for phase 8, 'vision' for phase 9; a run cut by --checks or --paths "
+                         "skips phases 4 and 5 and prints no result line")
     args = ap.parse_args(argv)
     checks = [] if args.checks == "none" else args.checks.split(",")
     unknown = set(checks) - set(CHECKS)
@@ -3710,6 +4095,42 @@ def main(argv=None) -> int:
                 log(f"  engine == generate asserted for prompt lengths {ev['asserted']}; "
                     f"recorded (first divergence, None = equal) {ev['recorded']}")
         log(f"families phase {fams['seconds']:.1f} s")
+    vision = None
+    if not (HAS_VISION or partial):
+        raise AssertionError("models/yolo.py, sam.py or magika.py is missing: the vision "
+                             "phase cannot run")
+    if HAS_VISION and (not partial or "vision" in asked):
+        vision = vision_phase(device)
+        yo, sa, mg = vision["yolo"], vision["sam"], vision["magika"]
+        log(f"vision: YOLOv3-tiny at {YOLO_NET} [{label}]: {yo['params']} parameters "
+            f"({yo['gguf_mb']:.1f} MB file, load {yo['load_s']:.2f} s), heads card vs CPU "
+            f"nmse {yo['layer_15_nmse']:.3e} / {yo['layer_22_nmse']:.3e} with cuDNN's TF32 "
+            f"flag on (one conv through F.conv2d under TF32: {yo['tf32_conv_nmse']:.3e}), "
+            f"forward {yo['forward_ms']:.3f} ms ({yo['images_per_s']:.1f} images/s); detect "
+            f"on a {YOLO_IMAGE[1]}x{YOLO_IMAGE[2]} photo {yo['detect_s'] * 1e3:.1f} ms "
+            f"(letterbox {yo['letterbox_s'] * 1e3:.1f} ms, forward with its copies "
+            f"{yo['detect_forward_s'] * 1e3:.1f} ms, decode + NMS "
+            f"{yo['decode_nms_s'] * 1e3:.1f} ms; {yo['candidates']} candidates, "
+            f"{yo['detections']} detections)")
+        t = sa["encode_trace"]
+        log(f"vision: SAM ViT-B [{label}]: {sa['params']} parameters ({sa['gguf_mb']:.1f} MB "
+            f"file written in {sa['gguf_write_s']:.1f} s, load {sa['load_s']:.2f} s); "
+            f"{SAM_CHECK_LAYERS}-layer card vs CPU nmse embeddings "
+            f"{sa['check_embeddings_nmse']:.3e}, masks {sa['check_masks_nmse']:.3e}, iou "
+            f"{sa['check_iou_nmse']:.3e} (CPU {sa['cpu_check_s']:.1f} s); "
+            f"{SAM_VIT_B['n_enc_layer']} layers: encode {sa['encode_ms']:.3f} ms "
+            f"({sa['encode_flops'] / 1e12:.3f} TFLOP, f32 bound {sa['encode_bound_ms']:.3f} "
+            f"ms), decode {sa['decode_ms']:.3f} ms, peak device memory "
+            f"{sa['peak_mem_gb']:.2f} GB; traced encode device busy {t['busy_ms']} ms "
+            f"(share {sa['encode_busy_share']}, {t['device_activities']} activities); "
+            f"busiest {t['top_ms'][:5]}; traced decode device busy "
+            f"{sa['decode_trace']['busy_ms']} ms (share {sa['decode_busy_share']}, "
+            f"{sa['decode_trace']['device_activities']} activities)")
+        log(f"vision: Magika [{label}]: {mg['files']} files of 0 to {mg['max_bytes']} bytes "
+            f"card vs CPU max abs {mg['max_abs_err']:.3e}, labels equal; "
+            f"{mg['files_per_s_batch1']:.1f} files/s one by one, "
+            f"{mg['files_per_s_batch']:.1f} files/s in one batch of {mg['files']}")
+        log(f"vision phase {vision['seconds']:.1f} s, launches {_nonzero(vision['launches'])}")
     rep = {"qmm_q4_K": "M=8 N=11008 K=4096",
            "qmm_q4_K_i8": "M=128 N=11008 K=4096",
            "causal_flash_attention": "decode B=8 H=32 window=1024 f32q_bf16kv",
@@ -3730,7 +4151,8 @@ def main(argv=None) -> int:
     if partial:
         detail = {"device": smi, "build_s": build_s, "build": build.BUILD_LOG,
                   "kernels": results, "row_checks": row_checks, "main_paths": paths,
-                  "quantize": quant, "families": fams, "checks": checks, "partial": True}
+                  "quantize": quant, "families": fams, "vision": vision, "checks": checks,
+                  "partial": True}
         for mp in paths.values():
             mp.pop("probe_logits", None)
         args.out.mkdir(parents=True, exist_ok=True)
@@ -3759,7 +4181,8 @@ def main(argv=None) -> int:
             "shape": r["shape"]})
     detail = {"device": smi, "build_s": build_s, "build": build.BUILD_LOG,
               "kernels": results, "row_checks": row_checks, "autotune": tune,
-              "main_paths": paths, "quantize": quant, "families": fams, "small_model": small}
+              "main_paths": paths, "quantize": quant, "families": fams, "vision": vision,
+              "small_model": small}
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke.json").write_text(json.dumps(detail, indent=1, default=str))
     log(json.dumps({"kernels": line}))

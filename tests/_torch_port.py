@@ -282,3 +282,25 @@ def hf_gpt_state(arch: str, seed: int = 1):
     cfg = types.SimpleNamespace(vocab_size=V, n_positions=64, n_embd=D, n_layer=L, n_head=4,
                                 rotary_dim=32, layer_norm_epsilon=1e-5)
     return sd, cfg
+
+
+# ------------------------------------------- vision models
+
+def rand_yolo_gguf(path, rng):
+    """The random-weight YOLOv3-tiny GGUF of the reference's test recipe
+    (tests/test_vision_models.py::_rand_yolo_gguf; the smoke writes its
+    files by the same function, chip_smoke.yolo_gguf)."""
+    import chip_smoke
+
+    chip_smoke.yolo_gguf(path, rng)
+
+
+def sam_state(n_enc_state: int = 96, n_enc_layer: int = 4, n_enc_head: int = 12,
+              n_img_size: int = 256, seed: int = 0) -> dict:
+    """An HF SamModel state dict of seeded random weights with the keys
+    from_hf reads (no transformers; chip_smoke.sam_state): the encoder at
+    these widths, the published 256-wide decoder. The relative-position
+    tables follow the port's sam.GLOBAL_ATTN at the call."""
+    import chip_smoke
+
+    return chip_smoke.sam_state(n_enc_state, n_enc_layer, n_enc_head, n_img_size, seed)

@@ -49,7 +49,8 @@ def test_port_imports_no_jax_and_runs_a_cpu_forward():
                   "quant.numerics", "quant.blocks", "quant.legacy", "quant.kquants",
                   "quant.modern", "quant.iquants", "quant.registry", "models.convert",
                   "models.quantize_cli", "models.imatrix", "models.moe", "models.gpt2",
-                  "models.gptj", "models.offload", "ops.recurrent", "ops.cuda.iq_search"):
+                  "models.gptj", "models.offload", "ops.recurrent", "ops.cuda.iq_search",
+                  "models.yolo", "models.sam", "models.magika", "gguf.pytree", "ops.conv"):
             assert pkg.__name__ + "." + n in names, n
         from ggml_gfx906_tpu_torch.quant import registry
         assert registry.dequantize(GGMLTypeQ.IQ2_XXS, bytes(66), 256).shape == (1, 256)
@@ -183,3 +184,38 @@ def test_family_entry_points_want_the_card(tmp_path):
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_vision_entry_points_want_the_card(tmp_path):
+    """yolo.load, magika.load, sam.load_gguf, sam.from_hf, pytree.load_pytree
+    and the models' params_from_numpy run on cuda unless asked for the CPU,
+    and raise here before reading any file; with device="cpu" they run."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry points would use it")
+    import numpy as np
+
+    import chip_smoke
+    from ggml_gfx906_tpu_torch.gguf import pytree
+    from ggml_gfx906_tpu_torch.models import magika, sam, yolo
+
+    absent = tmp_path / "absent.gguf"
+    sd = chip_smoke.sam_state(32, 1, 2, 64)
+    for call in (lambda: yolo.load(absent), lambda: magika.load(absent),
+                 lambda: sam.load_gguf(absent), lambda: pytree.load_pytree(absent),
+                 lambda: sam.from_hf(sd, n_layer=1),
+                 lambda: yolo.params_from_numpy([{"w": np.zeros(1)}]),
+                 lambda: magika.params_from_numpy({"dense_b": np.zeros(1)}),
+                 lambda: sam.params_from_numpy({"enc": {"patch_b": np.zeros(1)}})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    cfg, params = sam.from_hf(sd, n_layer=1, device="cpu")
+    sam.save_gguf(tmp_path / "sam.gguf", cfg, params)
+    cfg2, back = sam.load_gguf(tmp_path / "sam.gguf", device="cpu")
+    assert cfg2 == cfg and back["enc"]["patch_w"].device.type == "cpu"
+    tree, kv = pytree.load_pytree(tmp_path / "sam.gguf", device="cpu")
+    assert kv["general.architecture"] == "sam" and len(tree["enc"]["blocks"]) == 1
+    chip_smoke.yolo_gguf(tmp_path / "yolo.gguf", np.random.default_rng(0))
+    assert yolo.load(tmp_path / "yolo.gguf", device="cpu")[12]["w"].shape == (255, 256, 1, 1)
+    chip_smoke.magika_gguf(tmp_path / "magika.gguf")
+    probs = magika.classify_bytes(magika.load(tmp_path / "magika.gguf", device="cpu"), b"hi")
+    assert probs.shape == (113,) and abs(probs.sum() - 1) < 1e-5

@@ -224,3 +224,16 @@ def test_mul_mat_id_static_shapes():
     for ids in (torch.zeros(T, U, dtype=torch.int32), torch.full((T, U), -1),
                 torch.randint(0, E, (T, U))):
         assert tops.mul_mat_id(w, x, ids).shape == (T, U, 8)
+
+
+def test_op_surface_is_the_references_name_for_name():
+    """ggml_gfx906_tpu_torch.ops exports every public name of the JAX
+    package's ops/__init__.py (the conv, pooling, window, SSM, rope_multi
+    and recurrent names among them) and one more: embed_rows."""
+    import types
+
+    def names(mod):
+        return {n for n, v in vars(mod).items()
+                if not n.startswith("_") and not isinstance(v, types.ModuleType)}
+    assert names(tops) - names(jops) == {"embed_rows"}
+    assert names(jops) - names(tops) == set()

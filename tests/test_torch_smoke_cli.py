@@ -392,3 +392,54 @@ def test_families_phase_runs_on_the_cpu(monkeypatch):
     assert out["gpt2_large"]["to_n_ctx"]["prompt_tokens"] == 1024 - 4
     assert "engine_tok_s" not in out["gptj"] and out["gptj"]["launches"]["qmm_q6_K"] > 0
     assert not list((chip_smoke.ROOT / "build").glob("smoke_*_L2.gguf"))
+
+
+def test_vision_paths_are_accepted(capsys):
+    """--paths vision names phase 9; without a card the run still stops
+    before any phase and prints no result line."""
+    assert chip_smoke.main(["--checks", "none", "--paths", "vision"]) != 0
+    assert '"ok"' not in capsys.readouterr().out
+
+
+def test_vision_phase_runs_on_the_cpu(monkeypatch):
+    """The vision phase end to end on the CPU at tiny sizes (the card's
+    synchronisation, memory statistics, the event timer and traces stubbed):
+    YOLOv3-tiny at 128 on a 96x150 photo, a 96-wide 4-layer SAM at image
+    256 cut to 3 layers for the card-vs-CPU check, Magika on 10 files; its
+    outputs checked, no counted kernel launched, no file left behind."""
+    import time
+
+    import torch
+
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(chip_smoke, "trace_device", lambda fn, match=(): (fn(), {
+        "busy_ms": 1.0, "device_activities": 0, "profiled_wall_ms": 1.0, "matched_ms": 0.0,
+        "top_ms": []})[1])
+
+    class HostTimer:
+        def __init__(self, device):
+            pass
+
+        def __call__(self, fn, iters=20, warmup=3):
+            t0 = time.perf_counter()
+            fn()
+            return (time.perf_counter() - t0) * 1e3
+
+    monkeypatch.setattr(chip_smoke, "Timer", HostTimer)
+    for name, val in (("YOLO_NET", 128), ("YOLO_IMAGE", (3, 96, 150)),
+                      ("SAM_VIT_B", dict(n_enc_state=96, n_enc_layer=4, n_enc_head=12,
+                                         n_img_size=256)),
+                      ("MAGIKA_FILES", 10), ("MAGIKA_MAX_BYTES", 5000)):
+        monkeypatch.setattr(chip_smoke, name, val)
+    out = chip_smoke.vision_phase(torch.device("cpu"))
+    yo, sa, mg = out["yolo"], out["sam"], out["magika"]
+    assert yo["layer_15_shape"] == [1, 255, 4, 4] and yo["layer_22_shape"] == [1, 255, 8, 8]
+    assert yo["layer_15_nmse"] == 0.0 and yo["tf32_conv_nmse"] == 0.0
+    assert sa["shapes"] == [[1, 256, 16, 16], [1, 4, 64, 64], [1, 4]]
+    assert sa["check_masks_nmse"] == 0.0 and sa["encode_flops"] > 0
+    assert mg["files"] == 10 and mg["max_abs_err"] < 1e-6 and mg["labels_equal"]
+    assert not any(out["launches"].values())
+    assert not [m for m in ("yolo", "sam", "magika")
+                if (chip_smoke.ROOT / "build" / f"smoke_{m}.gguf").exists()]
