@@ -141,10 +141,26 @@ Phases (each failure raises, so the script exits non-zero):
      traced); Magika (64 synthetic files of 0 bytes to 1 MB card vs CPU,
      files/s one by one and in one batch). No counted kernel launches in
      the phase.
+ 10. training (training_phase), each check under PyTorch's default flags
+     (cuDNN TF32 on, its non-deterministic algorithms allowed): K2's
+     gradient at llama-7B attention (B 1, H 32, D 128, N = M = 512, pos 0;
+     and KVH 8) == autograd through `_causal_ref` on the card bit for bit,
+     near the CPU's, its forward == K2's plain version, one K2 launch per
+     forward and none in the backward, timed beside SDPA's forward +
+     backward; MNIST fc and cnn at the reference's widths on 12,000
+     synthetic images: 3 steps card vs CPU (and the cnn with TF32 convs,
+     which must fail),
+     `train` for 2 epochs to the reference tests' accuracies, the GGUF
+     round trip, a resumed `fit` bit-equal to the straight one; GPT-2 124M
+     at full width, f32: 2 layers card vs CPU (loss and every gradient),
+     `fit` at 4 x 1024 tokens with 2 micro-batches a step for 4 AdamW steps
+     (losses finite and falling, two runs bit-equal), ms per micro-batch,
+     tokens/s, peak memory, one micro-batch traced, cross_entropy_loss
+     timed. No counted kernel launches across the MNIST and GPT-2 runs.
 --checks and --paths cut phases 3 and 6 to the named checks and paths,
 --paths quantize runs phase 7, --paths families (or mixtral,
-gpt2_large, gptj) phase 8 and --paths vision phase 9 (a cut run skips
-phases 4 and 5 and prints no result line).
+gpt2_large, gptj) phase 8, --paths vision phase 9 and --paths training
+phase 10 (a cut run skips phases 4 and 5 and prints no result line).
 Detailed results go to DIR/chip_smoke.json (default build/). The second-to-last
 stdout line is {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -204,6 +220,16 @@ try:    # the vision and classifier models; the vision phase needs them
     HAS_VISION = True
 except ImportError:
     HAS_VISION = False
+try:    # the training layer and MNIST; the training phase needs them
+    from ggml_gfx906_tpu_torch import ops
+    from ggml_gfx906_tpu_torch.models import mnist
+    from ggml_gfx906_tpu_torch.training import AdamWParams, adamw_init
+    from ggml_gfx906_tpu_torch.training.dataset import Dataset
+    from ggml_gfx906_tpu_torch.training.fit import fit, make_train_step
+    from ggml_gfx906_tpu_torch.training.opt import tree_leaves, tree_map
+    HAS_TRAINING = True
+except ImportError:
+    HAS_TRAINING = False
 from ggml_gfx906_tpu_torch.runtime.batched_kv import BatchedKVCache
 from ggml_gfx906_tpu_torch.runtime.engine import Engine
 from ggml_gfx906_tpu_torch.utils import autotune, config
@@ -3568,16 +3594,18 @@ def magika_gguf(path: Path, seed: int = 0):
 
 
 @contextlib.contextmanager
-def cudnn_tf32_default():
-    """cuDNN's TF32 flag at PyTorch's default (True) for the enclosed
-    checks, the smoke's setting restored after: the conv ops keep f32
-    whatever their caller set."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = True
+def torch_default_flags():
+    """PyTorch's default flags for the enclosed checks (cuDNN's TF32 on,
+    its non-deterministic algorithms allowed, matmul TF32 off), the smoke's
+    settings restored after: the conv ops keep f32 in the forward and the
+    backward, deterministic in the backward, whatever their caller set."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    prev = (cudnn.allow_tf32, cudnn.deterministic, matmul.allow_tf32)
+    cudnn.allow_tf32, cudnn.deterministic, matmul.allow_tf32 = True, False, False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        cudnn.allow_tf32, cudnn.deterministic, matmul.allow_tf32 = prev
 
 
 def yolo_check(device) -> dict:
@@ -3598,7 +3626,7 @@ def yolo_check(device) -> dict:
                                                            dtype=np.float32))
     xd = x.to(device)
     with torch.inference_mode():
-        with cudnn_tf32_default():
+        with torch_default_flags():
             got = [h.cpu() for h in yolo.forward(lg, xd)]
             h6 = torch.randn(1, 512, YOLO_NET // 32, YOLO_NET // 32,
                              generator=torch.Generator().manual_seed(13))
@@ -3691,7 +3719,7 @@ def sam_check(device) -> dict:
         return emb, masks, iou
 
     with torch.inference_mode():
-        with cudnn_tf32_default():
+        with torch_default_flags():
             got = [t.cpu() for t in run(cut, pg, x)]
         ref, out["cpu_check_s"] = _timed(lambda: run(cut, pc, img))
         del pc
@@ -3786,6 +3814,375 @@ def vision_phase(device) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 10: training
+
+TRAIN_BOUND = 1e-10          # card vs CPU nmse: K2's gradients, MNIST's at equal params
+# card vs CPU nmse of MNIST params after 3 independent steps: AdamW's first steps
+# divide each gradient by its own magnitude, so a near-zero one turns f32 rounding
+# into a move of up to alpha (the gradients themselves hold TRAIN_BOUND)
+ADAM_BOUND = 1e-7
+GPT2_TRAIN_BOUND = 1e-9      # card vs CPU nmse of GPT-2's loss and every gradient
+K2_GRAD_CASES = ((32, 32), (32, 8))    # (H, KVH): llama-7B attention and a GQA case
+K2_GRAD_N = 512              # N = M at pos 0, B 1, head dim 128
+MNIST_IMAGES = 12000
+MNIST_TEST = 2000
+MNIST_BATCH = 500
+MNIST_EPOCHS = 2
+MNIST_ACC = {"fc": 0.9, "cnn": 0.85}   # the reference's tests' accuracies (tests/test_opt.py)
+GPT2_124M = dict(n_vocab=50257, n_ctx=1024, n_embd=768, n_head=12, n_layer=12)
+GPT2_SEQS = 32               # synthetic sequences of n_ctx + 1 tokens
+GPT2_IDS = 512               # distinct token ids they draw from (so the loss can fall)
+GPT2_BATCH = 4
+GPT2_PERIOD = 2              # micro-batches per AdamW step
+GPT2_CHECK = (2, 128)        # layers and tokens of the card-vs-CPU gradient check
+
+
+def k2_grad_check(device, timer) -> dict:
+    """K2's gradient (ops.causal_flash_attn on float K/V, the autograd
+    Function): at B 1, N = M = K2_GRAD_N, D 128, pos 0, for each (H, KVH)
+    of K2_GRAD_CASES, dq / dk / dv on the card == autograd through
+    `_causal_ref` on the card bit for bit, within TRAIN_BOUND of the CPU's;
+    the forward's output within TRAIN_BOUND of K2's plain version on the
+    same card inputs; K2 launches once in the forward and never in the
+    backward; forward + backward timed beside the plain recompute's and
+    SDPA's, and its bound (pos a device
+    tensor, as the engine passes it: an int is uploaded by a blocking copy,
+    which would put the host's launches inside the timed interval)."""
+    from ggml_gfx906_tpu_torch.ops import attention
+
+    out = {}
+    N, D = K2_GRAD_N, 128
+    scale = 1.0 / D ** 0.5
+    for H, KVH in K2_GRAD_CASES:
+        rng = np.random.default_rng(40 + KVH)
+        host = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                for shape in ((1, H, N, D), (1, KVH, N, D), (1, KVH, N, D), (1, H, N, D))]
+        q, k, v, g = (t.to(device).requires_grad_(i < 3) for i, t in enumerate(host))
+        pos = torch.zeros(1, dtype=torch.int32, device=device)
+
+        def fwd_bwd(q=q, k=k, v=v, g=g):
+            return torch.autograd.grad(ops.causal_flash_attn(q, k, v, pos), (q, k, v), g)
+
+        def plain(q=q, k=k, v=v, g=g):
+            return torch.autograd.grad(attention._causal_ref(q, k, v, pos, scale, 0.0),
+                                       (q, k, v), g)
+
+        b0 = kernels.K2.launches
+        o = ops.causal_flash_attn(q, k, v, pos)
+        b1 = kernels.K2.launches
+        got = torch.autograd.grad(o, (q, k, v), g)
+        b2 = kernels.K2.launches
+        if not (b1 - b0 == int(q.is_cuda) and b2 == b1 and o.grad_fn is not None):
+            raise AssertionError(f"K2 launches forward {b1 - b0}, backward {b2 - b1}, "
+                                 f"grad_fn {o.grad_fn}")
+        with torch.no_grad():
+            fwd_plain = flash_attn.causal_flash_attention_plain(q, k, v, pos, scale)
+        want = plain()
+        hq, hk, hv = (t.requires_grad_() for t in host[:3])
+        cpu = torch.autograd.grad(ops.causal_flash_attn(hq, hk, hv, pos.cpu()), (hq, hk, hv),
+                                  host[3])
+        row = {"fwd_nmse_vs_plain": nmse(o.detach(), fwd_plain),
+               "fwd_max_abs_err": float((o.detach() - fwd_plain).abs().max()),
+               "bit_equal_to_plain": all(torch.equal(a, b) for a, b in zip(got, want)),
+               "nmse_vs_cpu": max(nmse(a.cpu(), b) for a, b in zip(got, cpu))}
+        if not (row["fwd_nmse_vs_plain"] < TRAIN_BOUND and row["bit_equal_to_plain"]
+                and row["nmse_vs_cpu"] < TRAIN_BOUND):
+            raise AssertionError(f"K2 gradient H={H} KVH={KVH}: {row}")
+        ks, vs = (t.detach().repeat_interleave(H // KVH, dim=1).requires_grad_() for t in (k, v))
+        qs = q.detach().requires_grad_()
+        sdpa = lambda: torch.autograd.grad(F.scaled_dot_product_attention(  # noqa: E731
+            qs, ks, vs, is_causal=True, scale=scale), (qs, ks, vs), g)
+        with torch.no_grad():
+            row["fwd_ms"] = timer(lambda: ops.causal_flash_attn(q, k, v, pos), iters=10)
+        row["fwd_bwd_ms"] = timer(fwd_bwd, iters=10)
+        row["plain_fwd_bwd_ms"] = timer(plain, iters=10)
+        row["sdpa_fwd_bwd_ms"] = timer(sdpa, iters=10)
+        row["trace"], row["plain_trace"] = trace_device(fwd_bwd), trace_device(plain)
+        # what forward + backward needs: QK^T and PV forward, dV, dP, dQ and
+        # dK backward, each over the N(N+1)/2 unmasked scores at pos 0, 2
+        # operations per multiply-add (the backward's recompute of the
+        # forward is the port's choice, not counted); q, k, v and g read,
+        # o, dq, dk and dv written once
+        row["flops"] = 12.0 * D * H * (N * (N + 1) // 2)
+        nbytes = 2 * 4 * (2 * q.numel() + 2 * k.numel())
+        row["bound_ms"], row["bound_by"] = bound(nbytes, row["flops"], "f32")
+        out[f"H={H} KVH={KVH}"] = row
+    return out
+
+
+def _tree_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def forward_cnn_tf32(params, x):
+    """mnist.forward_cnn with its two convolutions through F.conv2d, outside
+    the conv ops' pins: under PyTorch's default flags their forward and
+    backward round through TF32. The control that ADAM_BOUND and
+    TRAIN_BOUND must fail."""
+    b, hw = x.shape[0], mnist.HW
+    h = x.reshape(b, 1, hw, hw)
+    for i in (1, 2):
+        h = F.conv2d(h, params[f"conv{i}_k"], padding=(1, 1))
+        h = ops.relu(h + params[f"conv{i}_b"][None, :, None, None])
+        h = ops.pool_2d(h, "max", (2, 2), (2, 2))
+    return h.reshape(b, -1) @ params["dense_w"].T + params["dense_b"]
+
+
+def _loss_grads(fwd, params, x, y) -> list:
+    live = tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss = mnist.loss_fn(fwd)(live, x, y)
+    return [loss.detach()] + list(torch.autograd.grad(loss, tree_leaves(live)))
+
+
+def mnist_steps(arch, X, Y, device, fwd=None) -> dict:
+    """3 train steps at MNIST_BATCH card vs CPU through `fwd` (the arch's
+    forward by default): the loss and every gradient of each step on the
+    card at the CPU's params (max nmse over the leaves, per step), and the
+    params after the card's own 3 steps against the CPU's (max nmse over
+    the leaves). For the leaf furthest apart: its elements, how many
+    differ at all and by more than alpha / 1000, the largest difference;
+    at the elements over alpha / 1000 the CPU's first moment |m| (the
+    gradients' running mean; largest and median) and the largest of their
+    smallest |gradient| over the steps, each beside its median over the
+    leaf."""
+    fwd, B = fwd or mnist.FORWARD[arch], MNIST_BATCH
+    hp = AdamWParams()
+    step = make_train_step(mnist.loss_fn(fwd), hp, 1)
+    batches = [(torch.from_numpy(X[ib * B:(ib + 1) * B]), torch.from_numpy(Y[ib * B:(ib + 1) * B]))
+               for ib in range(3)]
+    ends, grads, moments, cpu_grads = [], [], None, []
+    for side, dev in enumerate((torch.device("cpu"), device)):
+        p = mnist.INIT[arch](0, dev)
+        st, acc = adamw_init(p), tree_map(torch.zeros_like, p)
+        for ib, (x, y) in enumerate(batches):
+            if side == 0:
+                ref = _loss_grads(fwd, p, x, y)
+                cpu_grads.append(dict(zip(p, ref[1:])))
+                got = _loss_grads(fwd, tree_map(lambda t: t.to(device), p), x.to(device),
+                                  y.to(device))
+                grads.append(max(nmse(a.cpu(), b) for a, b in zip(got, ref)))
+            p, st, acc, _ = step(p, st, acc, ib, x.to(dev), y.to(dev))
+        ends.append(p)
+        if side == 0:
+            moments = st["m"]
+    apart = {name: nmse(ends[1][name].cpu(), ref) for name, ref in ends[0].items()}
+    name = max(apart, key=apart.get)
+    diff = (ends[1][name].cpu() - ends[0][name]).abs().flatten()
+    m = moments[name].abs().flatten()
+    g = torch.stack([step_grads[name].abs().flatten() for step_grads in cpu_grads])
+    big = diff > hp.alpha / 1000
+    there = big.any()
+    worst = {"leaf": name, "elements": diff.numel(), "differ": int((diff > 0).sum()),
+             "over_alpha_1e-3": int(big.sum()), "max_abs_diff": float(diff.max()),
+             "m_abs_max_there": float(m[big].max()) if there else None,
+             "m_abs_median_there": float(m[big].median()) if there else None,
+             "m_abs_median": float(m.median()),
+             "g_abs_min_over_steps_max_there": float(g.min(0).values[big].max()) if there else None,
+             "g_abs_median": float(g.median())}
+    return {"grads_nmse_vs_cpu": grads, "params": ends[1], "steps_nmse_vs_cpu": apart[name],
+            "worst_leaf": worst}
+
+
+def mnist_check(device, timer) -> dict:
+    """MNIST fc and cnn at the reference's widths on MNIST_IMAGES synthetic
+    images, with PyTorch's default flags: 3 train steps at MNIST_BATCH card
+    vs CPU (mnist_steps: each step's gradients < TRAIN_BOUND, the params
+    after the steps < ADAM_BOUND; for the cnn the same through
+    forward_cnn_tf32, which must exceed both); a step timed; `train` for MNIST_EPOCHS with
+    val_split 0.05 to MNIST_ACC on MNIST_TEST held-out images; the GGUF
+    round trip; `fit` for one epoch with a checkpoint directory, then a
+    fresh call to MNIST_EPOCHS, bit-equal to `train`."""
+    X, Y = mnist.synthetic_mnist(MNIST_IMAGES, seed=0)
+    Xt, Yt = mnist.synthetic_mnist(MNIST_TEST, seed=1)
+    B = MNIST_BATCH
+    out = {}
+    for arch in ("fc", "cnn"):
+        fwd = mnist.FORWARD[arch]
+        step = make_train_step(mnist.loss_fn(fwd), AdamWParams(), 1)
+        r = mnist_steps(arch, X, Y, device)
+        p = r.pop("params")
+        if not (max(r["grads_nmse_vs_cpu"]) < TRAIN_BOUND and r["steps_nmse_vs_cpu"] < ADAM_BOUND):
+            raise AssertionError(f"mnist {arch} card vs CPU: gradients per step "
+                                 f"{r['grads_nmse_vs_cpu']} (bound {TRAIN_BOUND}), params after "
+                                 f"3 steps {r['steps_nmse_vs_cpu']} (bound {ADAM_BOUND})")
+        if arch == "cnn":
+            tf32 = mnist_steps(arch, X, Y, device, fwd=forward_cnn_tf32)
+            r["tf32_grads_nmse_vs_cpu"] = tf32["grads_nmse_vs_cpu"]
+            r["tf32_steps_nmse_vs_cpu"] = tf32["steps_nmse_vs_cpu"]
+            r["tf32_worst_leaf"] = tf32["worst_leaf"]
+            if device.type == "cuda" and not (min(tf32["grads_nmse_vs_cpu"]) > TRAIN_BOUND
+                                              and tf32["steps_nmse_vs_cpu"] > ADAM_BOUND):
+                raise AssertionError(f"mnist cnn: the TF32 control passed the bounds "
+                                     f"(gradients {tf32['grads_nmse_vs_cpu']}, params "
+                                     f"{tf32['steps_nmse_vs_cpu']}): they do not separate")
+        x, y = torch.from_numpy(X[:B]).to(device), torch.from_numpy(Y[:B]).to(device)
+        st, acc = adamw_init(p), tree_map(torch.zeros_like, p)
+        r["step_device_ms"] = timer(lambda: step(p, st, acc, 0, x, y), iters=10)
+        _, wall = _timed(lambda: [step(p, st, acc, 0, x, y) for _ in range(20)])
+        r["step_ms"] = wall / 20 * 1e3
+        r["images_per_s"] = B / (wall / 20)
+        kw = dict(n_epochs=MNIST_EPOCHS, batch_size=B, val_split=0.05, seed=0, verbose=False)
+        (params, res), r["train_s"] = _timed(lambda: mnist.train(arch, X, Y, device=device, **kw))
+        r["train_loss"], r["val_acc"] = res.train_loss, res.val_acc
+        r["accuracy"] = mnist.evaluate(arch, params, Xt, Yt)
+        if not r["accuracy"] > MNIST_ACC[arch]:
+            raise AssertionError(f"mnist {arch}: accuracy {r['accuracy']} after "
+                                 f"{MNIST_EPOCHS} epochs (want > {MNIST_ACC[arch]})")
+        path = ROOT / "build" / f"smoke_mnist_{arch}.gguf"
+        mnist.save_gguf(arch, params, path)
+        arch2, back = mnist.load_gguf(path, device=device)
+        path.unlink()
+        if not (arch2 == arch and mnist.evaluate(arch, back, Xt, Yt) == r["accuracy"]):
+            raise AssertionError(f"mnist {arch}: the GGUF round trip changed the accuracy")
+        ck = ROOT / "build" / f"smoke_ckpt_{arch}"
+        shutil.rmtree(ck, ignore_errors=True)
+
+        def run(n_epochs):
+            return fit(mnist.loss_fn(fwd), mnist.INIT[arch](0, device),
+                       Dataset(X.astype(np.float32), Y.astype(np.float32)),
+                       hp=AdamWParams(alpha=1e-3), accuracy_fn=mnist.accuracy_fn(fwd),
+                       checkpoint_dir=str(ck), **dict(kw, n_epochs=n_epochs))
+
+        run(1)
+        resumed, rres = run(MNIST_EPOCHS)
+        shutil.rmtree(ck)
+        r["resume_bit_equal"] = _tree_equal(params, resumed) and rres.train_loss == res.train_loss
+        if not r["resume_bit_equal"]:
+            raise AssertionError(f"mnist {arch}: the resumed fit differs from the straight one")
+        out[arch] = r
+    return out
+
+
+def gpt2_loss(cfg):
+    """cross_entropy_loss(forward_train(x), one_hot(y)), the one-hot built
+    on the labels' device."""
+    def f(params, x, y):
+        onehot = torch.zeros(*y.shape, cfg.n_vocab, device=y.device).scatter_(
+            -1, y[..., None], 1.0)
+        return ops.cross_entropy_loss(gpt2.forward_train(cfg, params, x), onehot)
+    return f
+
+
+def gpt2_train_flops(cfg, tokens: int, seq: int) -> float:
+    """Operations (2 per multiply-add) of one forward + backward as
+    formulated: each matrix (the tied head included) once forward and
+    twice backward over the tokens, and the materialised attention's two
+    products over full S x S scores, likewise three times."""
+    D = cfg.n_embd
+    mats = cfg.n_layer * 12 * D * D + cfg.n_vocab * D
+    attn = cfg.n_layer * 2 * 2 * seq * D * tokens
+    return 3 * (2.0 * mats * tokens + attn)
+
+
+def gpt2_check(device, timer) -> dict:
+    """GPT-2 124M (GPT2_124M, OpenAI's gpt2 config.json; f32, weights from
+    gpt2.random_params) trained on GPT2_SEQS synthetic sequences: at full
+    width cut to GPT2_CHECK, the loss and every gradient card vs CPU (and
+    two equal card passes bit-equal); `fit` at GPT2_BATCH x n_ctx tokens
+    with GPT2_PERIOD micro-batches a step, one epoch (finite losses, the
+    last below the first), run twice for bit-equal params; ms per
+    micro-batch, tokens/s, peak memory, one micro-batch traced;
+    cross_entropy_loss's forward + backward at the run's shape beside
+    F.cross_entropy's."""
+    cfg = gpt2.GPT2Config(**GPT2_124M)
+    S, V = cfg.n_ctx, cfg.n_vocab
+    rng = np.random.default_rng(50)
+    ids = rng.choice(V, GPT2_IDS, replace=False)
+    seqs = ids[rng.integers(0, GPT2_IDS, (GPT2_SEQS, S + 1))].astype(np.int64)
+    loss_fn = gpt2_loss(cfg)
+    out = {"flops_per_micro_batch": gpt2_train_flops(cfg, GPT2_BATCH * S, S)}
+    out["bound_ms"] = out["flops_per_micro_batch"] / PEAK["f32"] * 1e3
+
+    n_layer, T = GPT2_CHECK
+    small = dataclasses.replace(cfg, n_layer=n_layer)
+    pc = gpt2.random_params(small, seed=51, device="cpu")
+    x, y = torch.from_numpy(seqs[:1, :T]), torch.from_numpy(seqs[:1, 1:T + 1])
+
+    def grads(p, dev):
+        live = tree_map(lambda t: t.to(dev).requires_grad_(), p)
+        loss = gpt2_loss(small)(live, x.to(dev), y.to(dev))
+        return [loss.detach()] + list(torch.autograd.grad(loss, tree_leaves(live)))
+
+    got, again, ref = grads(pc, device), grads(pc, device), grads(pc, "cpu")
+    out["check_bit_equal_twice"] = all(torch.equal(a, b) for a, b in zip(got, again))
+    out["check_nmse"] = [nmse(a.cpu(), b) for a, b in zip(got, ref)]
+    if not (out["check_bit_equal_twice"] and max(out["check_nmse"]) < GPT2_TRAIN_BOUND):
+        raise AssertionError(f"gpt2 {n_layer} layers card vs CPU: loss and gradient nmse "
+                             f"{out['check_nmse']}, two passes bit-equal "
+                             f"{out['check_bit_equal_twice']}")
+    del got, again, ref, pc
+
+    params, out["init_s"] = _timed(lambda: gpt2.random_params(cfg, seed=52, device=device))
+    out["params"] = sum(t.numel() for t in tree_leaves(params))
+    losses = []
+
+    def recorded(p, bx, by):
+        loss = loss_fn(p, bx, by)
+        losses.append(loss.detach())
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(2):
+        losses.clear()
+        ds = Dataset(seqs[:, :-1], seqs[:, 1:])
+        (trained, _), wall = _timed(lambda: fit(recorded, params, ds, GPT2_BATCH,
+                                                opt_period=GPT2_PERIOD, verbose=False))
+        runs.append((trained, torch.stack(losses).tolist(), wall))
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["losses"] = runs[1][1]
+    out["micro_batches"] = len(out["losses"])
+    out["adamw_steps"] = out["micro_batches"] // GPT2_PERIOD
+    out["deterministic"] = _tree_equal(runs[0][0], runs[1][0]) and runs[0][1] == runs[1][1]
+    out["fit_s"] = [r[2] for r in runs]
+    out["ms_per_micro_batch"] = runs[1][2] / out["micro_batches"] * 1e3
+    out["tokens_per_s"] = out["micro_batches"] * GPT2_BATCH * S / runs[1][2]
+    ls = out["losses"]
+    if not (all(np.isfinite(ls)) and ls[-1] < ls[0] and out["deterministic"]):
+        raise AssertionError(f"gpt2 training: losses {ls}, two runs bit-equal "
+                             f"{out['deterministic']}")
+    del runs
+
+    step = make_train_step(loss_fn, AdamWParams(), GPT2_PERIOD)
+    p = tree_map(torch.clone, params)
+    st, acc = adamw_init(p), tree_map(torch.zeros_like, p)
+    bx = torch.from_numpy(seqs[:GPT2_BATCH, :-1]).to(device)
+    by = torch.from_numpy(seqs[:GPT2_BATCH, 1:]).to(device)
+    step(p, st, acc, 0, bx, by)
+    _, ms = _timed(lambda: step(p, st, acc, 1, bx, by))
+    out["micro_batch_with_step_ms"] = ms * 1e3
+    out["trace"] = trace_device(lambda: step(p, st, acc, 1, bx, by))
+    t = out["trace"]
+    out["busy_share"] = (t["busy_ms"] / out["micro_batch_with_step_ms"]
+                         if t["busy_ms"] is not None else None)
+    del p, st, acc
+    logits = torch.randn(GPT2_BATCH, S, V, device=device, requires_grad=True)
+    onehot = torch.zeros(GPT2_BATCH, S, V, device=device).scatter_(-1, by[..., None], 1.0)
+    out["cross_entropy_fwd_bwd_ms"] = timer(lambda: torch.autograd.grad(
+        ops.cross_entropy_loss(logits, onehot), logits), iters=5, warmup=1)
+    out["library_cross_entropy_fwd_bwd_ms"] = timer(lambda: torch.autograd.grad(
+        F.cross_entropy(logits.view(-1, V), by.reshape(-1)), logits), iters=5, warmup=1)
+    return out
+
+
+def training_phase(device) -> dict:
+    """The training phase (k2_grad_check, mnist_check, gpt2_check), each
+    under PyTorch's default flags; no counted kernel launches across the
+    MNIST and GPT-2 runs."""
+    t0 = time.perf_counter()
+    timer = Timer(device)
+    with torch_default_flags():
+        out = {"k2_grad": k2_grad_check(device, timer)}
+        kernels.reset_launches()
+        out["mnist"] = mnist_check(device, timer)
+        out["gpt2"] = gpt2_check(device, timer)
+        out["launches"] = launches()
+    if _nonzero(out["launches"]):
+        raise AssertionError(f"the MNIST and GPT-2 runs launched {_nonzero(out['launches'])}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # phase 3, by name (--checks)
 CHECKS = {"qmm": check_qmm, "attention": check_attention, "q6k": check_q6k,
           "q8_0": check_q8_0, "q4_0": check_q4_0, "q5k": check_q5k,
@@ -3807,7 +4204,8 @@ def main(argv=None) -> int:
     ap.add_argument("--paths", default=None,
                     help="comma-separated main paths of phase 6 (default: all), "
                          "'quantize' for phase 7, 'families' (or mixtral, gpt2_large, gptj) "
-                         "for phase 8, 'vision' for phase 9; a run cut by --checks or --paths "
+                         "for phase 8, 'vision' for phase 9, 'training' for phase 10; a run "
+                         "cut by --checks or --paths "
                          "skips phases 4 and 5 and prints no result line")
     args = ap.parse_args(argv)
     checks = [] if args.checks == "none" else args.checks.split(",")
@@ -4096,7 +4494,7 @@ def main(argv=None) -> int:
                     f"recorded (first divergence, None = equal) {ev['recorded']}")
         log(f"families phase {fams['seconds']:.1f} s")
     vision = None
-    if not (HAS_VISION or partial):
+    if not HAS_VISION and (not partial or "vision" in asked):
         raise AssertionError("models/yolo.py, sam.py or magika.py is missing: the vision "
                              "phase cannot run")
     if HAS_VISION and (not partial or "vision" in asked):
@@ -4131,6 +4529,54 @@ def main(argv=None) -> int:
             f"{mg['files_per_s_batch1']:.1f} files/s one by one, "
             f"{mg['files_per_s_batch']:.1f} files/s in one batch of {mg['files']}")
         log(f"vision phase {vision['seconds']:.1f} s, launches {_nonzero(vision['launches'])}")
+    training = None
+    if not HAS_TRAINING and (not partial or "training" in asked):
+        raise AssertionError("training/ or models/mnist.py is missing: the training phase "
+                             "cannot run")
+    if HAS_TRAINING and (not partial or "training" in asked):
+        training = training_phase(device)
+        for case, row in training["k2_grad"].items():
+            log(f"training: K2 gradient B=1 {case} N=M={K2_GRAD_N} D=128 pos 0 [{label}]: "
+                f"forward vs K2's plain version nmse {row['fwd_nmse_vs_plain']:.3e} (max abs "
+                f"{row['fwd_max_abs_err']:.3e}); dq/dk/dv == autograd through _causal_ref on "
+                f"the card, nmse vs CPU {row['nmse_vs_cpu']:.3e}; K2 forward "
+                f"{row['fwd_ms']:.4f} ms, forward + backward {row['fwd_bwd_ms']:.4f} ms (plain "
+                f"recompute {row['plain_fwd_bwd_ms']:.4f}, SDPA {row['sdpa_fwd_bwd_ms']:.4f}; "
+                f"bound {row['bound_ms']:.4f} by {row['bound_by']}, "
+                f"{row['flops'] / 1e9:.3f} GFLOP); traced busy {row['trace']['busy_ms']} ms, busiest "
+                f"{row['trace']['top_ms'][:4]}; plain {row['plain_trace']['busy_ms']} ms, "
+                f"busiest {row['plain_trace']['top_ms'][:4]}")
+        for arch, r in training["mnist"].items():
+            log(f"training: MNIST {arch} [{label}]: 3 steps at batch {MNIST_BATCH} card vs CPU: "
+                f"loss and gradients at equal params nmse "
+                f"{[f'{e:.3e}' for e in r['grads_nmse_vs_cpu']]}, params after the steps "
+                f"{r['steps_nmse_vs_cpu']:.3e}, worst leaf {r['worst_leaf']}"
+                + (f" (TF32 convs, the control: gradients "
+                   f"{[f'{e:.3e}' for e in r['tf32_grads_nmse_vs_cpu']]}, params "
+                   f"{r['tf32_steps_nmse_vs_cpu']:.3e}, worst leaf {r['tf32_worst_leaf']})"
+                   if "tf32_steps_nmse_vs_cpu" in r else "")
+                + f"; step {r['step_ms']:.3f} ms host ({r['step_device_ms']:.3f} device), "
+                f"{r['images_per_s']:.0f} images/s; train {MNIST_EPOCHS} epochs on "
+                f"{MNIST_IMAGES} images {r['train_s']:.2f} s, accuracy {r['accuracy']:.4f} on "
+                f"{MNIST_TEST} held out; GGUF round trip equal; resume bit-equal")
+        g2 = training["gpt2"]
+        t = g2["trace"]
+        log(f"training: GPT-2 124M ({g2['params']} parameters, f32) [{label}]: "
+            f"{GPT2_CHECK[0]} layers x {GPT2_CHECK[1]} tokens card vs CPU max nmse "
+            f"{max(g2['check_nmse']):.3e} (loss and every gradient), two passes bit-equal; fit "
+            f"{g2['micro_batches']} micro-batches of {GPT2_BATCH}x{GPT2_124M['n_ctx']} tokens "
+            f"({g2['adamw_steps']} AdamW steps): losses {[round(x, 4) for x in g2['losses']]}, "
+            f"{g2['ms_per_micro_batch']:.1f} ms per micro-batch, {g2['tokens_per_s']:.0f} "
+            f"tokens/s (f32 bound {g2['bound_ms']:.1f} ms for "
+            f"{g2['flops_per_micro_batch'] / 1e12:.3f} TFLOP), two runs bit-equal, peak "
+            f"{g2['peak_mem_gb']:.2f} GB; one micro-batch with its step "
+            f"{g2['micro_batch_with_step_ms']:.1f} ms unprofiled, traced busy {t['busy_ms']} ms "
+            f"(share {g2['busy_share']}, {t['device_activities']} activities), busiest "
+            f"{t['top_ms'][:5]}; cross_entropy_loss forward + backward "
+            f"{g2['cross_entropy_fwd_bwd_ms']:.3f} ms (F.cross_entropy "
+            f"{g2['library_cross_entropy_fwd_bwd_ms']:.3f})")
+        log(f"training phase {training['seconds']:.1f} s, launches across MNIST and GPT-2 "
+            f"{_nonzero(training['launches'])}")
     rep = {"qmm_q4_K": "M=8 N=11008 K=4096",
            "qmm_q4_K_i8": "M=128 N=11008 K=4096",
            "causal_flash_attention": "decode B=8 H=32 window=1024 f32q_bf16kv",
@@ -4151,8 +4597,8 @@ def main(argv=None) -> int:
     if partial:
         detail = {"device": smi, "build_s": build_s, "build": build.BUILD_LOG,
                   "kernels": results, "row_checks": row_checks, "main_paths": paths,
-                  "quantize": quant, "families": fams, "vision": vision, "checks": checks,
-                  "partial": True}
+                  "quantize": quant, "families": fams, "vision": vision,
+                  "training": training, "checks": checks, "partial": True}
         for mp in paths.values():
             mp.pop("probe_logits", None)
         args.out.mkdir(parents=True, exist_ok=True)
@@ -4182,7 +4628,7 @@ def main(argv=None) -> int:
     detail = {"device": smi, "build_s": build_s, "build": build.BUILD_LOG,
               "kernels": results, "row_checks": row_checks, "autotune": tune,
               "main_paths": paths, "quantize": quant, "families": fams, "vision": vision,
-              "small_model": small}
+              "training": training, "small_model": small}
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke.json").write_text(json.dumps(detail, indent=1, default=str))
     log(json.dumps({"kernels": line}))

@@ -14,7 +14,7 @@ run on the card unless device="cpu" is passed. `forward_batch` serves the
 Engine (runtime/engine.py) with llama.forward_batch's contract, window
 delta included; `decode_step` replays a captured graph as
 llama.decode_step does; `forward_train` is the cache-free batched forward
-(its gradient is not ported).
+that training differentiates (training/fit.py).
 """
 from __future__ import annotations
 
@@ -174,8 +174,10 @@ def forward_batch(cfg: GPT2Config, params: dict, tokens: torch.Tensor, kv,
 def forward_train(cfg: GPT2Config, params: dict, tokens: torch.Tensor) -> torch.Tensor:
     """The batched full-sequence forward without a cache (the reference's
     training forward, :200-225; flash_attn_ext with causal_mask): tokens
-    (B, S) → logits (B, S, V) f32. Forward only: its gradient is not
-    ported."""
+    (B, S) → logits (B, S, V) f32. Differentiable in every dense float
+    param on either device: its attention is plain torch, and the
+    embeddings' gather has a deterministic backward on the card (a
+    sort-based accumulate), so two equal steps give equal gradients."""
     B, S = tokens.shape
     H, HD = cfg.n_head, cfg.head_dim
     x = _embed(cfg, params, tokens, torch.arange(S, device=tokens.device))

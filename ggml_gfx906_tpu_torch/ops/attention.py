@@ -17,6 +17,9 @@ kernel only where the cache length is a multiple of 128 and the postscale
 path elsewhere; a CUDA tensor here always takes K2, int8 K/V included.
 `causal_attn_delta` (window-delta decode) is plain torch, as the
 reference's is XLA. The reference's `force_ref` argument is not ported.
+On float K/V `causal_flash_attn` is differentiable: K2 forward, and a
+backward that recomputes `_causal_ref` (`_CausalKernel`, the reference's
+custom_vjp); the int8-K/V route raises if a gradient is asked of it.
 
 The reference's einsums with preferred_element_type=f32 are f32 matmuls
 here on operands rounded to the dot type first (bf16 at bf16 compute), so
@@ -186,14 +189,54 @@ def causal_attn_delta(q, kc, vc, kd, vd, len0, dk, dv, step: int,
     return out.reshape(B, H, N, D).to(q.dtype)
 
 
+class _CausalKernel(torch.autograd.Function):
+    """K2 with a gradient, the counterpart of the reference's custom_vjp
+    `_causal_kernel` (:228-251): the forward is K2 (its plain version on a
+    CPU tensor); the backward recomputes `_causal_ref` under autograd and
+    returns its vector-Jacobian product for q, k and v (grouped heads sum
+    into k and v through its repeat_interleave). pos, scale and the
+    softcap take no gradient, and K2 does not launch in the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pos, scale: float, logit_softcap: float):
+        ctx.save_for_backward(q, k, v, pos)
+        ctx.scale, ctx.softcap = scale, logit_softcap
+        return _fa.causal_flash_attention(q, k, v, pos, scale, logit_softcap)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v, pos = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip((q, k, v), need)]
+            out = _causal_ref(*ins, pos, ctx.scale, ctx.softcap)
+            got = iter(torch.autograd.grad(out, [t for t in ins if t.requires_grad], g))
+        return tuple(next(got) if n else None for n in need) + (None, None, None)
+
+
 def causal_flash_attn(q, k, v, pos, scale: float | None = None,
                       logit_softcap: float = 0.0, k_scale=None, v_scale=None):
     """Causal attention against a (possibly longer) KV cache: q (B, H, N, D)
     at absolute positions pos(B,)+n; k/v (B, KVH, M, D) (int8 with
     k_scale/v_scale (B, KVH, M) when the cache is quantized). Returns (B, H,
-    N, D) in q.dtype."""
+    N, D) in q.dtype.
+
+    Differentiable, as the reference's is: where a gradient is wanted,
+    float K/V take `_CausalKernel` (K2 forward, the backward recomputed
+    through `_causal_ref`); "xla" is plain torch. The int8-K/V route of K2
+    is inference-only, as in the reference, and raises if a gradient is
+    asked of it."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
     if config.get("attn_impl") == "xla":
-        if scale is None:
-            scale = 1.0 / (q.shape[-1] ** 0.5)
         return _causal_ref(q, k, v, pos, scale, logit_softcap, k_scale, v_scale)
-    return _fa.causal_flash_attention(q, k, v, pos, scale, logit_softcap, k_scale, v_scale)
+    wants_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, k_scale, v_scale))
+    if not wants_grad:
+        return _fa.causal_flash_attention(q, k, v, pos, scale, logit_softcap, k_scale, v_scale)
+    if k_scale is not None:
+        raise RuntimeError("the int8-K/V attention route is inference-only: it has no "
+                           "gradient")
+    return _CausalKernel.apply(q, k, v, _fa._pos(pos, q.shape[0], q.device), float(scale),
+                               float(logit_softcap))

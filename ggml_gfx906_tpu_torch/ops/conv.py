@@ -12,8 +12,13 @@ transpose convolutions keep torch's (IC, OC, K...) weight layout.
 The convolutions run through F.conv*d / F.conv_transpose*d (cuDNN on the
 card) in full f32, as the reference's HIGHEST-precision convolutions do:
 cuDNN rounds f32 operands through TF32 unless told not to, and its
-process-wide flag allows that by default, so each convolution turns it off
-around its own call (`_f32_convs`) whatever the caller set.
+process-wide flag allows that by default. Each convolution is a
+`_PinnedConv`: its forward runs with TF32 off, and its backward (aten's
+convolution_backward: the data and weight gradients) with TF32 off and
+cuDNN's deterministic algorithms on (benchmarking off); the caller's flags
+are restored after each. So the gradients are f32 and the same bits from
+run to run whatever the caller set, as a bit-exact resume of a training
+run needs, and the forward keeps the caller's algorithm choice.
 """
 from __future__ import annotations
 
@@ -27,27 +32,62 @@ def _tup(v, n: int) -> tuple:
     return (v,) * n if isinstance(v, int) else tuple(v)
 
 
+_F32 = {"allow_tf32": False}
+# the weight gradient sums over the batch in an order the algorithm picks:
+# a deterministic one, chosen by heuristics rather than by timing
+_F32_DETERMINISTIC = {**_F32, "deterministic": True, "benchmark": False}
+
+
 @contextlib.contextmanager
-def _f32_convs():
-    """cuDNN's TF32 flag off for the enclosed convolutions, restored after."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+def _cudnn_pins(pins: dict):
+    """cuDNN's flags set to `pins` for the enclosed convolutions, the
+    caller's restored after."""
+    cudnn = torch.backends.cudnn
+    prev = {name: getattr(cudnn, name) for name in pins}
+    for name, val in pins.items():
+        setattr(cudnn, name, val)
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        for name, val in prev.items():
+            setattr(cudnn, name, val)
 
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 _CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d}
 
 
+class _PinnedConv(torch.autograd.Function):
+    """One convolution, `fn(x, w, **kw)` (from _CONV or _CONV_T), whose
+    forward runs under `_F32` and backward under `_F32_DETERMINISTIC`:
+    autograd runs a backward after the forward's context has closed, under
+    whatever flags the caller holds then."""
+
+    @staticmethod
+    def forward(ctx, x, w, fn, transposed: bool, kw: dict):
+        ctx.save_for_backward(x, w)
+        ctx.transposed, ctx.kw = transposed, kw
+        with _cudnn_pins(_F32):
+            return fn(x, w, **kw)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        kw, dims = ctx.kw, x.ndim - 2
+        with _cudnn_pins(_F32_DETERMINISTIC):
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, kw["stride"], kw.get("padding", (0,) * dims), kw["dilation"],
+                ctx.transposed, (0,) * dims, kw.get("groups", 1),
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw, None, None, None
+
+
 def _conv(x, w, stride, padding, dilation, groups: int = 1):
     dims = x.ndim - 2
-    with _f32_convs():
-        return _CONV[dims](x.float(), w.float(), stride=_tup(stride, dims),
-                           padding=_tup(padding, dims), dilation=_tup(dilation, dims),
-                           groups=groups)
+    return _PinnedConv.apply(x.float(), w.float(), _CONV[dims], False, dict(
+        stride=_tup(stride, dims), padding=_tup(padding, dims),
+        dilation=_tup(dilation, dims), groups=groups))
 
 
 def conv_1d(x, w, stride: int = 1, padding: int = 0, dilation: int = 1):
@@ -83,8 +123,8 @@ def _conv_t(x, w, stride, dilation=1):
     missing tail is zeros, appended here."""
     dims = x.ndim - 2
     s, d = _tup(stride, dims), _tup(dilation, dims)
-    with _f32_convs():
-        out = _CONV_T[dims](x.float(), w.float(), stride=s, dilation=d)
+    out = _PinnedConv.apply(x.float(), w.float(), _CONV_T[dims], True,
+                            dict(stride=s, dilation=d))
     tail = [max(s[i] - ((w.shape[2 + i] - 1) * d[i] + 1), 0) for i in range(dims)]
     if any(tail):
         out = F.pad(out, [p for t in reversed(tail) for p in (0, t)])

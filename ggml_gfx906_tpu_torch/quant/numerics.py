@@ -24,8 +24,9 @@ F32 = torch.float32
 
 def const(v, like: torch.Tensor) -> torch.Tensor:
     """The f32 value v as a 0-d tensor on like's device (an operand that a
-    division treats as a tensor, never as a scalar)."""
-    return torch.tensor(v, dtype=F32, device=like.device)
+    division treats as a tensor, never as a scalar), made by a fill there:
+    no host-to-device copy, which would wait for the stream."""
+    return torch.full((), v, dtype=F32, device=like.device)
 
 
 def fp16_round(x: torch.Tensor) -> torch.Tensor:

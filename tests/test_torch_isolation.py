@@ -18,7 +18,7 @@ _BLOCKED = textwrap.dedent("""
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
             top = name.split(".")[0]
-            if top in ("jax", "jaxlib", "transformers") or top == "ggml_gfx906_tpu":
+            if top in ("jax", "jaxlib", "transformers", "orbax") or top == "ggml_gfx906_tpu":
                 raise ImportError(f"blocked import of {name}")
             return None
 
@@ -50,13 +50,15 @@ def test_port_imports_no_jax_and_runs_a_cpu_forward():
                   "quant.modern", "quant.iquants", "quant.registry", "models.convert",
                   "models.quantize_cli", "models.imatrix", "models.moe", "models.gpt2",
                   "models.gptj", "models.offload", "ops.recurrent", "ops.cuda.iq_search",
-                  "models.yolo", "models.sam", "models.magika", "gguf.pytree", "ops.conv"):
+                  "models.yolo", "models.sam", "models.magika", "gguf.pytree", "ops.conv",
+                  "training.opt", "training.dataset", "training.fit", "training.checkpoint",
+                  "models.mnist", "models.mnist_cli"):
             assert pkg.__name__ + "." + n in names, n
         from ggml_gfx906_tpu_torch.quant import registry
         assert registry.dequantize(GGMLTypeQ.IQ2_XXS, bytes(66), 256).shape == (1, 256)
         import chip_smoke   # the smoke script imports nothing of JAX either
-        assert not any(m.split(".")[0] in ("jax", "jaxlib", "ggml_gfx906_tpu", "transformers")
-                       for m in sys.modules)
+        assert not any(m.split(".")[0] in ("jax", "jaxlib", "ggml_gfx906_tpu", "transformers",
+                                           "orbax") for m in sys.modules)
         from ggml_gfx906_tpu_torch.models import llama
         from ggml_gfx906_tpu_torch.ops.quantized import QuantTensor
         from ggml_gfx906_tpu_torch.quant.types import BLOCK_Q4_K, GGMLType
@@ -219,3 +221,36 @@ def test_vision_entry_points_want_the_card(tmp_path):
     chip_smoke.magika_gguf(tmp_path / "magika.gguf")
     probs = magika.classify_bytes(magika.load(tmp_path / "magika.gguf", device="cpu"), b"hi")
     assert probs.shape == (113,) and abs(probs.sum() - 1) < 1e-5
+
+
+def test_training_entry_points_want_the_card(tmp_path):
+    """mnist.init_fc, init_cnn, train, load_gguf, params_from_numpy and the
+    MNIST CLI (--device cuda by default) run on the card unless asked for
+    the CPU, and raise here before reading any file; with device="cpu" /
+    --device cpu they run; fit runs where the params live."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry points would use it")
+    import numpy as np
+
+    from ggml_gfx906_tpu_torch.models import mnist, mnist_cli
+
+    absent = str(tmp_path / "absent.gguf")
+    x, y = mnist.synthetic_mnist(200, seed=0)
+    for call in (lambda: mnist.init_fc(), lambda: mnist.init_cnn(),
+                 lambda: mnist.train("fc", x, y, n_epochs=1),
+                 lambda: mnist.load_gguf(absent),
+                 lambda: mnist.params_from_numpy({"fc1_b": np.zeros(3)}),
+                 lambda: mnist_cli.main(["eval", "-m", absent]),
+                 lambda: mnist_cli.main(["train", "-o", absent, "--images", absent,
+                                         "--labels", absent])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    params, result = mnist.train("cnn", x, y, n_epochs=1, batch_size=100, verbose=False,
+                                 device="cpu")
+    assert params["conv1_k"].device.type == "cpu" and len(result.train_loss) == 1
+    out = str(tmp_path / "cnn.gguf")
+    assert mnist_cli.main(["train", "--arch", "fc", "--epochs", "1", "--synthetic-n", "200",
+                           "--batch-size", "100", "-o", out, "--device", "cpu"]) == 0
+    arch, back = mnist.load_gguf(out, device="cpu")
+    assert arch == "fc" and back["fc1_w"].device.type == "cpu"
+    assert mnist.init_fc(device="cpu")["fc1_w"].shape == (500, 784)

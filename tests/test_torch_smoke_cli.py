@@ -443,3 +443,58 @@ def test_vision_phase_runs_on_the_cpu(monkeypatch):
     assert not any(out["launches"].values())
     assert not [m for m in ("yolo", "sam", "magika")
                 if (chip_smoke.ROOT / "build" / f"smoke_{m}.gguf").exists()]
+
+
+def test_training_phase_runs_on_the_cpu(monkeypatch, capsys):
+    """The training phase end to end on the CPU at tiny sizes (the card's
+    synchronisation, memory statistics, the event timer and the trace
+    stubbed): K2's gradient at N = 16, MNIST fc and cnn on 2,000 images at
+    batch 100, a 2-layer 64-wide GPT-2 of vocab 96 on 32 sequences; its
+    outputs checked, no counted kernel launched, no file left behind; and
+    `--paths training` is taken (here it stops at the missing card)."""
+    import time
+
+    import torch
+
+    assert chip_smoke.main(["--paths", "training", "--checks", "none"]) != 0
+    assert "no CUDA device" in capsys.readouterr().err
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(chip_smoke, "trace_device", lambda fn, match=(): (fn(), {
+        "busy_ms": 1.0, "device_activities": 0, "profiled_wall_ms": 1.0, "matched_ms": 0.0,
+        "top_ms": []})[1])
+
+    class HostTimer:
+        def __init__(self, device):
+            pass
+
+        def __call__(self, fn, iters=20, warmup=3):
+            t0 = time.perf_counter()
+            fn()
+            return (time.perf_counter() - t0) * 1e3
+
+    monkeypatch.setattr(chip_smoke, "Timer", HostTimer)
+    for name, val in (("K2_GRAD_N", 16), ("MNIST_IMAGES", 2000), ("MNIST_TEST", 300),
+                      ("MNIST_BATCH", 100), ("GPT2_IDS", 16),
+                      ("GPT2_CHECK", (1, 16)),
+                      ("GPT2_124M", dict(n_vocab=96, n_ctx=32, n_embd=64, n_head=4,
+                                         n_layer=2))):
+        monkeypatch.setattr(chip_smoke, name, val)
+    out = chip_smoke.training_phase(torch.device("cpu"))
+    for row in out["k2_grad"].values():
+        assert row["bit_equal_to_plain"] and row["nmse_vs_cpu"] == 0.0 and row["flops"] > 0
+        assert row["fwd_nmse_vs_plain"] == 0.0 and row["bound_ms"] > 0
+    for arch in ("fc", "cnn"):
+        r = out["mnist"][arch]
+        assert r["steps_nmse_vs_cpu"] == 0.0 and r["resume_bit_equal"]
+        assert r["grads_nmse_vs_cpu"] == [0.0] * 3 and r["worst_leaf"]["differ"] == 0
+        assert r["accuracy"] > chip_smoke.MNIST_ACC[arch] and len(r["train_loss"]) == 2
+    assert out["mnist"]["cnn"]["tf32_steps_nmse_vs_cpu"] == 0.0
+    g2 = out["gpt2"]
+    assert g2["micro_batches"] == 8 and g2["adamw_steps"] == 4 and g2["deterministic"]
+    assert g2["losses"][-1] < g2["losses"][0] and max(g2["check_nmse"]) == 0.0
+    assert g2["flops_per_micro_batch"] > 0 and g2["cross_entropy_fwd_bwd_ms"] > 0
+    assert not any(out["launches"].values())
+    assert not [p for p in (chip_smoke.ROOT / "build").glob("smoke_*mnist*")]
+    assert not [p for p in (chip_smoke.ROOT / "build").glob("smoke_ckpt_*")]
