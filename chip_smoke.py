@@ -157,10 +157,41 @@ Phases (each failure raises, so the script exits non-zero):
      (losses finite and falling, two runs bit-equal), ms per micro-batch,
      tokens/s, peak memory, one micro-batch traced, cross_entropy_loss
      timed. No counted kernel launches across the MNIST and GPT-2 runs.
+11. parallel (parallel_phase): parallel/ on one card, a Llama-3-8B-width
+     GGUF (meta-llama/Meta-Llama-3-8B config.json: 4096, 32 heads / 8 KV,
+     14336, vocab 128256, rope θ 500000) in llama.cpp's Q4_K_M recipe at
+     SHORT_LAYERS, written under build/ and removed: (b) a real NCCL group
+     at world size 1 in this process: make_mesh(tp=1) →
+     shard_llama_params → tp_forward / tp_decode_step bit-equal to
+     llama.forward / generate, Engine(mesh=) over the 8+1 requests == the
+     mesh-free Engine, its windows captured on the NCCL mesh (at world
+     size 1 the all-reduce launches no kernel, so no collective kernel
+     sits in the graphs), launches per replay == the mesh-free engine's,
+     one steady window of each traced; then two spawned gloo processes
+     sharing cuda:0: (c) tp = 2 (each rank its half of every weight):
+     tp_forward's logits against the single-process forward's, on the f32
+     route within 1e-9 nmse at f32 compute and within the single forward's
+     own bf16-vs-f32 distance at bf16, on the default route (K3 at the
+     100-token prompt) within TP_INT8_BOUND, the greedy
+     tp_decode_step stream's first divergence from generate's, the mesh
+     Engine (uncaptured) over the 8+1 requests == the mesh's
+     tp_decode_step greedy streams at int8_min_m = 0, a decode step's ms
+     and one all-reduce's; dp = 2, tp = 1: the mesh Engine == the mesh-free
+     Engine; (d) ep = 2: Mixtral-8x7B's Q4_K expert stack (8 × 14336 ×
+     4096, top-2, 100 tokens), ep_mul_mat_id == ops.mul_mat_id bit for
+     bit; (e) sp = 2: ring_self_attention, contiguous and zigzag, at H 32 /
+     KV 8, D 128, S 4096 within 1e-10 of _causal_ref; pp = 2: pp_forward
+     with 4 micro-batches over 4 dense bf16 blocks at the file's width
+     within 2^-14 of the single-process forward. Phase 3's `tp` check holds
+     K1, K3 and K4 at the file's tp = 2 shard shapes, timed beside the
+     whole shapes. Launch counts (this process's and the ranks') are set to
+     0 before the phase and read after it. One H100 shows no multi-card
+     speedup.
 --checks and --paths cut phases 3 and 6 to the named checks and paths,
 --paths quantize runs phase 7, --paths families (or mixtral,
-gpt2_large, gptj) phase 8, --paths vision phase 9 and --paths training
-phase 10 (a cut run skips phases 4 and 5 and prints no result line).
+gpt2_large, gptj) phase 8, --paths vision phase 9, --paths training
+phase 10 and --paths parallel phase 11 (a cut run skips phases 4 and 5
+and prints no result line).
 Detailed results go to DIR/chip_smoke.json (default build/). The second-to-last
 stdout line is {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -177,6 +208,7 @@ import inspect
 import io
 import json
 import os
+import queue as queue_mod
 import shutil
 import subprocess
 import sys
@@ -230,6 +262,19 @@ try:    # the training layer and MNIST; the training phase needs them
     HAS_TRAINING = True
 except ImportError:
     HAS_TRAINING = False
+try:    # parallelism; the parallel phase needs it
+    import torch.distributed as dist
+
+    from ggml_gfx906_tpu_torch.ops import attention as attn_ops
+    from ggml_gfx906_tpu_torch.parallel import make_mesh, tp
+    from ggml_gfx906_tpu_torch.parallel.ep import ep_mul_mat_id, make_ep_mesh, shard_experts
+    from ggml_gfx906_tpu_torch.parallel.mesh import all_reduce
+    from ggml_gfx906_tpu_torch.parallel.pp import _block_apply as pp_block
+    from ggml_gfx906_tpu_torch.parallel.pp import make_pp_mesh, pp_forward, shard_pp, stack_blocks
+    from ggml_gfx906_tpu_torch.parallel.sp import ring_self_attention
+    HAS_PARALLEL = True
+except ImportError:
+    HAS_PARALLEL = False
 from ggml_gfx906_tpu_torch.runtime.batched_kv import BatchedKVCache
 from ggml_gfx906_tpu_torch.runtime.engine import Engine
 from ggml_gfx906_tpu_torch.utils import autotune, config
@@ -1203,6 +1248,8 @@ def write_gguf(path: Path, cfg: dict, n_layer: int, recipe: str,
     w.set(f"{A}.feed_forward_length", cfg["n_ff"])
     w.set(f"{A}.vocab_size", cfg["n_vocab"])
     w.set(f"{A}.attention.layer_norm_rms_epsilon", 1e-5)
+    if "rope_base" in cfg:
+        w.set(f"{A}.rope.freq_base", float(cfg["rope_base"]))
     write_vocab(w, cfg["n_vocab"])
     for name, layer, r, c in _matrices(cfg, n_layer):
         qtype = RECIPES[recipe](name, layer, n_layer)
@@ -1896,10 +1943,11 @@ def depth_checks(device, cfg, params, prompts, long_prompt, depth8) -> dict:
     return out
 
 
-def scan_window(eng) -> dict:
+def scan_window(eng, match: tuple = ()) -> dict:
     """Depth-8 scan windows of the steady-state 8-slot engine (no
     admission pending): one window captures its graph, three are timed on
-    the host clock (dispatch and harvest, synchronised), one is traced."""
+    the host clock (dispatch and harvest, synchronised), one is traced
+    (matched_ms: the device time of the kernels named by `match`)."""
     def window():
         d, aborted = eng._dispatch_window(8)
         assert aborted is None and len(d) == 1, "not a scan window"
@@ -1912,7 +1960,7 @@ def scan_window(eng) -> dict:
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     out = {"window_ms": ms / 3, "host_ms_per_token": ms / tokens, "tokens": tokens,
-           "trace": trace_device(window)}
+           "trace": trace_device(window, match)}
     busy = out["trace"]["busy_ms"]
     out["trace"]["busy_share"] = None if busy is None else busy / out["window_ms"]
     out["graphs"] = graph_stats(eng.graphs)
@@ -4184,10 +4232,563 @@ def training_phase(device) -> dict:
 
 
 # phase 3, by name (--checks)
+# ------------------------------------------------------------- parallel
+
+# Llama-3-8B at its published width (meta-llama/Meta-Llama-3-8B config.json:
+# 4096, 32 heads / 8 KV, 14336, vocab 128256, rope θ 500000, RMS eps 1e-5):
+# n_ff 14336 = 56·256 splits by column at tp = 2, where Llama-2-7B's 11008 =
+# 43·256 does not
+LLAMA3_8B = dict(n_vocab=128256, n_ctx=8192, n_embd=4096, n_head=32, n_kv_head=8,
+                 n_ff=14336, rope_base=500000.0)
+# (tp = 2 shard, whole) (N, K) of the file's products and the kernels that
+# take them: K1 at decode (M = 8 slots), K3 at a 128-row prefill chunk, K4
+# on the Q4_K_M file's Q6_K attn_v / ffn_down
+TP_SHAPES = ((((2048, 4096), (4096, 4096)), "wq rows", False),
+             (((512, 4096), (1024, 4096)), "wk / wv rows", True),
+             (((7168, 4096), (14336, 4096)), "w_gate / w_up rows", False),
+             (((4096, 2048), (4096, 4096)), "wo columns", False),
+             (((4096, 7168), (4096, 14336)), "w_down columns", True))
+# the phase's sizes: the file (Llama-3-8B at SHORT_LAYERS); ep: Mixtral-8x7B's
+# expert stack (mistralai/Mixtral-8x7B-v0.1: 8 experts of 14336 x 4096,
+# w_gate's, top-2) for ep_tokens tokens; sp: ring attention at Llama-3-8B's
+# (B, H, KV heads, S, D); pp: (dense bf16 blocks at Llama-3-8B's width,
+# micro-batches, tokens per micro-batch)
+PAR_SIZES = {"cfg": LLAMA3_8B, "layers": SHORT_LAYERS, "ep": (8, 14336, 4096),
+             "ep_tokens": 100, "sp": (1, 32, 8, 4096, 128), "pp": (4, 4, 128)}
+SP_BOUND = 1e-10                   # the reference tests/test_sp.py's bound
+# bf16 logits: the stages run the single forward's blocks at its shapes, and
+# the head's product over all micro-batches at once may round a logit one
+# bf16 ulp (up to 2^-7 relative) away from the per-micro-batch product's
+PP_BOUND = 2.0 ** -14
+# gloo tp = 2's logits on the default route (K3 at the 100-token prompt)
+# against the single forward's on the same route: the activations'
+# per-tile int8 quantization turns the all-reduce's last-bit differences
+# into whole int8 steps (8.8e-4 on the card), a quarter of the distance
+# that the int8 route itself keeps from the f32 route (3.65e-3, recorded
+# as int8_vs_f32_route_logits_nmse); a sharding fault gives O(1)
+TP_INT8_BOUND = 2e-3
+AR_REPS = 200
+
+
+def check_tp(device, timer, results):
+    """K1 (M = 8), K3 (M = 128) and K4 (M = 8, the Q6_K products) at the
+    Llama-3-8B-width file's tp = 2 shard shapes, each held against its
+    plain version (check_f32 / check_i8, rows in `results`) and timed beside
+    the whole shape it is cut from."""
+    gen = torch.Generator(device=device).manual_seed(8)
+    pairs = []
+    for (shard, whole), what, q6 in TP_SHAPES:
+        ms = {}
+        for tag, (n, k) in (("shard", shard), ("whole", whole)):
+            qs, scm, dd = random_q4k(n, k, device, gen)
+            w_dense = qmm.dequant(qs, scm, dd)
+            wbytes = n * k / 2 + n * k / 16 + n * k / 32
+            check_f32(timer, results, "K1 tp", kernels.K1,
+                      lambda x: qmm.qmm_q4_K(x, qs, scm, dd),
+                      lambda x: qmm.qmm_q4_K_plain(x, qs, scm, dd),
+                      torch.randn((8, k), device=device, generator=gen), w_dense, wbytes)
+            ms[f"K1 {tag}"] = results[-1]["ms"]
+            check_i8(timer, results, k3_launches(qs, scm, dd),
+                     torch.randn((128, k), device=device, generator=gen), w_dense, wbytes)
+            ms[f"K3 {tag}"] = results[-1]["ms"]
+            if q6:
+                nb = k // 256
+                w = (torch.randint(0, 256, (n, nb * 128), dtype=torch.uint8, device=device,
+                                   generator=gen),
+                     torch.randint(0, 256, (n, nb * 64), dtype=torch.uint8, device=device,
+                                   generator=gen),
+                     torch.randint(-128, 128, (n, nb * 16), dtype=torch.int8, device=device,
+                                   generator=gen),
+                     torch.rand((n, nb), device=device, generator=gen) * 1e-3)
+                check_f32(timer, results, "K4 tp", kernels.K4,
+                          lambda x: qmm_q6k.qmm_q6_K(x, *w),
+                          lambda x: qmm_q6k.qmm_q6_K_plain(x, *w),
+                          torch.randn((8, k), device=device, generator=gen), qmm_q6k.dequant(*w),
+                          n * k * 6.625 / 8)
+                ms[f"K4 {tag}"] = results[-1]["ms"]
+            del w_dense
+        pairs.append({"what": what, "shard": list(shard), "whole": list(whole), "ms": ms})
+        log(f"tp shard {what} {shard} vs whole {whole}: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in ms.items()))
+    return {"pairs": pairs}
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _greedy_tp(mesh, cfg, params, prompt, n_new, device) -> tuple[list, list]:
+    """prompt + n_new greedy tokens through tp_forward and tp_decode_step
+    on a fresh head-shard cache, and each step's host ms (the token read
+    back each step)."""
+    kv = tp.shard_kv(mesh, llama.make_cache(cfg, 1024, device=device), batched=False)
+    logits, kv = tp.tp_forward(mesh, cfg, params, torch.tensor(prompt, device=device), kv, 0)
+    tok = torch.argmax(logits[-1]).to(torch.int32)[None]
+    out, step_ms = list(prompt) + [int(tok[0])], []
+    for i in range(n_new - 1):
+        t0 = time.perf_counter()
+        tok, kv = tp.tp_decode_step(mesh, cfg, params, tok, kv, len(prompt) + i)
+        out.append(int(tok[0]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return out, step_ms
+
+
+def _replay_launches(eng) -> dict:
+    """Each captured window's kernel launches per replay, by window/depth/flow."""
+    return {f"{key[5]}/{key[6]}/{key[8]}": {k.name: n for k, n in g.launches}
+            for key, g in eng.graphs.graphs.items()}
+
+
+def _steady(eng, prompts):
+    """The engine with every slot decoding and no admission pending."""
+    for p in prompts:
+        eng.submit(p, 64)
+    while eng.queue or eng.pending is not None:
+        eng.step()
+    assert all(s is not None for s in eng.slots)
+
+
+@torch.inference_mode()
+def parallel_nccl(device, cfg, params, refs: dict) -> dict:
+    """Phase 11 b: a mesh at world size 1 (file:// store) in this process,
+    NCCL on the card (gloo on the CPU, where the phase is rehearsed), the
+    mesh's collectives on the capture-friendly path. tp_forward and the
+    tp_decode_step stream are bit-equal to llama.forward and generate; the
+    mesh Engine's 8+1 streams equal the mesh-free Engine's, its windows are
+    captured on the NCCL mesh (at world size 1 the all-reduce launches no
+    kernel: the capture holds no collective), their launches per replay equal
+    the mesh-free engine's, and one steady-state window is traced. Fills
+    refs with the single-process results the gloo ranks check against."""
+    init = ROOT / "build" / "smoke_nccl_init"
+    init.parent.mkdir(parents=True, exist_ok=True)
+    init.unlink(missing_ok=True)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{init}", rank=0, world_size=1)
+    out = {}
+    n_new, reqs = refs["n_new"], refs["prompts"] + [refs["long_prompt"]]
+    try:
+        mesh = make_mesh(tp=1, device=device)
+        out["backend"], out["device"] = mesh.backend, str(mesh.device)
+        sp = tp.shard_llama_params(mesh, params)
+        toks = torch.tensor(refs["prompt"], device=device)
+
+        def fwd(c, p, cache):
+            return llama.forward(c, p, toks, cache(llama.make_cache(c, 1024, device=device)),
+                                 0)[0]
+
+        single, tp1 = (lambda kv: kv), (lambda kv: tp.shard_kv(mesh, kv, batched=False))
+        ref_i8 = fwd(cfg, params, single)       # the default route: K3 at M = 100
+        if not torch.equal(tp.tp_forward(mesh, cfg, sp, toks, tp1(llama.make_cache(
+                cfg, 1024, device=device)), 0)[0], ref_i8):
+            raise AssertionError("tp=1: tp_forward differs from llama.forward")
+        # the references of the gloo ranks' tp = 2 forward, every product on
+        # the f32 route (int8_min_m = 0: the int8 route's per-tile activation
+        # quantization turns a last-bit difference of the partial sums into
+        # a whole quantization step), at bf16 and at f32 compute; their
+        # distance is what bf16 rounding alone makes
+        f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+        config.set("int8_min_m", 0)
+        try:
+            ref, ref32 = fwd(cfg, params, single), fwd(f32, params, single)
+        finally:
+            config.unset("int8_min_m")
+        out["bf16_vs_f32_logits_nmse"] = nmse(ref, ref32)
+        out["int8_vs_f32_route_logits_nmse"] = nmse(ref_i8, ref)
+        generated = llama.generate(cfg, params, refs["prompt"], n_new, max_seq=1024,
+                                   device=device)
+        stream, step_ms = _greedy_tp(mesh, cfg, sp, refs["prompt"], n_new, device)
+        if stream != generated:
+            raise AssertionError("tp=1: the tp_decode_step stream differs from generate's")
+        out["tp_decode_step_ms"] = float(np.median(step_ms))
+        base = Engine(llama, cfg, params, max_batch=8, max_seq=1024, device=device)
+        base_done = serve(base, reqs, n_new)
+        eng = Engine(llama, cfg, sp, max_batch=8, max_seq=1024, mesh=mesh)
+        _sync(device)
+        t0 = time.perf_counter()
+        done = serve(eng, reqs, n_new)
+        _sync(device)
+        out["engine_first_run_s"] = time.perf_counter() - t0
+        if done != base_done:
+            raise AssertionError("tp=1: the mesh Engine's streams differ from the mesh-free "
+                                 "Engine's")
+        out["captured"] = eng.graphs.captured
+        if device.type == "cuda" and not (eng.graphs.captured and eng.graphs.graphs):
+            raise AssertionError("NCCL tp=1: the mesh Engine's windows were not captured")
+        out["launches_per_replay"] = _replay_launches(eng)
+        if out["launches_per_replay"] != _replay_launches(base):
+            raise AssertionError(f"tp=1: launches per replay {out['launches_per_replay']}, "
+                                 f"the mesh-free engine's {_replay_launches(base)}")
+        _sync(device)
+        t0 = time.perf_counter()
+        if serve(eng, reqs, n_new) != done:
+            raise AssertionError("tp=1: the mesh Engine's second run differs")
+        _sync(device)
+        out["engine_s"] = time.perf_counter() - t0
+        out["engine_tok_s"] = sum(map(len, done)) / out["engine_s"]
+        out["graphs"] = graph_stats(eng.graphs)
+        del base, eng
+        gc.collect()
+        for name, mk in (("mesh_free_window", lambda: Engine(llama, cfg, params, max_batch=8,
+                                                             max_seq=1024, device=device)),
+                         ("nccl_window", lambda: Engine(llama, cfg, sp, max_batch=8,
+                                                        max_seq=1024, mesh=mesh))):
+            e = mk()
+            _steady(e, refs["prompts"])
+            out[name] = scan_window(e, ("nccl", "Nccl"))
+            del e
+            gc.collect()
+        refs.update(logits=ref.float().cpu(), logits_f32=ref32.cpu(),
+                    logits_int8_route=ref_i8.float().cpu(), generate=generated,
+                    engine=base_done, bf16_nmse=out["bf16_vs_f32_logits_nmse"])
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def _ar_ms(mesh, device, width: int) -> float:
+    """ms of one all-reduce of a decode step's (1, width) bf16 sublayer
+    output on the tp group, host clock over AR_REPS synchronised calls."""
+    t = torch.randn((1, width), device=device).to(torch.bfloat16)
+    for _ in range(10):
+        all_reduce(t, mesh.groups["tp"])
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(AR_REPS):
+        all_reduce(t, mesh.groups["tp"])
+    _sync(device)
+    return (time.perf_counter() - t0) / AR_REPS * 1e3
+
+
+def _load(path: Path, device):
+    cfg, params = llama.load(path, device=device)
+    return dataclasses.replace(cfg, compute_dtype=torch.bfloat16), params
+
+
+@torch.inference_mode()
+def gloo_tp2(device, path: Path, refs: dict) -> dict:
+    """Phase 11 c at tp = 2: this rank's half of every weight; tp_forward's
+    logits against the single-process forward's on the f32 route
+    (int8_min_m = 0), at f32 compute within the reference test's 1e-9 and
+    at bf16 within the distance bf16 rounding itself makes (the single
+    forward at bf16 against f32: the tp sums add two roundings a layer to
+    the many every activation takes); on the default route (K3 for the
+    100-token prompt) within TP_INT8_BOUND; the greedy tp_decode_step
+    stream's first divergence from generate's, the mesh Engine (uncaptured) over the 8+1
+    requests == the mesh's tp_decode_step greedy streams, every request (at
+    int8_min_m = 0: the flood and a lone prompt on one route), the time of a
+    decode step and of one all-reduce."""
+    out = {}
+    mesh = make_mesh(tp=2, device=device, backend="gloo")
+    cfg, full = _load(path, device)
+    params = tp.shard_llama_params(mesh, full)
+    del full
+    gc.collect()
+    out["weights_gb"] = sum(t.nbytes if isinstance(t, QuantTensor)
+                            else t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    n_new, reqs = refs["n_new"], refs["prompts"] + [refs["long_prompt"]]
+    toks = torch.tensor(refs["prompt"], device=device)
+
+    def logits_nmse(c, key):
+        kv = tp.shard_kv(mesh, llama.make_cache(c, 1024, device=device), batched=False)
+        return nmse(tp.tp_forward(mesh, c, params, toks, kv, 0)[0].float().cpu(), refs[key])
+
+    config.set("int8_min_m", 0)
+    try:
+        for c, key, want in ((dataclasses.replace(cfg, compute_dtype=torch.float32),
+                              "logits_f32", 1e-9), (cfg, "logits", refs["bf16_nmse"])):
+            out[key + "_nmse"], out[key + "_bound"] = logits_nmse(c, key), want
+            if not out[key + "_nmse"] < want:
+                raise AssertionError(f"gloo tp=2: {key} nmse {out[key + '_nmse']:.3e} over "
+                                     f"the bound {want:.3e}")
+    finally:
+        config.unset("int8_min_m")
+    out["logits_int8_route_nmse"] = logits_nmse(cfg, "logits_int8_route")
+    out["logits_int8_route_bound"] = TP_INT8_BOUND
+    if not out["logits_int8_route_nmse"] < TP_INT8_BOUND:
+        raise AssertionError(f"gloo tp=2: int8-route logits nmse "
+                             f"{out['logits_int8_route_nmse']:.3e} over {TP_INT8_BOUND}")
+    stream, step_ms = _greedy_tp(mesh, cfg, params, refs["prompt"], n_new, device)
+    out["first_divergence_vs_generate"] = first_divergence(stream, refs["generate"])
+    out["decode_step_ms"] = float(np.median(step_ms))
+    out["all_reduce_ms"] = _ar_ms(mesh, device, cfg.n_embd)
+    out["all_reduces_per_step"] = 2 * cfg.n_layer
+    out["all_reduce_share"] = (out["all_reduce_ms"] * out["all_reduces_per_step"]
+                               / out["decode_step_ms"])
+    if device.type == "cuda":
+        kv = tp.shard_kv(mesh, llama.make_cache(cfg, 1024, device=device), batched=False)
+        tok = torch.tensor([stream[-1]], device=device)
+        t = out["decode_step_trace"] = trace_device(
+            lambda: tp.tp_decode_step(mesh, cfg, params, tok, kv, 0), ("Memcpy", "memcpy"))
+        t["busy_share"] = None if t["busy_ms"] is None else t["busy_ms"] / out["decode_step_ms"]
+    config.set("int8_min_m", 0)
+    try:
+        eng = Engine(llama, cfg, params, max_batch=8, max_seq=1024, mesh=mesh)
+        _sync(device)
+        t0 = time.perf_counter()
+        done = serve(eng, reqs, n_new)
+        _sync(device)
+        out["engine_s"] = time.perf_counter() - t0
+        out["engine_captured"] = eng.graphs.captured
+        greedy = [_greedy_tp(mesh, cfg, params, p, n_new, device)[0][len(p):] for p in reqs]
+    finally:
+        config.unset("int8_min_m")
+    bad = [len(p) for p, a, b in zip(reqs, done, greedy) if a != b]
+    if bad or eng.graphs.captured:
+        raise AssertionError(f"gloo tp=2: engine streams differ from tp_decode_step's for "
+                             f"prompt lengths {bad} (captured {eng.graphs.captured})")
+    out["engine_tok_s"] = sum(map(len, done)) / out["engine_s"]
+    out["engine_asserted"] = [len(p) for p in reqs]
+    del eng, params
+    gc.collect()
+    return out
+
+
+@torch.inference_mode()
+def gloo_dp2(device, path: Path, refs: dict) -> dict:
+    """Phase 11 c at dp = 2, tp = 1: every weight on both ranks, four slots
+    each; the mesh Engine's 8+1 streams == the mesh-free Engine's."""
+    mesh = make_mesh(dp=2, device=device, backend="gloo")
+    cfg, params = _load(path, device)
+    params = tp.shard_llama_params(mesh, params)
+    reqs = refs["prompts"] + [refs["long_prompt"]]
+    eng = Engine(llama, cfg, params, max_batch=8, max_seq=1024, mesh=mesh)
+    done = serve(eng, reqs, refs["n_new"])
+    if done != refs["engine"]:
+        raise AssertionError("gloo dp=2: the mesh Engine's streams differ from the mesh-free "
+                             "Engine's")
+    _sync(device)
+    t0 = time.perf_counter()
+    serve(eng, reqs, refs["n_new"])
+    _sync(device)
+    s = time.perf_counter() - t0
+    out = {"engine_s": s, "engine_tok_s": sum(map(len, done)) / s,
+           "slots_per_rank": eng.kv.lengths.shape[0]}
+    del eng, params
+    gc.collect()
+    return out
+
+
+def _timed_ms(fn, device) -> tuple[object, float]:
+    _sync(device)
+    t0 = time.perf_counter()
+    r = fn()
+    _sync(device)
+    return r, (time.perf_counter() - t0) * 1e3
+
+
+@torch.inference_mode()
+def gloo_ep2(device, sizes: dict) -> dict:
+    """Phase 11 d: an expert stack of Q4_K weights over ep = 2 (half the
+    experts per rank), top-2 routing of bf16 tokens: ep_mul_mat_id ==
+    ops.mul_mat_id bit for bit (each output row has one non-zero partial)."""
+    mesh = make_ep_mesh(2, device=device, backend="gloo")
+    gen = torch.Generator(device=device).manual_seed(21)
+    (E, N, K), T = sizes["ep"], sizes["ep_tokens"]
+    experts = [QuantTensor(GGMLType.Q4_K, (N, K), dict(zip(("qs", "scm", "dd"),
+                                                           random_q4k(N, K, device, gen))))
+               for _ in range(E)]
+    x = torch.randn((T, 2, K), device=device, generator=gen).to(torch.bfloat16)
+    ids = torch.rand((T, E), device=device, generator=gen).topk(2, dim=1).indices
+    local = shard_experts(mesh, experts)
+    ep_mul_mat_id(mesh, local, x, ids)
+    got, ms = _timed_ms(lambda: ep_mul_mat_id(mesh, local, x, ids), device)
+    ref, ref_ms = _timed_ms(lambda: ops.mul_mat_id(experts, x, ids), device)
+    if not torch.equal(got, ref):
+        raise AssertionError(f"ep=2: ep_mul_mat_id differs from mul_mat_id (max abs "
+                             f"{float((got.float() - ref.float()).abs().max()):.3e})")
+    return {"experts": E, "local": len(local), "shape": [N, K], "tokens": T,
+            "ep_ms": ms, "single_ms": ref_ms, "equal": True}
+
+
+@torch.inference_mode()
+def gloo_sp2(device, sizes: dict) -> dict:
+    """Phase 11 e: ring_self_attention over sp = 2, contiguous and zigzag,
+    against _causal_ref (SP_BOUND)."""
+    mesh = make_mesh(sp=2, device=device, backend="gloo")
+    gen = torch.Generator(device=device).manual_seed(31)
+    B, H, KVH, S, D = sizes["sp"]
+    q = torch.randn((B, H, S, D), device=device, generator=gen)
+    k = torch.randn((B, KVH, S, D), device=device, generator=gen)
+    v = torch.randn((B, KVH, S, D), device=device, generator=gen)
+    ref, ref_ms = _timed_ms(lambda: attn_ops._causal_ref(q, k, v, 0, 1.0 / D ** 0.5, 0.0), device)
+    out = {"shape": list(sizes["sp"]), "bound": SP_BOUND, "causal_ref_ms": ref_ms}
+    for schedule in ("contiguous", "zigzag"):
+        got, ms = _timed_ms(lambda: ring_self_attention(mesh, q, k, v, schedule=schedule), device)
+        e = nmse(got, ref)
+        if not e < SP_BOUND:
+            raise AssertionError(f"sp=2 {schedule}: nmse {e:.3e} over {SP_BOUND}")
+        out[schedule] = {"nmse": e, "ms": ms}
+    return out
+
+
+def _dense_blocks(cfg, device, gen) -> dict:
+    """Dense bf16 llama params at cfg's width, N(0, 0.02) from `gen`, norms ones."""
+    D, FF, KVD = cfg.n_embd, cfg.n_ff, cfg.n_kv_head * cfg.head_dim
+
+    def w(r, c):
+        return (torch.randn((r, c), device=device, generator=gen) * 0.02).to(torch.bfloat16)
+
+    one = torch.ones(D, dtype=torch.bfloat16, device=device)
+    return {"wte": w(cfg.n_vocab, D), "out_norm": one, "blocks": [
+        {"attn_norm": one, "wq": w(D, D), "wk": w(KVD, D), "wv": w(KVD, D), "wo": w(D, D),
+         "ffn_norm": one, "w_gate": w(FF, D), "w_up": w(FF, D), "w_down": w(D, FF)}
+        for _ in range(cfg.n_layer)]}
+
+
+@torch.inference_mode()
+def gloo_pp2(device, sizes: dict) -> dict:
+    """Phase 11 e: pp_forward over pp = 2 stages, dense bf16 blocks at the
+    file's width, against the single-process forward of the same blocks per
+    micro-batch (PP_BOUND; whether bit-equal is recorded)."""
+    mesh = make_pp_mesh(2, device=device, backend="gloo")
+    layers, micro, seq = sizes["pp"]
+    cfg = llama.LlamaConfig(n_layer=layers, compute_dtype=torch.bfloat16, **sizes["cfg"])
+    gen = torch.Generator(device=device).manual_seed(41)
+    params = _dense_blocks(cfg, device, gen)
+    toks = torch.randint(0, cfg.n_vocab, (micro, seq), device=device, generator=gen)
+    sharded = shard_pp(mesh, stack_blocks(params))
+    pp_forward(mesh, cfg, sharded, toks, micro)
+    got, ms = _timed_ms(lambda: pp_forward(mesh, cfg, sharded, toks, micro), device)
+
+    def single():
+        outs = []
+        for m in range(micro):
+            x = params["wte"][toks[m:m + 1]]
+            for blk in params["blocks"]:
+                x = pp_block(cfg, blk, x)
+            outs.append(ops.rms_norm(x, cfg.rms_eps) * params["out_norm"] @ params["wte"].T)
+        return torch.cat(outs)
+
+    ref, ref_ms = _timed_ms(single, device)
+    e = nmse(got, ref)
+    if not e < PP_BOUND:
+        raise AssertionError(f"pp=2: nmse {e:.3e} over {PP_BOUND}")
+    return {"layers": layers, "micro_batches": micro, "seq": seq, "nmse": e,
+            "bit_equal": bool(torch.equal(got, ref)), "pp_ms": ms, "single_ms": ref_ms}
+
+
+def _gloo_rank(rank: int, init: str, device: str, path: str, refs: dict, sizes: dict, q):
+    """One of phase 11's two gloo ranks (a spawned process; on the card both
+    on cuda:0): c, d and e in order, the results (or the traceback) put on
+    q. Its launch counts start at 0 and are returned."""
+    try:
+        device = torch.device(device)
+        if device.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            torch.cuda.set_device(device)
+        else:
+            torch.set_num_threads(1)
+        dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank, world_size=2)
+        try:
+            out = {"tp2": gloo_tp2(device, Path(path), refs),
+                   "dp2": gloo_dp2(device, Path(path), refs),
+                   "ep2": gloo_ep2(device, sizes), "sp2": gloo_sp2(device, sizes),
+                   "pp2": gloo_pp2(device, sizes), "launches": launches()}
+        finally:
+            dist.destroy_process_group()
+        q.put((rank, out))
+    except BaseException:
+        import traceback
+
+        q.put((rank, traceback.format_exc()))
+
+
+def run_gloo_ranks(device, path: Path, refs: dict, sizes: dict, timeout_s: float = 900) -> list:
+    """Phase 11 c-e in two spawned processes on one gloo world (sharing the
+    card); raises on a rank's failure; every process is joined, or
+    terminated."""
+    init = ROOT / "build" / "smoke_gloo_init"
+    init.unlink(missing_ok=True)
+    ctx = torch.multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    dev = "cuda:0" if device.type == "cuda" else "cpu"
+    procs = [ctx.Process(target=_gloo_rank, args=(r, str(init), dev, str(path), refs, sizes, q))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    res, deadline = {}, time.monotonic() + timeout_s
+    try:
+        while len(res) < 2:
+            try:
+                rank, r = q.get(timeout=5)
+                res[rank] = r
+            except queue_mod.Empty:
+                # a rank that raised put its traceback; one that died did not
+                died = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if died or time.monotonic() > deadline:
+                    raise AssertionError(f"gloo ranks: results from {sorted(res)} only "
+                                         f"(exit codes {[p.exitcode for p in procs]})")
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    errors = [f"rank {k}:\n{v}" for k, v in sorted(res.items()) if isinstance(v, str)]
+    if errors:
+        raise AssertionError("\n".join(errors))
+    return [res[0], res[1]]
+
+
+def parallel_phase(device, sizes: dict | None = None) -> dict:
+    """Phase 11 (module docstring): the file of `sizes` (PAR_SIZES: the
+    Llama-3-8B-width Q4_K_M file at SHORT_LAYERS) on a mesh, at world size
+    1 in this process, then two gloo ranks sharing the card (tp = 2, dp =
+    2, ep = 2, sp = 2, pp = 2). The launch counts are set to 0 just before
+    and read just after, this process's and the ranks' added."""
+    sizes = sizes or PAR_SIZES
+    t_phase = time.perf_counter()
+    out = {"layers": sizes["layers"], "source": "meta-llama/Meta-Llama-3-8B config.json"}
+    path = ROOT / "build" / f"smoke_llama3_q4_k_m_L{sizes['layers']}.gguf"
+    t0 = time.perf_counter()
+    write_gguf(path, sizes["cfg"], sizes["layers"], "q4_k_m")
+    out["gguf_write_s"] = time.perf_counter() - t0
+    out["gguf_gb"] = path.stat().st_size / 1e9
+    cfg, params = _load(path, device)
+    assert (cfg.n_kv_head, cfg.n_ff, cfg.rope_base, cfg.n_vocab) == tuple(
+        sizes["cfg"][k] for k in ("n_kv_head", "n_ff", "rope_base", "n_vocab"))
+    out["weights_gb"] = sum(t.nbytes if isinstance(t, QuantTensor)
+                            else t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    rng = np.random.default_rng(11)
+    refs = {"prompt": [int(t) for t in rng.integers(1, cfg.n_vocab, 100)],
+            "prompts": [[int(t) for t in rng.integers(1, cfg.n_vocab, n)] for n in PARITY_LENS],
+            "long_prompt": [int(t) for t in rng.integers(1, cfg.n_vocab, 300)],
+            "n_new": N_NEW}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out["nccl"] = parallel_nccl(device, cfg, params, refs)
+    out["nccl"]["seconds"] = time.perf_counter() - t0
+    mine = launches()
+    del params
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        ranks = run_gloo_ranks(device, path, refs, sizes)
+    finally:
+        path.unlink()
+    out["gloo_seconds"] = time.perf_counter() - t0
+    for key in ("tp2", "dp2", "ep2", "sp2", "pp2"):
+        out[key] = ranks[0][key]
+        out[key + "_rank1"] = ranks[1][key]
+    out["launches"] = {k: mine[k] + ranks[0]["launches"][k] + ranks[1]["launches"][k]
+                       for k in mine}
+    missing = [k.name for k in (kernels.K1, kernels.K2, kernels.K3, kernels.K4)
+               if out["launches"][k.name] == 0]
+    if device.type == "cuda" and missing:
+        raise AssertionError(f"parallel: kernels never launched on its path: {missing}")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 CHECKS = {"qmm": check_qmm, "attention": check_attention, "q6k": check_q6k,
           "q8_0": check_q8_0, "q4_0": check_q4_0, "q5k": check_q5k,
           "legacy": check_legacy, "q23k": check_q23k, "pipe": check_pipe,
-          "dma": check_dma, "families": check_family_shapes, "iq_search": check_iq_search}
+          "dma": check_dma, "families": check_family_shapes, "iq_search": check_iq_search,
+          "tp": check_tp}
 
 
 def main(argv=None) -> int:
@@ -4204,7 +4805,8 @@ def main(argv=None) -> int:
     ap.add_argument("--paths", default=None,
                     help="comma-separated main paths of phase 6 (default: all), "
                          "'quantize' for phase 7, 'families' (or mixtral, gpt2_large, gptj) "
-                         "for phase 8, 'vision' for phase 9, 'training' for phase 10; a run "
+                         "for phase 8, 'vision' for phase 9, 'training' for phase 10, "
+                         "'parallel' for phase 11; a run "
                          "cut by --checks or --paths "
                          "skips phases 4 and 5 and prints no result line")
     args = ap.parse_args(argv)
@@ -4577,6 +5179,51 @@ def main(argv=None) -> int:
             f"{g2['library_cross_entropy_fwd_bwd_ms']:.3f})")
         log(f"training phase {training['seconds']:.1f} s, launches across MNIST and GPT-2 "
             f"{_nonzero(training['launches'])}")
+    parallel = None
+    if not HAS_PARALLEL and (not partial or "parallel" in asked):
+        raise AssertionError("parallel/ is missing: the parallel phase cannot run")
+    if HAS_PARALLEL and (not partial or "parallel" in asked):
+        parallel = parallel_phase(device)
+        nc, t2, d2 = parallel["nccl"], parallel["tp2"], parallel["dp2"]
+        log(f"parallel: Llama-3-8B width, {parallel['layers']} layers, Q4_K_M "
+            f"({parallel['gguf_gb']:.2f} GB file, {parallel['weights_gb']:.2f} GB on the card) "
+            f"[{label}; one H100: NCCL at world size 1, gloo with two processes on one card; "
+            f"no multi-card figure]")
+        log(f"  NCCL tp=1: tp_forward == llama.forward, tp_decode_step stream == generate, "
+            f"mesh Engine == mesh-free Engine (8+1 requests), windows captured on the "
+            f"NCCL mesh ({nc['graphs']['graphs']} graphs; at world size 1 the all-reduce "
+            f"launches no kernel), launches per replay == the mesh-free engine's "
+            f"{nc['launches_per_replay']}; engine {nc['engine_tok_s']:.1f} tok/s; depth-8 "
+            f"window {nc['nccl_window']['window_ms']:.3f} ms (NCCL kernels "
+            f"{nc['nccl_window']['trace']['matched_ms']:.3f} ms, busy "
+            f"{nc['nccl_window']['trace']['busy_ms']} ms) against "
+            f"{nc['mesh_free_window']['window_ms']:.3f} ms mesh-free; tp_decode_step "
+            f"{nc['tp_decode_step_ms']:.3f} ms")
+        log(f"  gloo tp=2: logits nmse vs the single-process forward on the f32 route at "
+            f"f32 {t2['logits_f32_nmse']:.3e} (bound 1e-9), at bf16 {t2['logits_nmse']:.3e} "
+            f"(bound: bf16 vs f32 of the single forward, {t2['logits_bound']:.3e}); on the "
+            f"int8 route {t2['logits_int8_route_nmse']:.3e} (bound {TP_INT8_BOUND}; the single "
+            f"forward's int8 route vs "
+            f"its f32 route {nc['int8_vs_f32_route_logits_nmse']:.3e}); greedy stream's "
+            f"first divergence from generate "
+            f"{t2['first_divergence_vs_generate']}, engine == tp_decode_step streams for "
+            f"{t2['engine_asserted']} (uncaptured: {not t2['engine_captured']}), "
+            f"{t2['engine_tok_s']:.1f} tok/s; decode step {t2['decode_step_ms']:.3f} ms, "
+            f"all-reduce {t2['all_reduce_ms']:.4f} ms x {t2['all_reduces_per_step']} = share "
+            f"{t2['all_reduce_share']:.3f}; {t2['weights_gb']:.2f} GB of weights per rank")
+        log(f"  gloo dp=2: engine == mesh-free engine, {d2['engine_tok_s']:.1f} tok/s, "
+            f"{d2['slots_per_rank']} slots per rank")
+        e2, s2, p2 = parallel["ep2"], parallel["sp2"], parallel["pp2"]
+        log(f"  ep=2: {e2['experts']} experts {e2['shape']} Q4_K, {e2['tokens']} tokens top-2: "
+            f"== mul_mat_id bit for bit; {e2['ep_ms']:.3f} ms (mul_mat_id {e2['single_ms']:.3f})")
+        log(f"  sp=2 at {s2['shape']}: contiguous nmse {s2['contiguous']['nmse']:.3e} "
+            f"{s2['contiguous']['ms']:.2f} ms, zigzag nmse {s2['zigzag']['nmse']:.3e} "
+            f"{s2['zigzag']['ms']:.2f} ms (_causal_ref {s2['causal_ref_ms']:.2f} ms)")
+        log(f"  pp=2: {p2['layers']} bf16 blocks, {p2['micro_batches']} micro-batches of "
+            f"{p2['seq']} tokens: nmse {p2['nmse']:.3e} (bit-equal {p2['bit_equal']}), "
+            f"{p2['pp_ms']:.2f} ms (single {p2['single_ms']:.2f})")
+        log(f"parallel phase {parallel['seconds']:.1f} s (gloo ranks "
+            f"{parallel['gloo_seconds']:.1f} s), launches {_nonzero(parallel['launches'])}")
     rep = {"qmm_q4_K": "M=8 N=11008 K=4096",
            "qmm_q4_K_i8": "M=128 N=11008 K=4096",
            "causal_flash_attention": "decode B=8 H=32 window=1024 f32q_bf16kv",
@@ -4598,7 +5245,8 @@ def main(argv=None) -> int:
         detail = {"device": smi, "build_s": build_s, "build": build.BUILD_LOG,
                   "kernels": results, "row_checks": row_checks, "main_paths": paths,
                   "quantize": quant, "families": fams, "vision": vision,
-                  "training": training, "checks": checks, "partial": True}
+                  "training": training, "parallel": parallel, "checks": checks,
+                  "partial": True}
         for mp in paths.values():
             mp.pop("probe_logits", None)
         args.out.mkdir(parents=True, exist_ok=True)
@@ -4611,7 +5259,7 @@ def main(argv=None) -> int:
     log(f"q4_k int8 layout vs kernel layout [{label}]: one decode step's logits nmse "
         f"{int8_nmse:.3e}")
     runs = ([tune] + list(paths.values()) + ([quant] if quant else [])
-            + ([fams[n] for n in fam_names] if fams else [])
+            + ([fams[n] for n in fam_names] if fams else []) + [parallel]
             + [mp[k] for mp in paths.values() for k in ("graphs", "pipeline", "tools") if k in mp])
     line = []
     for kern in kernels.KERNELS:
@@ -4628,7 +5276,7 @@ def main(argv=None) -> int:
     detail = {"device": smi, "build_s": build_s, "build": build.BUILD_LOG,
               "kernels": results, "row_checks": row_checks, "autotune": tune,
               "main_paths": paths, "quantize": quant, "families": fams, "vision": vision,
-              "training": training, "small_model": small}
+              "training": training, "parallel": parallel, "small_model": small}
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke.json").write_text(json.dumps(detail, indent=1, default=str))
     log(json.dumps({"kernels": line}))

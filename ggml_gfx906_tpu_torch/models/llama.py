@@ -39,6 +39,7 @@ import torch
 from .. import ops
 from ..gguf import GGUFReader
 from ..ops.quantized import QuantTensor, apply_weights_layout, embed_rows, qmatmul
+from ..parallel.mesh import all_reduce
 from ..quant.types import GGMLType, TYPE_TRAITS
 from ..runtime.kv_cache import KVCache
 from ..runtime.graphs import GraphCache
@@ -243,11 +244,19 @@ def _rope(cfg: LlamaConfig, x, pos):
                         freq_scale=cfg.rope_freq_scale)
 
 
-def _block_ffn(blk, x, eps):
+def _tp_sum(t: torch.Tensor, tp_group) -> torch.Tensor:
+    """A row-parallel product's partial sums added over the tensor-parallel
+    group, in place (the reference's psum over tp_axis, :263-271): the
+    compute dtype is summed as it is, bf16 included, as gloo and NCCL both
+    add it. No group: t as it is."""
+    return t if tp_group is None else all_reduce(t, tp_group)
+
+
+def _block_ffn(blk, x, eps, tp_group=None):
     h2 = _rms(x, blk["ffn_norm"], eps)
     gate = ops.silu(qmatmul(h2, blk["w_gate"]))
     up = qmatmul(h2, blk["w_up"])
-    return x + qmatmul(gate * up, blk["w_down"])
+    return x + _tp_sum(qmatmul(gate * up, blk["w_down"]), tp_group)
 
 
 def _positions(tokens: torch.Tensor, start):
@@ -293,10 +302,15 @@ def attend(kv, li, q, k, v, start, pos_b=None, attn_window=None, window_delta=No
     return att.transpose(1, 2).reshape(B, S, H * HD)
 
 
-def _layers(cfg, blocks, x, kv: KVCache, start, pos_b, pos, ffn=_block_ffn):
+def _layers(cfg, blocks, x, kv: KVCache, start, pos_b, pos, ffn=_block_ffn, tp_group=None):
     """x (S, D) through `blocks`, block i on layer i of `kv`; `ffn(blk, x,
-    eps)` is the residual FFN sublayer (the dense SwiGLU here, the routed
-    experts in models/moe.py)."""
+    eps, tp_group)` is the residual FFN sublayer (the dense SwiGLU here, the
+    routed experts in models/moe.py).
+
+    tp_group: the tensor-parallel process group when the blocks are this
+    rank's shards (parallel/tp.py): the heads and FFN rows are local (H and
+    KVH come from the local weight shapes) and the outputs of wo and w_down
+    are summed over the group before each residual add."""
     S = x.shape[0]
     HD = cfg.head_dim
     for li, blk in enumerate(blocks):
@@ -309,8 +323,8 @@ def _layers(cfg, blocks, x, kv: KVCache, start, pos_b, pos, ffn=_block_ffn):
         q = _rope(cfg, q, pos)
         k = _rope(cfg, k, pos)
         att = attend(kv, li, q[None], k[None], v[None], start, pos_b)
-        x = x + qmatmul(att[0], blk["wo"])
-        x = ffn(blk, x, cfg.rms_eps)
+        x = x + _tp_sum(qmatmul(att[0], blk["wo"]), tp_group)
+        x = ffn(blk, x, cfg.rms_eps, tp_group)
     return x
 
 
@@ -321,25 +335,28 @@ def _head(cfg, params: dict, x) -> torch.Tensor:
 
 
 def _forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor, kv: KVCache,
-             start, ffn=_block_ffn) -> torch.Tensor:
+             start, ffn=_block_ffn, tp_group=None) -> torch.Tensor:
     """`forward` without advancing kv.length (the body a captured decode
     step runs: it reads its position from a device buffer)."""
     pos_b, pos = _positions(tokens, start)
     x = embed_rows(params["wte"], tokens).to(cfg.compute_dtype)
-    return _head(cfg, params, _layers(cfg, params["blocks"], x, kv, start, pos_b, pos, ffn))
+    return _head(cfg, params, _layers(cfg, params["blocks"], x, kv, start, pos_b, pos, ffn,
+                                      tp_group))
 
 
 def forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
-            kv: KVCache, start) -> tuple[torch.Tensor, KVCache]:
+            kv: KVCache, start, tp_group=None) -> tuple[torch.Tensor, KVCache]:
     """tokens (S,) at absolute positions [start, start+S) → (logits (S, V)
     f32, kv). The cache is updated in place. `start` is a host int or a
-    one-element int tensor on the device (read there, with no host copy)."""
-    return _forward(cfg, params, tokens, kv, start), kv.advance(tokens.shape[0])
+    one-element int tensor on the device (read there, with no host copy).
+    tp_group: as in `_layers` (params and kv are then this rank's shards)."""
+    return (_forward(cfg, params, tokens, kv, start, tp_group=tp_group),
+            kv.advance(tokens.shape[0]))
 
 
 def forward_batch(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
                   kv, start: torch.Tensor, attn_window: int | None = None,
-                  window_delta=None, ffn=_block_ffn):
+                  window_delta=None, ffn=_block_ffn, tp_group=None):
     """Batched serving forward: tokens (B, S) at per-slot positions
     start (B,) against a BatchedKVCache or PagedKVCache → (logits (B, S,
     V) f32, kv).
@@ -356,7 +373,7 @@ def forward_batch(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
     [0, len0) with the delta rows [0, step] (ops.causal_attn_delta).
     Returns (logits, delta) instead of (logits, kv) (reference :329-400).
 
-    ffn: the residual FFN sublayer, as in `_layers`."""
+    ffn, tp_group: as in `_layers`."""
     B, S = tokens.shape
     HD = cfg.head_dim
     dev = tokens.device
@@ -373,8 +390,8 @@ def forward_batch(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
         k = _rope(cfg, k, pos)
         att = attend(kv, li, q, k, v, start, attn_window=attn_window,
                      window_delta=window_delta)
-        x = x + qmatmul(att, blk["wo"])
-        x = ffn(blk, x, cfg.rms_eps)
+        x = x + _tp_sum(qmatmul(att, blk["wo"]), tp_group)
+        x = ffn(blk, x, cfg.rms_eps, tp_group)
     return _head(cfg, params, x), (kv if window_delta is None else window_delta[0])
 
 

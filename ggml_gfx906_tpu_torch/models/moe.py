@@ -99,8 +99,12 @@ def _moe_ffn(cfg: MoEConfig, blk: dict, h2: torch.Tensor) -> torch.Tensor:
 
 def block_ffn(cfg: MoEConfig):
     """The residual FFN sublayer of llama._layers / forward_batch for an
-    expert block: x + experts(rms_norm(x)), over any leading shape."""
-    def ffn(blk, x, eps):
+    expert block: x + experts(rms_norm(x)), over any leading shape.
+    tp_group is taken and not used: parallel/tp.py's rules leave the router
+    and the experts replicated, so every rank computes the whole sublayer
+    (the reference's forward_batch takes tp_axis and adds nothing over it,
+    :131-171); expert parallelism is parallel/ep.py."""
+    def ffn(blk, x, eps, tp_group=None):
         h2 = _llama._rms(x, blk["ffn_norm"], eps)
         return x + _moe_ffn(cfg, blk, h2.reshape(-1, x.shape[-1])).reshape(x.shape)
     return ffn

@@ -102,6 +102,11 @@ _DEQUANT = {GGMLType.Q4_K: _qmm.dequant, GGMLType.Q6_K: _qmm_q6k.dequant,
 # each type's fields in its dequantization's argument order; Q8_1 and Q8_K
 # have no kernel in either package and only the "wire" layout
 _FIELDS = {**dispatch.FIELDS, GGMLType.Q8_1: ("qs", "d"), GGMLType.Q8_K: ("qs", "d")}
+# the weights per column of each type's first field (its quants: two per
+# byte of packed nibbles, four of 2-bit planes, one of int8)
+_K_PER_COL = {GGMLType.Q4_K: 2, GGMLType.Q5_K: 2, GGMLType.Q6_K: 2, GGMLType.Q4_0: 2,
+              GGMLType.Q4_1: 2, GGMLType.Q5_0: 2, GGMLType.Q5_1: 2, GGMLType.Q2_K: 4,
+              GGMLType.Q3_K: 4, GGMLType.Q8_0: 1, GGMLType.Q8_1: 1, GGMLType.Q8_K: 1}
 
 
 def _wire_fields(qtype: GGMLType, raw: torch.Tensor) -> dict:
@@ -245,6 +250,24 @@ class QuantTensor:
     @property
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self.fields.values())
+
+    def localize(self) -> "QuantTensor":
+        """The logical shape rebound to the fields' own, for fields cut
+        from a larger weight (parallel/mesh.py::shard_quant_tensor returns
+        its shards so): the kernels and dequantization read the shard's
+        shape (the reference's localize, quantized.py:385-409). Both axes
+        come from the fields, so a column shard's K is its own part of K:
+        the reference takes K from the logical shape (its comment says only
+        N is ever sharded, while its tp.py splits wo and w_down by column)."""
+        if self.layout == "int8":
+            w8t = self.fields["w8t"]          # rows on axis 1, K-tiles on axis 0
+            shp = (w8t.shape[1], w8t.shape[0] * w8t.shape[2])
+        else:
+            f = self.fields[_FIELDS[self.qtype][0]]
+            shp = (f.shape[0], f.shape[1] * _K_PER_COL[self.qtype])
+        if shp == tuple(self.shape):
+            return self
+        return QuantTensor(self.qtype, shp, self.fields, self.layout)
 
     @staticmethod
     def _layout(qtype: GGMLType, shape) -> str:

@@ -54,10 +54,15 @@ Ported: flood and chunked admission (reference :569-788, the dense, paged
 and quantized branches), the per-step and windowed pipelined `run`
 (:493-561), scan windows with the paged gather (:938-1059), the
 window-delta body (:242-267), the paged pool's page bookkeeping (:404-424,
-:790-841), first tokens on the device (:32-41, :887-918). Not ported: the
-mesh branches (`tp_prefill_batch`, `tp_absorb_temp_paged`, dp pool groups
-> 1). There is no fallback: on the card a failed flood, absorb, capture or
-replay raises, and an exhausted pool raises the reference's RuntimeError.
+:790-841), first tokens on the device (:32-41, :887-918), and the mesh
+branches (:310-357, :372-437, :687-692, :962-980): `Engine(mesh=)` runs
+the chunked prefill, the flood and the window bodies through
+parallel/tp.py on this rank's heads and slots, with one paged pool group
+per dp rank. Every rank of the mesh runs this host logic on the same
+inputs, in lockstep, and sees every slot's tokens (all-gathered over dp).
+There is no fallback: on the card a failed flood, absorb, collective,
+capture or replay raises, and an exhausted pool raises the reference's
+RuntimeError.
 
 Streams: with engine_window_delta False they equal the reference engine's
 at the same setting, at any depth, on every cache flavour (the delta
@@ -76,7 +81,9 @@ engine_window_delta defaults to False, the reference's to True: on the
 H100 the delta window is slower than the strict one (168 against 141 ms a
 depth-8 window of a 32-layer 7B-width model at attention window 256) and
 changes every stream's bits. A flood runs eagerly, not as a captured
-program.
+program. On a gloo mesh the windows run uncaptured (a CUDA graph cannot
+hold a gloo collective; chosen by the mesh's backend, `graphs.captured`),
+on an NCCL mesh they are captured with the collectives inside.
 
 Sampling: token j of a request draws its Gumbel noise under the key
 fold_in(PRNGKey(seed), j), bit for bit the reference's (runtime/sampling.py):
@@ -153,19 +160,113 @@ class _Firsts:
         return int(self._np[j])
 
 
+def decode_window(fb, kv, tok, active, noise, temps, top_ks, top_ps, window: int,
+                  depth: int, flow: str = "scan", delta: WindowDelta | None = None,
+                  slots: slice = slice(None), gather=None) -> torch.Tensor:
+    """The body of the engine's decode programs: `depth` chained decode
+    steps over the slots, each step decoding every slot, sampling, advancing
+    the lengths by the active mask and feeding the sampled tokens back
+    through `tok`; returns the (depth, B) token stack.
+
+    fb(tokens (b, 1), kv, start, attn_window=, window_delta=) → (logits,
+    kv or delta): the model's forward_batch with its cfg and params bound.
+    tok, active, temps, top_ks, top_ps: the (B,) per-slot buffers, noise
+    (depth, B, k) the steps' Gumbel draws. slots: the slots of those
+    buffers that kv holds (a mesh rank's data-parallel share; all of them
+    by default) and gather: their sampled tokens → all B (the
+    data-parallel all-gather), so `tok` gets every slot's token.
+
+    flow "step" runs on the cache as it is (the per-step path); "scan" and
+    "delta" are scan windows: on the paged pool they run on the window
+    gathered into a dense view and scatter its rows back at the end, and
+    "delta" writes the steps' K/V rows into `delta` and absorbs it once
+    (reference :235-278)."""
+    def sample(i, logits):
+        nxt = sample_batch(logits[:, 0, :], noise[i][slots], temps[slots], top_ks[slots],
+                           top_ps[slots])
+        if gather is not None:
+            nxt = gather(nxt)
+        tok.copy_(nxt)
+        return nxt
+
+    def strict(c):
+        outs = []
+        for i in range(depth):
+            logits, _ = fb(tok[slots, None], c, c.lengths, attn_window=window)
+            outs.append(sample(i, logits))
+            c.lengths.add_(active[slots])
+        return outs
+
+    def windowed(c):
+        len0 = c.lengths.clone()
+        d = delta.zero_()
+        outs = []
+        for i in range(depth):
+            logits, d = fb(tok[slots, None], c, len0 + i, attn_window=window,
+                           window_delta=(d, i, len0))
+            outs.append(sample(i, logits))
+        c.absorb_delta(d, len0, active[slots], depth)
+        return outs
+
+    steps = windowed if flow == "delta" else strict
+    if flow == "step" or not isinstance(kv, PagedKVCache):
+        return torch.stack(steps(kv))
+    dense = kv.gather_window(window)
+    starts = dense.lengths.clone()
+    outs = steps(dense)
+    kv.absorb(dense, starts, depth)
+    return torch.stack(outs)
+
+
+def prefill_batch(fb, toks, temp, starts, plens, noise, temps, top_ks, top_ps,
+                  slots: slice = slice(None), gather=None) -> tuple:
+    """A flood's prefill (reference :586-711): every slot's row of the
+    (B, s_pad) token block at `starts` into the temp cache, one
+    forward_batch at attention window s_pad, each row's first token
+    sampled on the device from its logits at plen − 1 (noise (B, k) under
+    the counter-0 keys), the temp cache's lengths set to plens. fb, slots
+    and gather as in `decode_window`. Returns (the (B,) first tokens, temp)."""
+    t = toks[slots]
+    logits, temp = fb(t, temp, starts[slots], attn_window=t.shape[1])
+    pl = plens[slots]
+    rows = logits[torch.arange(t.shape[0], device=t.device),
+                  torch.clamp(pl - 1, min=0).to(torch.int64)]
+    firsts = sample_batch(rows, noise[slots], temps[slots], top_ks[slots], top_ps[slots])
+    temp.lengths.copy_(pl)
+    return (firsts if gather is None else gather(firsts)), temp
+
+
 class Engine:
     """Continuous batching over a model module exposing forward /
     forward_batch / make_cache (models/llama.py, moe.py, gpt2.py)."""
 
     def __init__(self, model_mod, cfg, params, max_batch: int = 8,
                  max_seq: int = 1024, chunk_size: int | None = None,
-                 device=None, paged_pages: int | None = None):
+                 device=None, paged_pages: int | None = None, mesh=None):
         """paged_pages: the size in pages (of config kv_page_size positions)
         of a paged KV pool (runtime/paged_kv.py) in place of the dense
         max_batch × max_seq cache: device memory then scales with live
         tokens. Admission waits (active slots keep decoding) while the pool
-        is full. Config kv_quant makes the caches int8."""
-        self.device = dev = resolve(device)
+        is full. Config kv_quant makes the caches int8.
+
+        mesh: a dp × tp mesh (parallel/mesh.py) of which this process is one
+        rank; every rank builds its Engine with the same arguments and runs
+        the same host logic, in lockstep. params come from
+        parallel/tp.py::shard_llama_params (models/llama.py only); decode,
+        the flood and the chunked prefill run through tp.py's programs on
+        this rank's heads (KV heads / tp) and slots (max_batch / dp, the
+        slots of its dp coordinate), with the sampled tokens all-gathered
+        over dp into the (max_batch,) token vector every rank holds. The
+        paged pool factors into dp groups (reference :372-437): this rank's
+        pool is its group, paged_pages / dp pages with its own scratch page,
+        and slot b takes its pages from group b // (max_batch / dp)'s free
+        list. On an NCCL mesh the windows are captured with their
+        collectives inside; on a gloo mesh (a CUDA graph cannot hold a gloo
+        collective) the same window bodies run uncaptured, which
+        `graphs.captured` reports."""
+        self.mesh = mesh
+        dev = resolve(device) if mesh is None else mesh.device
+        self.device = dev
         dev_p = tree_device(params)
         if dev_p.type != dev.type:
             raise ValueError(f"params live on {dev_p}, engine asked for {dev}")
@@ -176,20 +277,34 @@ class Engine:
         self.max_seq = max_seq
         self.chunk_size = chunk_size or int(config.get("engine_chunk_size"))
         self.kv_quant = bool(config.get("kv_quant"))
-        self.n_kv_head = kvh = getattr(cfg, "n_kv_head", None) or cfg.n_head
+        kvh = getattr(cfg, "n_kv_head", None) or cfg.n_head
+        dp = 1 if mesh is None else mesh.size("dp")
+        tp = 1 if mesh is None else mesh.size("tp")
+        if B % dp or kvh % tp:
+            raise ValueError(f"max_batch {B} and n_kv_head {kvh} must divide by dp {dp} "
+                             f"and tp {tp}")
+        # this rank's slots of the (B,) per-slot vectors (all of them without a mesh)
+        self._bl = B // dp
+        lo = 0 if mesh is None else mesh.index("dp") * self._bl
+        self._slots = slice(lo, lo + self._bl)
+        self._kvh = kvh // tp
+        self._bind_programs()
         self.paged = paged_pages is not None
         if self.paged:
+            if paged_pages % dp:
+                raise ValueError(f"paged_pages {paged_pages} must divide by dp {dp}")
             self.page_size = int(config.get("kv_page_size"))
-            self.kv = PagedKVCache.create(cfg.n_layer, B, max_seq, kvh, cfg.head_dim,
-                                          total_pages=paged_pages, page_size=self.page_size,
-                                          dtype=cfg.compute_dtype, quant=self.kv_quant,
-                                          device=dev)
-            # host-side, deterministic free list of page ids
-            self._free_pages = list(range(paged_pages))
+            self.kv = PagedKVCache.create(cfg.n_layer, self._bl, max_seq, self._kvh,
+                                          cfg.head_dim, total_pages=paged_pages // dp,
+                                          page_size=self.page_size, dtype=cfg.compute_dtype,
+                                          quant=self.kv_quant, device=dev)
+            # host-side, deterministic free lists of group-local page ids,
+            # one per dp group (the same lists on every rank)
+            self._free_pages = [list(range(paged_pages // dp)) for _ in range(dp)]
             self._slot_pages: list[list[int]] = [[] for _ in range(B)]
         else:
-            self.kv = BatchedKVCache.create(cfg.n_layer, B, max_seq, kvh, cfg.head_dim,
-                                            dtype=cfg.compute_dtype, device=dev,
+            self.kv = BatchedKVCache.create(cfg.n_layer, self._bl, max_seq, self._kvh,
+                                            cfg.head_dim, dtype=cfg.compute_dtype, device=dev,
                                             quant=self.kv_quant)
         self.slots: list[Request | None] = [None] * B
         # host view of each slot's length INCLUDING dispatched steps (the
@@ -220,7 +335,7 @@ class Engine:
         # first tokens sampled at admission, read back with the next
         # harvest: (rid, slot, _Firsts, index into it)
         self._first_pending: list[tuple[int, int, _Firsts, int]] = []
-        self.graphs = GraphCache(dev)
+        self.graphs = GraphCache(dev, capture=mesh is None or mesh.capturable)
         # per-window wall times of the last run(): (seconds, tokens harvested)
         self.window_log: list[tuple[float, int]] = []
 
@@ -310,6 +425,37 @@ class Engine:
 
     # -- engine internals -------------------------------------------------
 
+    def _bind_programs(self):
+        """The model programs: the chunked prefill, the flood's prefill and
+        the decode window body, the model's own without a mesh, tp.py's on
+        one (reference :197-363)."""
+        import functools
+
+        if self.mesh is None:
+            fb = functools.partial(self.m.forward_batch, self.cfg, self.params)
+            self._prefill_chunk = functools.partial(self.m.forward, self.cfg, self.params)
+            self._prefill_flood = functools.partial(prefill_batch, fb)
+            self._window_body = functools.partial(decode_window, fb)
+            return
+        if not self.m.__name__.endswith("models.llama"):
+            raise ValueError("a mesh Engine serves models/llama.py (parallel/tp.py)")
+        from ..parallel import tp
+
+        args = (self.mesh, self.cfg, self.params)
+        self._prefill_chunk = functools.partial(tp.tp_forward, *args)
+        self._prefill_flood = functools.partial(tp.tp_prefill_batch, *args)
+        self._window_body = functools.partial(tp.tp_decode_window, *args)
+
+    def _local(self, b: int) -> int | None:
+        """Slot b's row in this rank's caches, None where another rank
+        holds it."""
+        lb = b - self._slots.start
+        return lb if 0 <= lb < self._bl else None
+
+    def _group(self, b: int) -> int:
+        """The paged pool group (dp coordinate) of slot b."""
+        return b // self._bl
+
     def _free_slot(self) -> int | None:
         for b, s in enumerate(self.slots):
             if s is None:
@@ -341,19 +487,20 @@ class Engine:
         self._state_dirty = True
 
     def _take_pages(self, b: int, n: int) -> list[int]:
-        pages = [self._free_pages.pop() for _ in range(n)]
+        free = self._free_pages[self._group(b)]
+        pages = [free.pop() for _ in range(n)]
         self._slot_pages[b] = pages
         return pages
 
     def _temp_cache(self, s_pad: int) -> BatchedKVCache:
-        """The flood's temp cache of s_pad positions, made once per bucket.
-        It needs no zeroing: a flood's forward writes every position
-        [0, s_pad) of every row (and every scale when quantized) before
-        its attention reads them."""
+        """The flood's temp cache of s_pad positions (this rank's slots and
+        heads), made once per bucket. It needs no zeroing: a flood's forward
+        writes every position [0, s_pad) of every row (and every scale when
+        quantized) before its attention reads them."""
         temp = self._temp_kv.get(s_pad)
         if temp is None:
             temp = self._temp_kv[s_pad] = BatchedKVCache.create(
-                self.cfg.n_layer, self.max_batch, s_pad, self.n_kv_head, self.cfg.head_dim,
+                self.cfg.n_layer, self._bl, s_pad, self._kvh, self.cfg.head_dim,
                 dtype=self.cfg.compute_dtype, device=self.device, quant=self.kv_quant)
         return temp
 
@@ -381,15 +528,15 @@ class Engine:
                and len(self.queue[0].prompt) <= self.chunk_size):
             reqs.append(self.queue.pop(0))
         if self.paged:
-            # every admitted request needs its pages up front; the flood is
-            # trimmed to what the free list seats (the rest go back to the
-            # queue's head in order)
-            seated, budget = 0, len(self._free_pages)
-            for r in reqs:
+            # every admitted request needs its pages up front, from its
+            # slot's group; the flood is trimmed to what the free lists seat
+            # (the rest go back to the queue's head in order)
+            seated, budget = 0, [len(f) for f in self._free_pages]
+            for b, r in zip(free, reqs):
                 need = -(-len(r.prompt) // self.page_size)
-                if budget < need:
+                if budget[self._group(b)] < need:
                     break
-                budget -= need
+                budget[self._group(b)] -= need
                 seated += 1
             self.queue[0:0] = reqs[seated:]
             reqs = reqs[:seated]
@@ -403,7 +550,8 @@ class Engine:
         k = min(MAX_K, self.cfg.n_vocab)
         toks = np.zeros((B, s_pad), np.int64)
         # per-slot rows, uploaded as one: admitted, plen, temp, top_k, top_p,
-        # and the admitted slots' indices (all exact in f64)
+        # and this rank's rows of the admitted slots (all exact in f64)
+        local = [lb for lb in map(self._local, slots) if lb is not None]
         vec = np.zeros((6, B), np.float64)
         vec[3], vec[4] = 1, 1
         seeds = [0] * B
@@ -411,29 +559,35 @@ class Engine:
             toks[b, :len(r.prompt)] = r.prompt
             vec[:5, b] = (1, len(r.prompt), r.temp, r.top_k, r.top_p)
             seeds[b] = r.seed
-        vec[5, :len(slots)] = slots
+        vec[5, :len(local)] = local
         noise = (gumbel_noise(seeds, [0] * B, k, dev) if any(r.temp > 0 for r in reqs)
                  else torch.zeros((B, k), device=dev))
         toks_d, vec_d = to_device(toks, dev), to_device(vec, dev)
         admitted = vec_d[0] > 0
         plens = vec_d[1].to(torch.int32)
-        idx = vec_d[5, :len(slots)].to(torch.int64)
+        idx = vec_d[5, :len(local)].to(torch.int64)
         temp = self._temp_cache(s_pad)
-        logits, temp = self.m.forward_batch(self.cfg, self.params, toks_d, temp, self._zeros,
-                                            attn_window=s_pad)
-        rows = logits[torch.arange(B, device=dev), torch.clamp(plens - 1, min=0).to(torch.int64)]
-        firsts = sample_batch(rows, noise, vec_d[2].float(), vec_d[3].to(torch.int32),
-                              vec_d[4].float())
-        temp.lengths.copy_(plens)
+        firsts, temp = self._prefill_flood(toks_d, temp, self._zeros, plens, noise,
+                                           vec_d[2].float(), vec_d[3].to(torch.int32),
+                                           vec_d[4].float())
         if self.paged:
-            pt = np.full((len(slots), self.kv.page_table.shape[1]), self.kv.scratch_page,
+            pt = np.full((len(local), self.kv.page_table.shape[1]), self.kv.scratch_page,
                          np.int32)
-            for i, (b, r) in enumerate(zip(slots, reqs)):
+            i = 0
+            for b, r in zip(slots, reqs):
                 pages = self._take_pages(b, -(-len(r.prompt) // self.page_size))
-                pt[i, :len(pages)] = pages
-            self.kv.page_table[idx] = to_device(pt, dev)
-            self.kv.absorb(temp, self._zeros, s_pad, mask=admitted)
-        else:
+                if self._local(b) is not None:
+                    pt[i, :len(pages)] = pages
+                    i += 1
+            if local:
+                self.kv.page_table[idx] = to_device(pt, dev)
+            if self.mesh is None:
+                self.kv.absorb(temp, self._zeros, s_pad, mask=admitted)
+            else:
+                from ..parallel.tp import tp_absorb_temp_paged
+
+                tp_absorb_temp_paged(self.mesh, self.kv, temp, admitted, s_pad)
+        elif local:
             absorb_temp(self.kv, temp, idx)
         # the captured graphs read this very buffer: updated in place
         self._tok.copy_(torch.where(admitted, firsts.to(self._tok.dtype), self._tok))
@@ -466,9 +620,13 @@ class Engine:
             if not self.queue or self._free_slot() is None:
                 return
             r = self.queue.pop(0)
-            self.pending = _Pending(r, self.m.make_cache(self.cfg, self.max_seq,
-                                                         device=self.device,
-                                                         quant=self.kv_quant))
+            kv = self.m.make_cache(self.cfg, self.max_seq, device=self.device,
+                                   quant=self.kv_quant)
+            if self.mesh is not None:
+                from ..parallel.tp import shard_kv
+
+                kv = shard_kv(self.mesh, kv, batched=False)
+            self.pending = _Pending(r, kv)
         p = self.pending
         r = p.req
         toks = r.prompt
@@ -476,25 +634,29 @@ class Engine:
             chunk = toks[p.done_tokens:p.done_tokens + self.chunk_size]
             padded = np.zeros(min(_bucket(len(chunk)), self.chunk_size), np.int64)
             padded[:len(chunk)] = chunk
-            logits, p.kv = self.m.forward(self.cfg, self.params,
-                                          to_device(padded, self.device), p.kv, p.done_tokens)
+            logits, p.kv = self._prefill_chunk(to_device(padded, self.device), p.kv,
+                                               p.done_tokens)
             p.done_tokens += len(chunk)
             if p.done_tokens < len(toks):
                 return
             p.first = self._first_token(logits[len(chunk) - 1], r)
         b = self._free_slot()
+        lb = self._local(b)
         if self.paged:
             need = -(-len(toks) // self.page_size)
-            if len(self._free_pages) < need:
+            free = self._free_pages[self._group(b)]
+            if len(free) < need:
                 if not any(s is not None for s in self.slots):
                     raise RuntimeError(
-                        f"paged KV pool too small: request needs {need} pages, the pool "
-                        f"has {len(self._free_pages)} free and no slot is active")
+                        f"paged KV pool too small: request needs {need} pages, its group "
+                        f"has {len(free)} free and no slot is active")
                 return
-            pages = to_device(np.asarray(self._take_pages(b, need), np.int64), self.device)
-            self.kv.set_slot(b, pages, p.kv.k, p.kv.v, len(toks), p.kv.k_d, p.kv.v_d)
-        else:
-            self.kv.set_slot(b, p.kv.k, p.kv.v, len(toks), p.kv.k_d, p.kv.v_d)
+            pages = self._take_pages(b, need)
+            if lb is not None:
+                self.kv.set_slot(lb, to_device(np.asarray(pages, np.int64), self.device),
+                                 p.kv.k, p.kv.v, len(toks), p.kv.k_d, p.kv.v_d)
+        elif lb is not None:
+            self.kv.set_slot(lb, p.kv.k, p.kv.v, len(toks), p.kv.k_d, p.kv.v_d)
         # device-ordered after the dispatched steps, before the next one:
         # the new slot's first input token
         self._tok[b:b + 1].copy_(p.first)
@@ -513,13 +675,16 @@ class Engine:
             self.slots[b] = None
             self.host_len[b] = 0
             self._state_dirty = True
-            self.kv.lengths[b:b + 1].fill_(0)
+            lb = self._local(b)
+            if lb is not None:
+                self.kv.lengths[lb:lb + 1].fill_(0)
             if self.paged:
                 # recycle the pages; the row points at the scratch page again
                 # (inactive slots still issue masked decode writes)
-                self._free_pages.extend(self._slot_pages[b])
+                self._free_pages[self._group(b)].extend(self._slot_pages[b])
                 self._slot_pages[b] = []
-                self.kv.page_table[b].fill_(self.kv.scratch_page)
+                if lb is not None:
+                    self.kv.page_table[lb].fill_(self.kv.scratch_page)
 
     def _ensure_pages(self, active: np.ndarray, lookahead: int = 1):
         """Give every active slot pages for this dispatch's write positions
@@ -534,12 +699,14 @@ class Engine:
             r = self.slots[b]
             cap = min(len(r.prompt) + r.max_new_tokens, self.max_seq) - 1
             need = min(int(self.host_len[b]) + lookahead - 1, cap) // ps + 1
+            free = self._free_pages[self._group(b)]
             while len(self._slot_pages[b]) < need:
-                if not self._free_pages:
-                    raise RuntimeError("paged KV pool exhausted mid-decode "
-                                       "(size the pool for the most live tokens)")
-                pg = self._free_pages.pop()
-                ups.append((b, len(self._slot_pages[b]), pg))
+                if not free:
+                    raise RuntimeError(f"paged KV pool group {self._group(b)} exhausted "
+                                       "mid-decode (size the pool for the most live tokens)")
+                pg = free.pop()
+                if self._local(b) is not None:
+                    ups.append((self._local(b), len(self._slot_pages[b]), pg))
                 self._slot_pages[b].append(pg)
         if ups:
             t = to_device(np.ascontiguousarray(np.asarray(ups, np.int64).T), self.device)
@@ -575,52 +742,14 @@ class Engine:
 
     def _graph(self, window: int, depth: int, flow: str = "step"):
         """The captured program of `depth` chained decode steps at
-        attention window `window`: each step decodes every slot, samples,
-        advances the lengths by the active mask and feeds the sampled
-        tokens back; its output is the (depth, B) token stack. flow "step"
-        runs on the cache as it is (the per-step path); "scan" and "delta"
-        are scan windows: on the paged pool they run on the window gathered
-        into a dense view and scatter its rows back at the end, and "delta"
-        writes the steps' K/V rows into the window delta and absorbs it once
-        (reference :235-278)."""
+        attention window `window` (`decode_window`, on a mesh
+        tp.tp_decode_window); its output is the (depth, B) token stack."""
         noise = self._noise[depth]
-        fb = self.m.forward_batch
-
-        def sample(i, logits):
-            nxt = sample_batch(logits[:, 0, :], noise[i], self._temps, self._top_ks,
-                               self._top_ps)
-            self._tok.copy_(nxt)
-            return nxt
-
-        def strict(kv):
-            outs = []
-            for i in range(depth):
-                logits, _ = fb(self.cfg, self.params, self._tok[:, None], kv, kv.lengths,
-                               attn_window=window)
-                outs.append(sample(i, logits))
-                kv.lengths.add_(self._active)
-            return outs
-
-        def delta(kv):
-            len0 = kv.lengths.clone()
-            d = self._delta[depth].zero_()
-            outs = []
-            for i in range(depth):
-                logits, d = fb(self.cfg, self.params, self._tok[:, None], kv, len0 + i,
-                               attn_window=window, window_delta=(d, i, len0))
-                outs.append(sample(i, logits))
-            kv.absorb_delta(d, len0, self._active, depth)
-            return outs
 
         def body():
-            steps = delta if flow == "delta" else strict
-            if flow == "step" or not self.paged:
-                return torch.stack(steps(self.kv))
-            dense = self.kv.gather_window(window)
-            starts = dense.lengths.clone()
-            outs = steps(dense)
-            self.kv.absorb(dense, starts, depth)
-            return torch.stack(outs)
+            return self._window_body(self.kv, self._tok, self._active, noise, self._temps,
+                                     self._top_ks, self._top_ps, window, depth, flow,
+                                     self._delta.get(depth))
 
         key = ("engine", id(self.params), self.kv.k[0].data_ptr(), self.max_batch, 1,
                window, depth, self.cfg, flow)
@@ -638,8 +767,8 @@ class Engine:
         self._upload_state(active)
         self._load_noise(depth)
         if flow == "delta" and depth not in self._delta:
-            self._delta[depth] = WindowDelta.create(self.cfg.n_layer, self.max_batch,
-                                                    self.n_kv_head, depth, self.cfg.head_dim,
+            self._delta[depth] = WindowDelta.create(self.cfg.n_layer, self._bl, self._kvh,
+                                                    depth, self.cfg.head_dim,
                                                     device=self.device)
         out = self._graph(window, depth, flow).replay()[0]
         rows = HostCopy(out)    # before the next replay overwrites it

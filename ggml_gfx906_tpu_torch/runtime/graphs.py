@@ -58,13 +58,14 @@ class StepGraph:
     """One captured program: `fn()` returns a tensor or a tuple of tensors
     (the static outputs) and may advance the `state` tensors in place."""
 
-    def __init__(self, fn, device: torch.device, state=(), pool=None, stream=None):
+    def __init__(self, fn, device: torch.device, state=(), pool=None, stream=None,
+                 capture: bool = True):
         self.fn = fn
         self.graph = None
         self.outputs: tuple | None = None
         self.launches: list = []        # (Kernel, launches per replay)
         self.capture_s = 0.0
-        if device.type == "cuda":
+        if device.type == "cuda" and capture:
             self._capture(tuple(state), pool, stream or torch.cuda.Stream(device))
 
     def _capture(self, state, pool, stream):
@@ -106,10 +107,14 @@ class StepGraph:
 
 class GraphCache:
     """The captured programs of one owner (an Engine, a KVCache), on one
-    memory pool and one warm-up stream."""
+    memory pool and one warm-up stream. capture=False keeps every program
+    a direct call on the card too: an Engine on a gloo mesh
+    (parallel/mesh.py), whose collectives a CUDA graph cannot hold, runs
+    its window bodies so, uncaptured; `captured` says which."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, capture: bool = True):
         self.device = device
+        self.captured = device.type == "cuda" and capture
         self.graphs: dict[tuple, StepGraph] = {}
         self._pool = None
         self._stream = None
@@ -120,11 +125,11 @@ class GraphCache:
         key = tuple(key) + config_key()
         g = self.graphs.get(key)
         if g is None:
-            if self.device.type == "cuda" and self._pool is None:
+            if self.captured and self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
                 self._stream = torch.cuda.Stream(self.device)
             g = self.graphs[key] = StepGraph(fn, self.device, state, self._pool,
-                                             self._stream)
+                                             self._stream, self.captured)
         return g
 
     def capture_s(self) -> float:

@@ -1,6 +1,8 @@
 """Paged KV pool: fixed-size pages + per-slot page tables, the counterpart
-of ggml_gfx906_tpu/runtime/paged_kv.py::PagedKVCache with one pool group
-(the reference's dp = 1).
+of ggml_gfx906_tpu/runtime/paged_kv.py::PagedKVCache. One pool is one of
+the reference's pool groups: a dp × tp mesh engine (runtime/engine.py)
+holds one pool per data-parallel rank, page ids group-local, where the
+reference holds the dp groups in one pool sharded on its page axis.
 
 The dense BatchedKVCache reserves max_batch × max_seq positions per layer
 up front. Here the pool holds `total_pages` pages of `page_size` positions

@@ -304,3 +304,50 @@ def sam_state(n_enc_state: int = 96, n_enc_layer: int = 4, n_enc_head: int = 12,
     import chip_smoke
 
     return chip_smoke.sam_state(n_enc_state, n_enc_layer, n_enc_head, n_img_size, seed)
+
+
+# ---------------------------------------------------- the mesh tests' model
+
+def tp_cfg(n_vocab: int = 512, n_ctx: int = 128):
+    """The reference tests/test_tp.py's CFG: 512 wide, 2 layers, GQA."""
+    return jllama.LlamaConfig(n_vocab=n_vocab, n_ctx=n_ctx, n_embd=512, n_head=4,
+                              n_kv_head=2, n_layer=2, n_ff=1024)
+
+
+def tp_qparams(cfg, seed: int = 3, scale: float = 0.05):
+    """The JAX params of tests/test_tp.py's fixture: every matrix Q4_K from
+    numpy's generator at `seed` (scale `scale`), wte dense f32, norms ones."""
+    rng = np.random.default_rng(seed)
+
+    def q(n, k):
+        return JQuantTensor.quantize(
+            GGMLType.Q4_K, (rng.standard_normal((n, k)) * scale).astype(np.float32))
+
+    D, FF, KVD = cfg.n_embd, cfg.n_ff, cfg.n_kv_head * cfg.head_dim
+    p = {"wte": jnp.asarray(rng.standard_normal((cfg.n_vocab, D)) * scale, jnp.float32),
+         "out_norm": jnp.ones((D,), jnp.float32), "blocks": []}
+    for _ in range(cfg.n_layer):
+        p["blocks"].append({
+            "attn_norm": jnp.ones((D,), jnp.float32),
+            "wq": q(D, D), "wk": q(KVD, D), "wv": q(KVD, D), "wo": q(D, D),
+            "ffn_norm": jnp.ones((D,), jnp.float32),
+            "w_gate": q(FF, D), "w_up": q(FF, D), "w_down": q(D, FF)})
+    return p
+
+
+def cfg_fields(cfg) -> dict:
+    """A JAX LlamaConfig as the port's LlamaConfig keyword arguments (f32
+    compute), picklable for the gloo ranks."""
+    return dict(n_vocab=cfg.n_vocab, n_ctx=cfg.n_ctx, n_embd=cfg.n_embd, n_head=cfg.n_head,
+                n_kv_head=cfg.n_kv_head, n_layer=cfg.n_layer, n_ff=cfg.n_ff,
+                rms_eps=cfg.rms_eps, rope_base=cfg.rope_base, rope_dims=cfg.rope_dims,
+                rope_freq_scale=cfg.rope_freq_scale)
+
+
+def jax_shard_of(arr, jmesh, coords: dict):
+    """The addressable shard of a JAX array on the device at a port rank's
+    mesh coordinates, as numpy."""
+    idx = tuple(coords.get(a, 0) for a in jmesh.axis_names)
+    dev = jmesh.devices[idx]
+    (shard,) = [s for s in arr.addressable_shards if s.device == dev]
+    return np.asarray(shard.data)

@@ -52,7 +52,8 @@ def test_port_imports_no_jax_and_runs_a_cpu_forward():
                   "models.gptj", "models.offload", "ops.recurrent", "ops.cuda.iq_search",
                   "models.yolo", "models.sam", "models.magika", "gguf.pytree", "ops.conv",
                   "training.opt", "training.dataset", "training.fit", "training.checkpoint",
-                  "models.mnist", "models.mnist_cli"):
+                  "models.mnist", "models.mnist_cli", "parallel.mesh", "parallel.tp",
+                  "parallel.ep", "parallel.sp", "parallel.pp"):
             assert pkg.__name__ + "." + n in names, n
         from ggml_gfx906_tpu_torch.quant import registry
         assert registry.dequantize(GGMLTypeQ.IQ2_XXS, bytes(66), 256).shape == (1, 256)
@@ -254,3 +255,35 @@ def test_training_entry_points_want_the_card(tmp_path):
     arch, back = mnist.load_gguf(out, device="cpu")
     assert arch == "fc" and back["fc1_w"].device.type == "cpu"
     assert mnist.init_fc(device="cpu")["fc1_w"].shape == (500, 784)
+
+
+def test_mesh_entry_points_want_the_card(tmp_path):
+    """make_mesh, make_ep_mesh and make_pp_mesh build their groups on the
+    card (NCCL) unless asked for the CPU, and raise here, where there is no
+    card; with device="cpu" they build gloo meshes. In a child process,
+    with jax and the JAX package blocked, on a one-rank gloo world."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry points would use it")
+    out = _run(f"""
+        import torch.distributed as dist
+        from ggml_gfx906_tpu_torch.parallel import make_mesh
+        from ggml_gfx906_tpu_torch.parallel.ep import make_ep_mesh
+        from ggml_gfx906_tpu_torch.parallel.pp import make_pp_mesh
+        dist.init_process_group("gloo", init_method="file://{tmp_path / 'init'}", rank=0,
+                                world_size=1)
+        for call in (make_mesh, lambda: make_ep_mesh(1), lambda: make_pp_mesh(1)):
+            try:
+                call()
+            except RuntimeError as e:
+                assert "no CUDA device" in str(e), e
+            else:
+                raise AssertionError("a mesh was made without a card")
+        meshes = [make_mesh(device="cpu"), make_ep_mesh(1, device="cpu"),
+                  make_pp_mesh(1, device="cpu")]
+        assert [m.backend for m in meshes] == ["gloo"] * 3
+        assert [m.device.type for m in meshes] == ["cpu"] * 3
+        assert meshes[1].shape == {{"dp": 1, "ep": 1}} and not meshes[0].capturable
+        dist.destroy_process_group()
+        print("meshes ok")
+    """)
+    assert "meshes ok" in out

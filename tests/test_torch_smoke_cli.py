@@ -498,3 +498,63 @@ def test_training_phase_runs_on_the_cpu(monkeypatch, capsys):
     assert not any(out["launches"].values())
     assert not [p for p in (chip_smoke.ROOT / "build").glob("smoke_*mnist*")]
     assert not [p for p in (chip_smoke.ROOT / "build").glob("smoke_ckpt_*")]
+
+
+def test_parallel_phase_runs_on_the_cpu(monkeypatch, capsys):
+    """The parallel phase end to end on the CPU at tiny sizes (the card's
+    synchronisation and traces stubbed in this process): the world-size-1
+    mesh (gloo here, NCCL on the card) bit-equal to the mesh-free forward,
+    generate and Engine; then two spawned gloo ranks: tp = 2 logits within
+    their bounds on the f32 and the int8 route and engine == tp_decode_step
+    streams, dp = 2 engine == the mesh-free engine, ep = 2 == mul_mat_id
+    bit for bit, both ring schedules and pp = 2 within their bounds; no
+    file left behind;
+    and `--paths parallel` is taken (here it stops at the missing card)."""
+    import torch
+
+    assert chip_smoke.main(["--paths", "parallel", "--checks", "none"]) != 0
+    assert "no CUDA device" in capsys.readouterr().err
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "trace_device", lambda fn, match=(): (fn(), {
+        "busy_ms": 1.0, "device_activities": 0, "profiled_wall_ms": 1.0, "matched_ms": 0.0,
+        "top_ms": []})[1])
+    monkeypatch.setattr(chip_smoke, "N_NEW", 4)
+    monkeypatch.setattr(chip_smoke, "PARITY_LENS", (3, 5, 8, 12, 16, 20, 24, 30))
+    sizes = {"cfg": dict(n_vocab=512, n_ctx=1024, n_embd=512, n_head=4, n_kv_head=2,
+                         n_ff=1024, rope_base=500000.0),
+             "layers": 2, "ep": (4, 256, 256), "ep_tokens": 40, "sp": (1, 4, 2, 64, 16),
+             "pp": (2, 2, 8)}
+    out = chip_smoke.parallel_phase(torch.device("cpu"), sizes)
+    nc = out["nccl"]
+    assert nc["backend"] == "gloo" and not nc["captured"]
+    assert nc["nccl_window"]["tokens"] == nc["mesh_free_window"]["tokens"] > 0
+    t2 = out["tp2"]
+    assert t2["logits_f32_nmse"] < 1e-9 and t2["logits_nmse"] < t2["logits_bound"]
+    assert t2["logits_int8_route_nmse"] < t2["logits_int8_route_bound"] == chip_smoke.TP_INT8_BOUND
+    assert t2["engine_asserted"] == [
+        3, 5, 8, 12, 16, 20, 24, 30, 300]
+    assert not t2["engine_captured"] and t2["all_reduces_per_step"] == 4
+    assert out["dp2"]["slots_per_rank"] == 4
+    assert out["ep2"]["equal"] and out["ep2"]["local"] == 2
+    for sched in ("contiguous", "zigzag"):
+        assert out["sp2"][sched]["nmse"] < chip_smoke.SP_BOUND
+    assert out["pp2"]["nmse"] < chip_smoke.PP_BOUND
+    assert out["tp2_rank1"]["logits_nmse"] == t2["logits_nmse"]
+    assert not list((chip_smoke.ROOT / "build").glob("smoke_llama3_*"))
+
+
+def test_tp_check_holds_the_shard_shapes():
+    """Phase 3's `tp` check takes K1, K3 and K4 at the Llama-3-8B-width
+    file's tp = 2 shard shapes beside the whole shapes they are cut from;
+    n_ff 14336 splits by column at tp = 2 on superblocks, 11008 does not."""
+    cfg = chip_smoke.LLAMA3_8B
+    D, FF = cfg["n_embd"], cfg["n_ff"]
+    KVD = cfg["n_kv_head"] * D // cfg["n_head"]
+    want = {((D // 2, D), (D, D)), ((KVD // 2, D), (KVD, D)), ((FF // 2, D), (FF, D)),
+            ((D, D // 2), (D, D)), ((D, FF // 2), (D, FF))}
+    assert {pair for pair, _, _ in chip_smoke.TP_SHAPES} == want
+    assert {pair[0] for pair, _, q6 in chip_smoke.TP_SHAPES if q6} == {(KVD // 2, D), (D, FF // 2)}
+    assert (FF // 2) % 256 == 0 and (11008 // 2) % 256 != 0
+    names = _names(chip_smoke.CHECKS["tp"].__code__)
+    assert {"check_f32", "check_i8", "k3_launches", "qmm_q6_K_plain"} <= names
