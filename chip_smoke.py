@@ -186,11 +186,31 @@ Phases (each failure raises, so the script exits non-zero):
      K1, K3 and K4 at the file's tp = 2 shard shapes, timed beside the
      whole shapes. Launch counts (this process's and the ranks') are set to
      0 before the phase and read after it. One H100 shows no multi-card
-     speedup.
+     speedup. Both groups come up through parallel/launch.py::initialize
+     (a tcp:// store on 127.0.0.1).
+ 12. utilities (utilities_phase), on phase 11's file before it is removed
+     (written here under --paths utilities): (a) tools/backend_ops.py's
+     test (every case card vs CPU within its nmse_max; each qmm case's
+     launches hold the kernel dispatch.route names), grad (f64 against
+     central differences), perf and support modes, main == 0, the text in
+     DIR/backend_ops.txt; (b) utils/perf.py's main over its op table with
+     the H100's rooflines; the simple example's two styles; (c)
+     launch.serve_model of the file, sync_model into build/ (sha256 equal
+     to the file's), a second sync_model from the cache, both timed; the
+     rebuilt file loaded and its greedy 32 tokens after the 100-token
+     prompt == the original's; local_topology on the card; (d) the
+     launches of one replayed decode step == expected_launches, a
+     trace.profile of one replayed step naming K1 and K2, and
+     dump_graph(stage="kernels") of one eager step whose K1-K4 entries
+     equal the launch counters' delta; (e) the taps of one eager forward
+     (2·n_layer + 1, the logits tap == the logits), an observer around a
+     captured decode_step raises, and a fresh capture without one launches
+     what (d) counted. Launch counts are set to 0 before the phase.
 --checks and --paths cut phases 3 and 6 to the named checks and paths,
 --paths quantize runs phase 7, --paths families (or mixtral,
 gpt2_large, gptj) phase 8, --paths vision phase 9, --paths training
-phase 10 and --paths parallel phase 11 (a cut run skips phases 4 and 5
+phase 10, --paths parallel phase 11 and --paths utilities phase 12 (a
+cut run skips phases 4 and 5
 and prints no result line).
 Detailed results go to DIR/chip_smoke.json (default build/). The second-to-last
 stdout line is {"kernels": [...]}; the last is
@@ -266,7 +286,7 @@ try:    # parallelism; the parallel phase needs it
     import torch.distributed as dist
 
     from ggml_gfx906_tpu_torch.ops import attention as attn_ops
-    from ggml_gfx906_tpu_torch.parallel import make_mesh, tp
+    from ggml_gfx906_tpu_torch.parallel import launch, make_mesh, tp
     from ggml_gfx906_tpu_torch.parallel.ep import ep_mul_mat_id, make_ep_mesh, shard_experts
     from ggml_gfx906_tpu_torch.parallel.mesh import all_reduce
     from ggml_gfx906_tpu_torch.parallel.pp import _block_apply as pp_block
@@ -275,6 +295,14 @@ try:    # parallelism; the parallel phase needs it
     HAS_PARALLEL = True
 except ImportError:
     HAS_PARALLEL = False
+try:    # the last modules (transport, launch, logger, taps, trace, perf, backend_ops)
+    from ggml_gfx906_tpu_torch.examples import simple
+    from ggml_gfx906_tpu_torch.parallel.transport import TransportClient
+    from ggml_gfx906_tpu_torch.tools import backend_ops
+    from ggml_gfx906_tpu_torch.utils import observe, perf, trace
+    HAS_UTILITIES = True
+except ImportError:
+    HAS_UTILITIES = False
 from ggml_gfx906_tpu_torch.runtime.batched_kv import BatchedKVCache
 from ggml_gfx906_tpu_torch.runtime.engine import Engine
 from ggml_gfx906_tpu_torch.utils import autotune, config
@@ -1050,17 +1078,17 @@ TRACE_PREFILL = {"q4_k_m": K3_TRACE_NAMES, "q5_k_m": (), "q4_1": (), "q5_0": (),
                  "q2_k": (), "q3_k_m": K3_TRACE_NAMES,
                  "q8_0": ("Q80I8", "XQ80", "qmm_q8_0_i8_kernel"),
                  "q4_0": ("Q40I8", "XQ40", "qmm_q4_0_i8_kernel")}
-# the kernel each (type, route) takes (ops/cuda/dispatch.py)
-KERNEL_OF = {(GGMLType.Q4_K, "f32"): kernels.K1, (GGMLType.Q4_K, "i8"): kernels.K3,
-             (GGMLType.Q6_K, "f32"): kernels.K4, (GGMLType.Q8_0, "f32"): kernels.K5,
-             (GGMLType.Q8_0, "i8"): kernels.K5_I8, (GGMLType.Q4_0, "f32"): kernels.K6,
-             (GGMLType.Q4_0, "i8"): kernels.K6_I8, (GGMLType.Q5_K, "f32"): kernels.K7,
-             (GGMLType.Q4_K, "pipe"): kernels.K10,
-             **{(t, "f32"): kern for t, kern, _ in LEGACY + Q23K}}
 
 
 def _rand_u8(rng, shape):
-    return np.frombuffer(rng.bytes(int(np.prod(shape))), np.uint8).reshape(shape)
+    """rng.bytes(n) as a uint8 array of `shape`. For n % 8 == 0 the bit
+    generator's raw 64-bit words are those bytes (Generator.bytes draws
+    whole uint32 pairs of them, low word first) and leave the generator in
+    the same state, at ~2.5x the rate: the files' bytes stay as they were."""
+    n = int(np.prod(shape))
+    if n % 8:
+        return np.frombuffer(rng.bytes(n), np.uint8).reshape(shape)
+    return rng.bit_generator.random_raw(n // 8).view(np.uint8).reshape(shape)
 
 
 def make_blocks(qtype: GGMLType, rng, n: int, k: int, random_scales: bool):
@@ -1284,7 +1312,7 @@ def expected_launches(recipe, n_layer: int, m: int, layout: str = "kernel") -> d
         if name == "token_embd":
             continue
         qtype = types(name, layer, n_layer) or types("token_embd", None, n_layer)
-        kern = KERNEL_OF[(qtype, dispatch.route(m, qtype, (r, c), cuda=True))].name
+        kern = dispatch.KERNEL_OF[(qtype, dispatch.route(m, qtype, (r, c), cuda=True))].name
         out[kern] = out.get(kern, 0) + 1
     return out
 
@@ -3108,7 +3136,7 @@ def family_launches(cfg: dict, n_layer: int, m: int) -> dict:
             continue
         qtype = family_type(cfg, name, layer, n_layer)
         rows = m * cfg["n_expert_used"] if e else m
-        kern = KERNEL_OF[(qtype, dispatch.route(rows, qtype, (r, c), cuda=True))].name
+        kern = dispatch.KERNEL_OF[(qtype, dispatch.route(rows, qtype, (r, c), cuda=True))].name
         out[kern] = out.get(kern, 0) + max(e, 1)
     return out
 
@@ -4334,6 +4362,15 @@ def _greedy_tp(mesh, cfg, params, prompt, n_new, device) -> tuple[list, list]:
     return out, step_ms
 
 
+def free_port() -> int:
+    """A TCP port of 127.0.0.1 that is free now (a store's rendezvous)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 def _replay_launches(eng) -> dict:
     """Each captured window's kernel launches per replay, by window/depth/flow."""
     return {f"{key[5]}/{key[6]}/{key[8]}": {k.name: n for k, n in g.launches}
@@ -4351,7 +4388,7 @@ def _steady(eng, prompts):
 
 @torch.inference_mode()
 def parallel_nccl(device, cfg, params, refs: dict) -> dict:
-    """Phase 11 b: a mesh at world size 1 (file:// store) in this process,
+    """Phase 11 b: a mesh at world size 1 (launch.initialize, a tcp:// store) in this process,
     NCCL on the card (gloo on the CPU, where the phase is rehearsed), the
     mesh's collectives on the capture-friendly path. tp_forward and the
     tp_decode_step stream are bit-equal to llama.forward and generate; the
@@ -4360,11 +4397,7 @@ def parallel_nccl(device, cfg, params, refs: dict) -> dict:
     kernel: the capture holds no collective), their launches per replay equal
     the mesh-free engine's, and one steady-state window is traced. Fills
     refs with the single-process results the gloo ranks check against."""
-    init = ROOT / "build" / "smoke_nccl_init"
-    init.parent.mkdir(parents=True, exist_ok=True)
-    init.unlink(missing_ok=True)
-    backend = "nccl" if device.type == "cuda" else "gloo"
-    dist.init_process_group(backend, init_method=f"file://{init}", rank=0, world_size=1)
+    launch.initialize(f"127.0.0.1:{free_port()}", 1, 0, device=device)   # NCCL on the card
     out = {}
     n_new, reqs = refs["n_new"], refs["prompts"] + [refs["long_prompt"]]
     try:
@@ -4668,7 +4701,7 @@ def gloo_pp2(device, sizes: dict) -> dict:
             "bit_equal": bool(torch.equal(got, ref)), "pp_ms": ms, "single_ms": ref_ms}
 
 
-def _gloo_rank(rank: int, init: str, device: str, path: str, refs: dict, sizes: dict, q):
+def _gloo_rank(rank: int, addr: str, device: str, path: str, refs: dict, sizes: dict, q):
     """One of phase 11's two gloo ranks (a spawned process; on the card both
     on cuda:0): c, d and e in order, the results (or the traceback) put on
     q. Its launch counts start at 0 and are returned."""
@@ -4680,7 +4713,7 @@ def _gloo_rank(rank: int, init: str, device: str, path: str, refs: dict, sizes: 
             torch.cuda.set_device(device)
         else:
             torch.set_num_threads(1)
-        dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank, world_size=2)
+        launch.initialize(addr, 2, rank, device=device)     # two ranks, one card: gloo
         try:
             out = {"tp2": gloo_tp2(device, Path(path), refs),
                    "dp2": gloo_dp2(device, Path(path), refs),
@@ -4699,12 +4732,11 @@ def run_gloo_ranks(device, path: Path, refs: dict, sizes: dict, timeout_s: float
     """Phase 11 c-e in two spawned processes on one gloo world (sharing the
     card); raises on a rank's failure; every process is joined, or
     terminated."""
-    init = ROOT / "build" / "smoke_gloo_init"
-    init.unlink(missing_ok=True)
+    addr = f"127.0.0.1:{free_port()}"
     ctx = torch.multiprocessing.get_context("spawn")
     q = ctx.Queue()
     dev = "cuda:0" if device.type == "cuda" else "cpu"
-    procs = [ctx.Process(target=_gloo_rank, args=(r, str(init), dev, str(path), refs, sizes, q))
+    procs = [ctx.Process(target=_gloo_rank, args=(r, addr, dev, str(path), refs, sizes, q))
              for r in range(2)]
     for p in procs:
         p.start()
@@ -4732,12 +4764,14 @@ def run_gloo_ranks(device, path: Path, refs: dict, sizes: dict, timeout_s: float
     return [res[0], res[1]]
 
 
-def parallel_phase(device, sizes: dict | None = None) -> dict:
+def parallel_phase(device, sizes: dict | None = None, keep_file: bool = False) -> dict:
     """Phase 11 (module docstring): the file of `sizes` (PAR_SIZES: the
     Llama-3-8B-width Q4_K_M file at SHORT_LAYERS) on a mesh, at world size
     1 in this process, then two gloo ranks sharing the card (tp = 2, dp =
     2, ep = 2, sp = 2, pp = 2). The launch counts are set to 0 just before
-    and read just after, this process's and the ranks' added."""
+    and read just after, this process's and the ranks' added. keep_file
+    leaves the file for phase 12 (out["path"], with the 100-token prompt
+    and generate's greedy stream after it in out["stream"])."""
     sizes = sizes or PAR_SIZES
     t_phase = time.perf_counter()
     out = {"layers": sizes["layers"], "source": "meta-llama/Meta-Llama-3-8B config.json"}
@@ -4769,8 +4803,12 @@ def parallel_phase(device, sizes: dict | None = None) -> dict:
     try:
         ranks = run_gloo_ranks(device, path, refs, sizes)
     finally:
-        path.unlink()
+        if not keep_file:
+            path.unlink()
     out["gloo_seconds"] = time.perf_counter() - t0
+    if keep_file:
+        out["path"] = str(path)
+        out["stream"] = {"prompt": refs["prompt"], "generate": refs["generate"]}
     for key in ("tp2", "dp2", "ep2", "sp2", "pp2"):
         out[key] = ranks[0][key]
         out[key + "_rank1"] = ranks[1][key]
@@ -4780,6 +4818,268 @@ def parallel_phase(device, sizes: dict | None = None) -> dict:
                if out["launches"][k.name] == 0]
     if device.type == "cuda" and missing:
         raise AssertionError(f"parallel: kernels never launched on its path: {missing}")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# ------------------------------------------------------ phase 12: utilities
+
+SYNC_CACHE = ROOT / "build" / "smoke_sync_cache"
+TRACE_DIR = ROOT / "build" / "smoke_trace"
+# substrings of each launch-counted kernel's device kernel names (the
+# product's kernel only: K2's combine kernel and K3's x quantization are
+# launched by the same wrapper call and not counted apart)
+KERNEL_NAMES = {kernels.K1.name: ("QK45<false>", "qmm_q4k_f32_kernel"),
+                kernels.K2.name: ("fwd_kernel",), kernels.K3.name: ("Q4KI8",),
+                kernels.K4.name: ("Q6K",)}
+
+
+def kernel_of_name(name: str) -> str | None:
+    """The launch counter of a device kernel's name among K1-K4, if any."""
+    hits = [k for k, subs in KERNEL_NAMES.items() if any(s in name for s in subs)]
+    if len(hits) > 1:
+        raise AssertionError(f"kernel {name!r} matches {hits}")
+    return hits[0] if hits else None
+
+
+def _captured_stdout(fn) -> tuple:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn()
+    return rc, buf.getvalue()
+
+
+def backend_ops_check(device, out_dir: Path) -> dict:
+    """12 a: tools/backend_ops.py's test, grad, perf and support modes on the
+    card (its full text into DIR/backend_ops.txt): main returns 0, so every
+    case is within its nmse_max of the CPU and every qmm case launched the
+    kernel its route names."""
+    rec = {}
+    t0 = time.perf_counter()
+    rc, text = _captured_stdout(lambda: backend_ops.main(
+        ["test", "grad", "perf", "support", "--verbose"], rec))
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "backend_ops.txt").write_text(text)
+    fails = [ln for ln in text.splitlines() if "FAIL" in ln]
+    if rc != 0:
+        raise AssertionError(f"backend_ops exited {rc}: {fails}")
+    qmm = [r for r in rec["test"] if "kernel" in r]
+    if len(qmm) != 20 or not all(r["launches"].get(r["kernel"]) for r in qmm):
+        raise AssertionError(f"backend_ops: qmm cases without their kernel: {qmm}")
+    return {"seconds": time.perf_counter() - t0,
+            "summary": [ln for ln in text.splitlines() if ln.startswith(("test:", "grad:"))],
+            "grad_on_cpu": [ln.strip() for ln in text.splitlines() if "f64 leg on the CPU" in ln
+                            and "grad" in ln],
+            "qmm_launches": {r["name"]: r["launches"] for r in qmm},
+            "worst_test_nmse": max((r["nmse"], r["name"]) for r in rec["test"]),
+            "worst_grad_relerr": max((r["relerr"], r["name"]) for r in rec["grad"]),
+            "perf_ms": {r["name"]: r["ms"] for r in rec["perf"]}}
+
+
+def perf_check() -> dict:
+    """12 b: utils/perf.py's main over its whole table on the card."""
+    res = []
+    t0 = time.perf_counter()
+    rc, text = _captured_stdout(lambda: perf.main([], res))
+    if rc != 0 or len(res) != len(perf.ALL):
+        raise AssertionError(f"perf.main: rc {rc}, {len(res)} of {len(perf.ALL)} ops")
+    return {"seconds": time.perf_counter() - t0, "lines": text.splitlines(), "results": res,
+            "hbm_gbs_measured": perf.measure_hbm_bw() / 1e9}
+
+
+def example_check() -> dict:
+    """The simple example's two styles on the card."""
+    before = launches()
+    rc, text = _captured_stdout(lambda: simple.main([]))
+    if rc != 0 or "style backend" not in text:
+        raise AssertionError(f"examples.simple: rc {rc}\n{text}")
+    return {"lines": text.splitlines(), "launches": _delta(before)}
+
+
+def _sha256(path: Path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while chunk := f.read(1 << 24):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def transport_check(path: Path) -> tuple[dict, Path]:
+    """12 c: serve_model on the file, sync_model into a cache under build/
+    (byte-identical by sha256), a second sync_model from the cache. Both
+    ends in this process on one host: a loopback rate, not a network's."""
+    shutil.rmtree(SYNC_CACHE, ignore_errors=True)
+    nbytes = path.stat().st_size
+    out = {"bytes": nbytes}
+    t0 = time.perf_counter()
+    srv, manifest = launch.serve_model(path, port=0)
+    out["serve_s"] = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        local = launch.sync_model(path, "127.0.0.1", srv.port, SYNC_CACHE, manifest)
+        out["sync_s"] = time.perf_counter() - t0
+        mtime = local.stat().st_mtime_ns
+        t0 = time.perf_counter()
+        again = launch.sync_model(path, "127.0.0.1", srv.port, SYNC_CACHE, manifest)
+        out["cache_hit_s"] = time.perf_counter() - t0
+        with TransportClient(port=srv.port) as c:
+            out["server_blobs"], out["server_bytes"] = c.stat()
+    finally:
+        srv.stop()
+    if again != local or local.stat().st_mtime_ns != mtime:
+        raise AssertionError("the second sync_model did not reuse the cached file")
+    out["sha256"], sha_local = _sha256(path), _sha256(local)
+    if sha_local != out["sha256"]:
+        raise AssertionError("sync_model's file differs from the served one")
+    out["tensors"] = len(manifest) - 1
+    for k in ("serve", "sync", "cache_hit"):
+        out[f"{k}_gb_per_s"] = nbytes / out[f"{k}_s"] / 1e9
+    return out, local
+
+
+def topology_check(device) -> dict:
+    """12 c: local_topology on the card: one device of the card's name and
+    its memory byte counters."""
+    top = launch.local_topology()
+    name = torch.cuda.get_device_name(device)
+    mem = top.get("memory", {})
+    if (top["n_devices"], top["n_local_devices"], top["process_count"]) != (1, 1, 1) or \
+            top["devices"][0]["kind"] != name or top["devices"][0]["platform"] != "gpu":
+        raise AssertionError(f"local_topology: {top}")
+    if not (mem.get("bytes_free", 0) > 0 and mem.get("bytes_limit", 0) > 0
+            and mem.get("allocated_bytes_all_current", 0) > 0):
+        raise AssertionError(f"local_topology memory counters: {mem}")
+    return top
+
+
+def _decode_fixture(cfg, params, device, prompt):
+    """A fresh cache with `prompt` prefilled; the first decode token and position."""
+    kv = llama.make_cache(cfg, 1024, device=device)
+    llama.forward(cfg, params, torch.tensor(prompt, device=device), kv, 0)
+    return kv, torch.tensor([prompt[0]], device=device), len(prompt)
+
+
+@torch.inference_mode()
+def trace_check(device, cfg, params, n_layer: int, prompt) -> dict:
+    """12 d: the launches of one replayed decode step (== expected_launches);
+    trace.profile around one replayed step writes a trace naming K1 and K2;
+    dump_graph(stage="kernels") of one eager decode step lists its kernels
+    in order, and its K1-K4 entries equal the launch counters' delta."""
+    out = {}
+    kv, tok, pos = _decode_fixture(cfg, params, device, prompt)
+    llama.decode_step(cfg, params, tok, kv, pos)            # the capture
+    before = launches()
+    llama.decode_step(cfg, params, tok, kv, pos)
+    out["launches_per_replayed_step"] = base = _delta(before)
+    want = expected_launches("q4_k_m", n_layer, 1)
+    if base != want:
+        raise AssertionError(f"replayed step launches {base}, expected {want}")
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    with trace.profile(TRACE_DIR) as tpath:
+        with trace.named_scope("smoke.replayed_step"):
+            llama.decode_step(cfg, params, tok, kv, pos)
+    text = tpath.read_text()
+    out["trace_bytes"] = len(text)
+    out["trace_names"] = {k: sum(text.count(s) for s in subs)
+                          for k, subs in KERNEL_NAMES.items()}
+    if not (out["trace_names"][kernels.K1.name] and out["trace_names"][kernels.K2.name]
+            and "smoke.replayed_step" in text):
+        raise AssertionError(f"the trace names no K1 / K2 kernel: {out['trace_names']}")
+    before = launches()
+    names = trace.dump_graph(lambda: llama.forward(cfg, params, tok, kv, pos),
+                             stage="kernels").splitlines()
+    delta = _delta(before)
+    counted = {}
+    for name in names:
+        k = kernel_of_name(name)
+        if k is not None:
+            counted[k] = counted.get(k, 0) + 1
+    want = {k: delta[k] for k in KERNEL_NAMES if k in delta}
+    out.update(eager_kernels=len(names), eager_counted=counted, eager_launches=delta,
+               first_kernels=[n[:80] for n in names[:12]])
+    if counted != want:
+        raise AssertionError(f"dump_graph kernels {counted}, launch counters {want}")
+    return out
+
+
+@torch.inference_mode()
+def observe_check(device, cfg, params, n_layer: int, prompt, base: dict) -> dict:
+    """12 e: the taps of one eager forward of the prompt (2·n_layer + 1
+    names, the logits tap bit-equal to the logits); an observer around a
+    captured decode_step raises; without one, a fresh capture's replay
+    launches `base`."""
+    taps = []
+    kv = llama.make_cache(cfg, 1024, device=device)
+    with observe.observer(lambda name, v: taps.append((name, v))):
+        logits, _ = llama.forward(cfg, params, torch.tensor(prompt, device=device), kv, 0)
+    names = [f"blk.{i}.{s}" for i in range(n_layer) for s in ("attn_out", "ffn_out")]
+    if [n for n, _ in taps] != names + ["logits"]:
+        raise AssertionError(f"taps {[n for n, _ in taps]}")
+    if not np.array_equal(taps[-1][1], logits.float().cpu().numpy()):
+        raise AssertionError("the logits tap differs from the logits")
+    out = {"taps": len(taps), "tap_shapes": sorted({v.shape for _, v in taps})}
+    kv, tok, pos = _decode_fixture(cfg, params, device, prompt)
+    try:
+        with observe.observer(lambda name, v: None):
+            llama.decode_step(cfg, params, tok, kv, pos)
+    except RuntimeError as e:
+        out["capture_error"] = str(e)[:160]
+    if "CUDA graph capture" not in out.get("capture_error", ""):
+        raise AssertionError(f"an observer around a captured step did not raise: {out}")
+    kv, tok, pos = _decode_fixture(cfg, params, device, prompt)
+    llama.decode_step(cfg, params, tok, kv, pos)
+    before = launches()
+    llama.decode_step(cfg, params, tok, kv, pos)
+    out["launches_per_replayed_step"] = _delta(before)
+    if out["launches_per_replayed_step"] != base:
+        raise AssertionError(f"replay launches {out['launches_per_replayed_step']} != {base}")
+    return out
+
+
+def utilities_phase(device, out_dir: Path, path: Path | None = None,
+                    stream: dict | None = None) -> dict:
+    """Phase 12 (module docstring): the last modules on the card, on phase
+    11's Llama-3-8B-width Q4_K_M file (`path`, with its 100-token prompt
+    and generate's greedy stream; without them, as under --paths
+    utilities, the file is written and the stream generated here). The
+    launch counts are set to 0 just before and read just after."""
+    t_phase = time.perf_counter()
+    own = path is None
+    if own:
+        path = ROOT / "build" / f"smoke_llama3_q4_k_m_L{SHORT_LAYERS}.gguf"
+        write_gguf(path, LLAMA3_8B, SHORT_LAYERS, "q4_k_m")
+    kernels.reset_launches()
+    out = {"file": path.name}
+    try:
+        out["backend_ops"] = backend_ops_check(device, out_dir)
+        out["perf"] = perf_check()
+        out["example"] = example_check()
+        if stream is None:
+            cfg, params = _load(path, device)
+            prompt = [int(t) for t in np.random.default_rng(11).integers(1, cfg.n_vocab, 100)]
+            stream = {"prompt": prompt, "generate": llama.generate(
+                cfg, params, prompt, N_NEW, max_seq=1024, device=device)}
+            del params
+        out["transport"], local = transport_check(path)
+        t0 = time.perf_counter()
+        cfg, params = _load(local, device)
+        out["rebuilt_load_s"] = time.perf_counter() - t0
+        got = llama.generate(cfg, params, stream["prompt"], N_NEW, max_seq=1024, device=device)
+        if got != stream["generate"]:
+            raise AssertionError("the rebuilt file's greedy stream differs from the original's")
+        out["greedy_equal"] = N_NEW
+        out["topology"] = topology_check(device)
+        out["trace"] = trace_check(device, cfg, params, SHORT_LAYERS, stream["prompt"])
+        out["observe"] = observe_check(device, cfg, params, SHORT_LAYERS, stream["prompt"],
+                                       out["trace"]["launches_per_replayed_step"])
+        del params
+    finally:
+        shutil.rmtree(SYNC_CACHE, ignore_errors=True)
+        shutil.rmtree(TRACE_DIR, ignore_errors=True)
+        Path(str(path) + ".manifest.json").unlink(missing_ok=True)
+        if own:
+            path.unlink(missing_ok=True)
+    out["launches"] = launches()
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -4806,7 +5106,7 @@ def main(argv=None) -> int:
                     help="comma-separated main paths of phase 6 (default: all), "
                          "'quantize' for phase 7, 'families' (or mixtral, gpt2_large, gptj) "
                          "for phase 8, 'vision' for phase 9, 'training' for phase 10, "
-                         "'parallel' for phase 11; a run "
+                         "'parallel' for phase 11, 'utilities' for phase 12; a run "
                          "cut by --checks or --paths "
                          "skips phases 4 and 5 and prints no result line")
     args = ap.parse_args(argv)
@@ -5182,8 +5482,12 @@ def main(argv=None) -> int:
     parallel = None
     if not HAS_PARALLEL and (not partial or "parallel" in asked):
         raise AssertionError("parallel/ is missing: the parallel phase cannot run")
+    if not HAS_UTILITIES and (not partial or "utilities" in asked):
+        raise AssertionError("the utilities (parallel/transport.py, tools/backend_ops.py, ...) "
+                             "are missing: phase 12 cannot run")
+    run_utilities = HAS_UTILITIES and (not partial or "utilities" in asked)
     if HAS_PARALLEL and (not partial or "parallel" in asked):
-        parallel = parallel_phase(device)
+        parallel = parallel_phase(device, keep_file=run_utilities)
         nc, t2, d2 = parallel["nccl"], parallel["tp2"], parallel["dp2"]
         log(f"parallel: Llama-3-8B width, {parallel['layers']} layers, Q4_K_M "
             f"({parallel['gguf_gb']:.2f} GB file, {parallel['weights_gb']:.2f} GB on the card) "
@@ -5224,6 +5528,45 @@ def main(argv=None) -> int:
             f"{p2['pp_ms']:.2f} ms (single {p2['single_ms']:.2f})")
         log(f"parallel phase {parallel['seconds']:.1f} s (gloo ranks "
             f"{parallel['gloo_seconds']:.1f} s), launches {_nonzero(parallel['launches'])}")
+    utilities = None
+    if run_utilities:
+        kept = parallel.pop("path", None) if parallel else None
+        stream = parallel.pop("stream", None) if parallel else None
+        try:
+            utilities = utilities_phase(device, args.out, kept and Path(kept), stream)
+        finally:
+            if kept:
+                Path(kept).unlink(missing_ok=True)
+        bo, tr, ob = utilities["backend_ops"], utilities["transport"], utilities["trace"]
+        log(f"utilities: backend_ops [{label}] {bo['summary']} in {bo['seconds']:.1f} s (worst "
+            f"test nmse {bo['worst_test_nmse']}, worst grad relerr {bo['worst_grad_relerr']}); "
+            f"qmm launches {bo['qmm_launches']}; {bo['grad_on_cpu']}; full text in "
+            f"{args.out / 'backend_ops.txt'}")
+        pf = utilities["perf"]
+        log(f"utilities: utils.perf [{label}] (measured HBM read "
+            f"{pf['hbm_gbs_measured']:.1f} GB/s; in {pf['seconds']:.1f} s):")
+        for line in pf["lines"]:
+            log(f"  {line}")
+        log(f"utilities: examples.simple [{label}]: {utilities['example']['lines']} launches "
+            f"{utilities['example']['launches']}")
+        log(f"utilities: transport [{label}; one host, loopback, both ends in one process: no "
+            f"network or multi-card figure]: {tr['bytes'] / 1e9:.3f} GB ({tr['tensors']} "
+            f"tensors) served in {tr['serve_s']:.2f} s ({tr['serve_gb_per_s']:.2f} GB/s), "
+            f"synced in {tr['sync_s']:.2f} s ({tr['sync_gb_per_s']:.2f} GB/s), cache hit "
+            f"(full validation) {tr['cache_hit_s']:.2f} s ({tr['cache_hit_gb_per_s']:.2f} "
+            f"GB/s); sha256 equal {tr['sha256'][:16]}; rebuilt file loaded in "
+            f"{utilities['rebuilt_load_s']:.2f} s, greedy {N_NEW} tokens == the original's")
+        log(f"utilities: local_topology [{label}]: {utilities['topology']}")
+        log(f"utilities: trace [{label}]: replayed step launches "
+            f"{ob['launches_per_replayed_step']}, trace {ob['trace_bytes']} bytes naming "
+            f"{ob['trace_names']}; dump_graph(kernels) of an eager step: {ob['eager_kernels']} "
+            f"kernels, K1-K4 {ob['eager_counted']} == launches; first {ob['first_kernels'][:6]}")
+        obs = utilities["observe"]
+        log(f"utilities: observe [{label}]: {obs['taps']} taps (logits tap == logits), a "
+            f"captured step under an observer raised ({obs['capture_error'][:80]}), replay "
+            f"launches without one {obs['launches_per_replayed_step']}")
+        log(f"utilities phase {utilities['seconds']:.1f} s, launches "
+            f"{_nonzero(utilities['launches'])}")
     rep = {"qmm_q4_K": "M=8 N=11008 K=4096",
            "qmm_q4_K_i8": "M=128 N=11008 K=4096",
            "causal_flash_attention": "decode B=8 H=32 window=1024 f32q_bf16kv",
@@ -5245,7 +5588,8 @@ def main(argv=None) -> int:
         detail = {"device": smi, "build_s": build_s, "build": build.BUILD_LOG,
                   "kernels": results, "row_checks": row_checks, "main_paths": paths,
                   "quantize": quant, "families": fams, "vision": vision,
-                  "training": training, "parallel": parallel, "checks": checks,
+                  "training": training, "parallel": parallel, "utilities": utilities,
+                  "checks": checks,
                   "partial": True}
         for mp in paths.values():
             mp.pop("probe_logits", None)
@@ -5259,7 +5603,7 @@ def main(argv=None) -> int:
     log(f"q4_k int8 layout vs kernel layout [{label}]: one decode step's logits nmse "
         f"{int8_nmse:.3e}")
     runs = ([tune] + list(paths.values()) + ([quant] if quant else [])
-            + ([fams[n] for n in fam_names] if fams else []) + [parallel]
+            + ([fams[n] for n in fam_names] if fams else []) + [parallel, utilities]
             + [mp[k] for mp in paths.values() for k in ("graphs", "pipeline", "tools") if k in mp])
     line = []
     for kern in kernels.KERNELS:
@@ -5276,7 +5620,8 @@ def main(argv=None) -> int:
     detail = {"device": smi, "build_s": build_s, "build": build.BUILD_LOG,
               "kernels": results, "row_checks": row_checks, "autotune": tune,
               "main_paths": paths, "quantize": quant, "families": fams, "vision": vision,
-              "training": training, "parallel": parallel, "small_model": small}
+              "training": training, "parallel": parallel, "utilities": utilities,
+              "small_model": small}
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke.json").write_text(json.dumps(detail, indent=1, default=str))
     log(json.dumps({"kernels": line}))

@@ -133,7 +133,11 @@ class GGUFReader:
     magic, version != 0, duplicate keys/tensors rejected, offsets aligned).
     """
 
-    def __init__(self, path: str | Path):
+    def __init__(self, path: str | Path, header_only: bool = False):
+        """header_only: parse the KV metadata and the tensor directory
+        without mapping the data section (the model sync of parallel/
+        launch.py writes that section from fetched blobs after reading the
+        layout)."""
         self.path = Path(path)
         self.kv: dict[str, object] = {}
         self.kv_types: dict[str, int] = {}
@@ -183,8 +187,8 @@ class GGUFReader:
                 self.tensors[name] = TensorInfo(name, tuple(ne), t, offset)
             pos = f.tell()
         self.data_offset = (pos + self.alignment - 1) // self.alignment * self.alignment
-        self._data = np.memmap(self.path, dtype=np.uint8, mode="r",
-                               offset=self.data_offset)
+        self._data = None if header_only else np.memmap(
+            self.path, dtype=np.uint8, mode="r", offset=self.data_offset)
 
     # -- tensor access ----------------------------------------------------
 

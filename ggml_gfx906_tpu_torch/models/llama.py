@@ -27,6 +27,8 @@ True)`; the quantizing write is captured with the step): each is a
 replay of a static-shape step captured once as a CUDA graph on the card
 (runtime/graphs.py; a direct call on the CPU), the reference's jitted
 programs with their donated caches as in-place writes.
+Tap points (utils/observe.py, the reference's :265-276): `blk.{i}.attn_out`
+and `blk.{i}.ffn_out` after each residual add, `logits` from the head.
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ from ..parallel.mesh import all_reduce
 from ..quant.types import GGMLType, TYPE_TRAITS
 from ..runtime.kv_cache import KVCache
 from ..runtime.graphs import GraphCache
-from ..utils import abort, autotune, config
+from ..utils import abort, autotune, config, observe
 from ..utils.device import resolve, tree_device
 
 ARCH = "llama"
@@ -323,15 +325,15 @@ def _layers(cfg, blocks, x, kv: KVCache, start, pos_b, pos, ffn=_block_ffn, tp_g
         q = _rope(cfg, q, pos)
         k = _rope(cfg, k, pos)
         att = attend(kv, li, q[None], k[None], v[None], start, pos_b)
-        x = x + _tp_sum(qmatmul(att[0], blk["wo"]), tp_group)
-        x = ffn(blk, x, cfg.rms_eps, tp_group)
+        x = observe.tap(f"blk.{li}.attn_out", x + _tp_sum(qmatmul(att[0], blk["wo"]), tp_group))
+        x = observe.tap(f"blk.{li}.ffn_out", ffn(blk, x, cfg.rms_eps, tp_group))
     return x
 
 
 def _head(cfg, params: dict, x) -> torch.Tensor:
     x = _rms(x, params["out_norm"], cfg.rms_eps)
     head = params["lm_head"] if "lm_head" in params else params["wte"]
-    return qmatmul(x, head).float()
+    return observe.tap("logits", qmatmul(x, head).float())
 
 
 def _forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor, kv: KVCache,

@@ -8,6 +8,11 @@ unchanged one is reused. Builds happen at first use,
 never at import: `build_all()` starts one nvcc per source, all at once, and
 waits for them; `library(name)` builds one source if it is missing.
 
+`host_library(name)` builds a C++ source of the repo's `cpp/` (the tensor
+transport, `cpp/tensor_transport.cc`) with the host compiler and
+`cpp/Makefile`'s flags into the same directory, under a name keyed by the
+digest of the source and flags; `cpp/` itself is never written.
+
 Every exported function takes pointers and the stream as `c_void_p`, ints
 as `c_int` / `c_longlong`, floats as `c_float`, and returns a cudaError_t
 (0 = success) that the wrapper turns into an exception.
@@ -23,7 +28,10 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
+CPP = Path(__file__).resolve().parents[3] / "cpp"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+# cpp/Makefile's CXXFLAGS, -shared and LDFLAGS
+HOST_FLAGS = ["-O2", "-Wall", "-Wextra", "-fPIC", "-std=c++17", "-shared", "-pthread"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -147,3 +155,31 @@ def call(fn: str, *args) -> None:
     err = getattr(library(SIGNATURES[fn][0]), fn)(*args)
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA error {err} at launch")
+
+
+def _cxx() -> str:
+    found = shutil.which("g++") or shutil.which("c++")
+    if found is None:
+        raise RuntimeError("no host C++ compiler (g++) to build cpp/ sources")
+    return found
+
+
+def host_library(name: str) -> Path:
+    """`cpp/<name>.cc` built with the host compiler and HOST_FLAGS into
+    `build/torch_kernels/lib<name>-<hash>.so` (the hash of the source and
+    the flags), if missing; returns its path."""
+    src = CPP / f"{name}.cc"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode())
+    target = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    if not target.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        res = subprocess.run([_cxx(), *HOST_FLAGS, str(src), "-o", str(tmp)],
+                             capture_output=True, text=True)
+        BUILD_LOG[name] = {"seconds": time.perf_counter() - t0, "ptxas": res.stderr}
+        if res.returncode != 0:
+            raise RuntimeError(f"g++ {name}.cc failed ({res.returncode}):\n{res.stderr}")
+        os.replace(tmp, target)
+    return target

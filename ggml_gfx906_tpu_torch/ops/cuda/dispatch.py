@@ -10,6 +10,8 @@ from __future__ import annotations
 
 from ...quant.types import GGMLType
 from ...utils import config
+from . import (K1, K3, K4, K5, K5_I8, K6, K6_I8, K7, K8_Q4_1, K8_Q5_0, K8_Q5_1, K9_Q2_K,
+               K9_Q3_K, K10)
 from . import qmm, qmm_legacy, qmm_pipe, qmm_q4_0, qmm_q5k, qmm_q6k, qmm_q8_0, qmm_q23k
 
 # the QuantTensor fields of each ported type, in the order its kernels take them
@@ -35,6 +37,14 @@ _KERNELS = {
     (GGMLType.Q2_K, "f32"): qmm_q23k.qmm_q2_K,
     (GGMLType.Q3_K, "f32"): qmm_q23k.qmm_q3_K,
 }
+# the launch-counted kernel record of each (type, route)
+KERNEL_OF = {(GGMLType.Q4_K, "f32"): K1, (GGMLType.Q4_K, "i8"): K3,
+             (GGMLType.Q4_K, "pipe"): K10, (GGMLType.Q6_K, "f32"): K4,
+             (GGMLType.Q8_0, "f32"): K5, (GGMLType.Q8_0, "i8"): K5_I8,
+             (GGMLType.Q4_0, "f32"): K6, (GGMLType.Q4_0, "i8"): K6_I8,
+             (GGMLType.Q5_K, "f32"): K7, (GGMLType.Q4_1, "f32"): K8_Q4_1,
+             (GGMLType.Q5_0, "f32"): K8_Q5_0, (GGMLType.Q5_1, "f32"): K8_Q5_1,
+             (GGMLType.Q2_K, "f32"): K9_Q2_K, (GGMLType.Q3_K, "f32"): K9_Q3_K}
 KERNEL_TYPES = set(FIELDS)
 INT8_TYPES = {t for t, r in _KERNELS if r == "i8"}
 PIPELINE_TYPES = {t for t, r in _KERNELS if r == "pipe"}

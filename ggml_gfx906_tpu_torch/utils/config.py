@@ -7,6 +7,7 @@ GGML_TORCH_<NAME> env var < programmatic `set()`.
     from ggml_gfx906_tpu_torch.utils import config
     config.get("int8_min_m")          # 64
     config.set("int8_min_m", 128)     # highest precedence
+    config.describe()                 # [(name, value, source, help), ...]
 """
 from __future__ import annotations
 
@@ -70,6 +71,21 @@ def set(name: str, value) -> None:   # noqa: A001 - mirrors the reference
 
 def unset(name: str) -> None:
     _OVERRIDES.pop(name, None)
+
+
+def describe() -> list[tuple[str, Any, str, str]]:
+    """[(name, effective value, source, help)] for every registered knob;
+    the source is "override", "env:GGML_TORCH_<NAME>" or "default"."""
+    out = []
+    for name, e in sorted(_REGISTRY.items()):
+        if name in _OVERRIDES:
+            src = "override"
+        elif _env_key(name) in os.environ:
+            src = f"env:{_env_key(name)}"
+        else:
+            src = "default"
+        out.append((name, get(name), src, e.help))
+    return out
 
 
 # ---------------------------------------------------------------- knobs
@@ -141,3 +157,6 @@ register("engine_window_delta", False,
 register("kv_page_size", 64,
          "positions per page of the paged serving KV pool "
          "(Engine(paged_pages=N); runtime/paged_kv.py)")
+register("log_level", "info", "log threshold: debug/info/warn/error (utils/log.py reads it "
+         "once, at import)", parse=lambda s: s.strip().lower(),
+         choices=("debug", "info", "warn", "error"))

@@ -53,8 +53,15 @@ def test_port_imports_no_jax_and_runs_a_cpu_forward():
                   "models.yolo", "models.sam", "models.magika", "gguf.pytree", "ops.conv",
                   "training.opt", "training.dataset", "training.fit", "training.checkpoint",
                   "models.mnist", "models.mnist_cli", "parallel.mesh", "parallel.tp",
-                  "parallel.ep", "parallel.sp", "parallel.pp"):
+                  "parallel.ep", "parallel.sp", "parallel.pp", "parallel.transport",
+                  "parallel.launch", "utils.log", "utils.observe", "utils.trace",
+                  "tools.backend_ops", "examples.simple"):
             assert pkg.__name__ + "." + n in names, n
+        from ggml_gfx906_tpu_torch.parallel import transport
+        from ggml_gfx906_tpu_torch.tools import backend_ops
+        assert transport.fnv1a(b"foobar") == 0x85944171f73967e8
+        backend_ops._register_cases()
+        assert len(backend_ops.CASES) == 112
         from ggml_gfx906_tpu_torch.quant import registry
         assert registry.dequantize(GGMLTypeQ.IQ2_XXS, bytes(66), 256).shape == (1, 256)
         import chip_smoke   # the smoke script imports nothing of JAX either

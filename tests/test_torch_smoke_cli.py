@@ -558,3 +558,30 @@ def test_tp_check_holds_the_shard_shapes():
     assert (FF // 2) % 256 == 0 and (11008 // 2) % 256 != 0
     names = _names(chip_smoke.CHECKS["tp"].__code__)
     assert {"check_f32", "check_i8", "k3_launches", "qmm_q6_K_plain"} <= names
+
+
+def test_utilities_phase_pieces_on_the_cpu(tmp_path, monkeypatch):
+    """Phase 12's transport step on a tiny Q4_K_M file (the rebuilt file's
+    sha256 equals the file's, the second sync hits the cache, nothing left
+    behind), the trace-name classes of K1-K4 (the product kernels only),
+    and `--paths utilities` taken (here it stops at the missing card)."""
+    assert chip_smoke.main(["--paths", "utilities", "--checks", "none"]) != 0
+    monkeypatch.setattr(chip_smoke, "SYNC_CACHE", tmp_path / "cache")
+    cfg = dict(n_vocab=512, n_ctx=1024, n_embd=512, n_head=4, n_kv_head=2, n_ff=1024,
+               rope_base=500000.0)
+    path = tmp_path / "tiny.gguf"
+    chip_smoke.write_gguf(path, cfg, 2, "q4_k_m")
+    out, local = chip_smoke.transport_check(path)
+    assert out["sha256"] == chip_smoke._sha256(local) and out["tensors"] == 21
+    assert out["server_blobs"] < out["tensors"]        # the equal norm weights are deduplicated
+    assert chip_smoke.llama.load(local, device="cpu")[0].n_layer == 2
+    names = {"void qmm_tiled::small_kernel<qmm_tiled::QK45<false>, 1>(float const*)": "qmm_q4_K",
+             "qmm_q4k_f32_kernel(float const*)": "qmm_q4_K",
+             "void qmm_tiled::tiled_kernel<qmm_tiled::QK45<true>, 32>(float const*)": None,
+             "void fa::fwd_kernel<float, false, 16>(float const*)": "causal_flash_attention",
+             "void fa::combine_kernel(float const*)": None,
+             "void qmm_i8::kernel<q4k_i8::Q4KI8>(XOps<4>)": "qmm_q4_K_i8",
+             "void qmm_i8::quant_x_kernel<qmm_i8::XQ4K, float>(float const*)": None,
+             "void qmm_tiled::tree_kernel<qmm_tiled::Q6K>(float const*)": "qmm_q6_K",
+             "void at::native::vectorized_elementwise_kernel<4>()": None}
+    assert {n: chip_smoke.kernel_of_name(n) for n in names} == names
