@@ -73,8 +73,9 @@ Phases (each failure raises, so the script exits non-zero):
      the others; the 8-layer Q4_0 file serves the 8+1 requests again at
      int8_min_m = 0 (all f32, flooded), equal to generate there for every
      request. The 32-layer Q4_K file adds two phases: `admission`, one
-     whole traced engine run split by record_function labels (flood,
-     chunked admission, windows, harvests) and one flood alone traced;
+     whole traced engine run split by the engine's own spans (flood,
+     chunk, replay, capture, harvest, wait; each flood span held against
+     its profiler event within 1 ms) and one flood alone traced;
      `kv_variants`, the engine on the int8 cache (== generate(kv_quant=
      True) where one route, K2 on int8 K/V), on a paged pool of half the
      dense pages (== the dense engine, with and without kv_quant) and with
@@ -1593,19 +1594,16 @@ def engine_vs_generate(recipe, cfg, params, device, prompts, done, int8_route: b
     return out
 
 
-def spy_floods(eng) -> list:
-    """The number of slots each flood of `eng` fills, appended as it runs."""
-    floods, orig = [], eng._admit_batch
+def spans_since(t0: int, name: str | None = None) -> list:
+    """The engine's spans (utils/trace.py) that started at or after t0
+    (perf_counter ns), of `name` alone when given."""
+    return [s for s in trace.RECORDER.overlapping(t0, time.perf_counter_ns())
+            if s.t0 >= t0 and (name is None or s.name == name)]
 
-    def spy():
-        before = sum(s is not None for s in eng.slots)
-        ok = orig()
-        if ok:
-            floods.append(sum(s is not None for s in eng.slots) - before)
-        return ok
 
-    eng._admit_batch = spy
-    return floods
+def floods_since(t0: int) -> list:
+    """The requests each engine flood since t0 admitted, from its span."""
+    return [s.attrs["requests"] for s in spans_since(t0, "engine.flood")]
 
 
 @torch.inference_mode()
@@ -1616,8 +1614,9 @@ def f32_route_check(device, cfg, params, prompts, long_prompt) -> dict:
     config.set("int8_min_m", 0)
     try:
         eng = Engine(llama, cfg, params, max_batch=8, max_seq=1024, device=device)
-        floods = spy_floods(eng)
+        t0 = time.perf_counter_ns()
         done = serve(eng, prompts + [long_prompt], N_NEW)
+        floods = floods_since(t0)
         bad = [len(p) for p, got in zip(prompts, done)
                if p + got != llama.generate(cfg, params, p, N_NEW, max_seq=1024, device=device)]
     finally:
@@ -1653,74 +1652,72 @@ def _overlap(xs, ys) -> float:
     return total
 
 
-ADMISSION_LABELS = {"_admit_batch": "engine.flood", "_advance_admission_once": "engine.chunk",
-                    "_dispatch_scan": "engine.window", "_dispatch": "engine.window",
-                    "_harvest": "engine.harvest"}
+ADMISSION_RUN = "smoke.admission_run"
 
 
 @torch.inference_mode()
 def admission_phase(device, cfg, params, prompts, long_prompt, streams) -> dict:
     """Where a whole engine run of the 8+1 requests spends its time (the
     32-layer Q4_K file): one `Engine.run` (its graphs captured by a first
-    run) traced with a `torch.profiler.record_function` label around each
-    flood, chunked admission, window dispatch and harvest. Host seconds per
-    label; device busy ms per label: the union of the run's device
-    activities inside the device-side ranges the profiler draws for the
-    label (from its first to its last correlated activity), the rest
-    ("unlabelled") being the graph replays, whose kernels the profiler does
-    not tie to the label that launched them; the run's device busy ms
-    (union of its activities) and wall. Then, on a tree with the flood, one
+    run) traced under a `smoke.admission_run` range that marks it in the
+    profile, read through the engine's own spans (utils/trace.py), each
+    leaf a `record_function` of its name under the profiler: flood, chunk,
+    replay, harvest, and graphs.py's captures and host waits on the card.
+    Host seconds and calls per span name; device busy ms per name: the
+    union of the run's device activities inside the device-side ranges the
+    profiler draws for the name (from its first to its last correlated
+    activity), the rest ("unlabelled") being the graph replays, whose
+    kernels the profiler does not tie to the range that launched them; the
+    run's device busy ms (union of its activities, less the range drawn
+    for the marker) and wall. Each flood's span
+    against its event in the trace: the offsets of its two ends after
+    `trace.to_trace_ns` (held within 1 ms on the card) and whether its first
+    kernel starts after the span does. Then, on a tree with the flood, one
     flood of the 8 short prompts alone, synchronised: host ms unprofiled,
     and traced: busy ms, its share, the device ms of K3 and its x
-    quantization. (A tree without the flood has no flood label.)"""
+    quantization. `floods`: the requests of each flood of the phase."""
     from torch.profiler import ProfilerActivity, profile
 
     eng = Engine(llama, cfg, params, max_batch=8, max_seq=1024, device=device)
-    floods = spy_floods(eng) if HAS_FLOOD else None
+    t_phase = time.perf_counter_ns()
     flood = getattr(eng, "_admit_batch", None)
     if serve(eng, prompts + [long_prompt], N_NEW) != streams:
         raise AssertionError("admission phase: streams differ from the main path's engine")
-    labels = {name: label for name, label in ADMISSION_LABELS.items() if hasattr(eng, name)}
-    host = {label: 0.0 for label in labels.values()}
-    calls = dict.fromkeys(host, 0)
-
-    def wrap(name, label):
-        fn = getattr(eng, name)
-
-        def run(*a, **k):
-            t0 = time.perf_counter()
-            with torch.profiler.record_function(label):
-                r = fn(*a, **k)
-            host[label] += time.perf_counter() - t0
-            calls[label] += 1
-            return r
-        setattr(eng, name, run)
-
-    for name, label in labels.items():
-        wrap(name, label)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        again = serve(eng, prompts + [long_prompt], N_NEW)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        t0 = time.perf_counter_ns()
+        with torch.profiler.record_function(ADMISSION_RUN):
+            again = serve(eng, prompts + [long_prompt], N_NEW)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter_ns() - t0) / 1e9
     if again != streams:
         raise AssertionError("admission phase: the traced run's streams differ")
+    leaves = [s for s in spans_since(t0) if s.name.startswith(("engine.", "graphs."))
+              and s.name != "engine.window"]
+    host = {s.name: 0.0 for s in leaves}
+    calls = dict.fromkeys(host, 0)
+    for s in leaves:
+        host[s.name] += (s.t1 - s.t0) / 1e9
+        calls[s.name] += 1
+    events = list(prof.profiler.kineto_results.events())
     ranges = {label: [] for label in host}
     spans = []
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            (ranges[e.name] if e.name in ranges else spans).append(
-                (e.time_range.start, e.time_range.end))
+    for e in events:
+        if e.device_type() == torch.autograd.DeviceType.CUDA and e.name() != ADMISSION_RUN:
+            (ranges[e.name()] if e.name() in ranges else spans).append(
+                (e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3))
     spans = _merged(spans)
     busy = sum(b - a for a, b in spans)
     dev = {label: _overlap(spans, _merged(r)) / 1e3 for label, r in ranges.items()}
     dev["unlabelled"] = busy / 1e3 - sum(dev.values())
-    out = {"floods": floods, "run_wall_s": wall, "run_busy_ms": busy / 1e3,
+    out = {"run_wall_s": wall, "run_busy_ms": busy / 1e3,
            "run_busy_share": busy / 1e3 / (wall * 1e3), "tokens": sum(map(len, again)),
-           "host_s": dict(host), "calls": dict(calls), "device_busy_ms": dev,
-           "tok_s_traced": sum(map(len, again)) / wall}
+           "host_s": host, "calls": calls, "device_busy_ms": dev,
+           "tok_s_traced": sum(map(len, again)) / wall,
+           "flood_clock": flood_clock([s for s in leaves if s.name == "engine.flood"],
+                                      events, device.type == "cuda")}
     if flood is None:
+        out["floods"] = floods_since(t_phase)
         del eng
         gc.collect()
         return out
@@ -1739,9 +1736,38 @@ def admission_phase(device, cfg, params, prompts, long_prompt, streams) -> dict:
     busy = out["flood_trace"]["busy_ms"]
     out["flood_trace"]["busy_share"] = None if busy is None else busy / out["flood_ms"]
     eng.run()
+    out["floods"] = floods_since(t_phase)
     del eng, flood
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def flood_clock(floods: list, events: list, on_card: bool) -> dict:
+    """Each flood span against the profiler's events of its name, in order:
+    the offsets (ms) of the CPU event's start and end from the span's after
+    `trace.to_trace_ns`, their median and largest size, and, per flood, how
+    far its device-side range (its first kernel) starts after the span's
+    start (None without one). On the card every offset must lie within
+    1 ms: the recorder and the profiler keep one clock."""
+    cpu, gpu = [], []
+    for e in events:
+        if e.name() == "engine.flood":
+            (gpu if e.device_type() == torch.autograd.DeviceType.CUDA else cpu).append(
+                (e.start_ns(), e.start_ns() + e.duration_ns()))
+    cpu.sort()
+    gpu.sort()
+    offs, lead = [], []
+    for i, (s, (a, b)) in enumerate(zip(sorted(floods, key=lambda s: s.t0), cpu)):
+        offs += [(a - trace.to_trace_ns(s.t0)) / 1e6, (b - trace.to_trace_ns(s.t1)) / 1e6]
+        lead.append((gpu[i][0] - trace.to_trace_ns(s.t0)) / 1e6 if i < len(gpu) else None)
+    size = [abs(o) for o in offs]
+    out = {"floods": len(floods), "events": len(cpu), "offsets_ms": offs,
+           "median_abs_ms": float(np.median(size)) if size else None,
+           "max_abs_ms": max(size) if size else None, "first_kernel_after_ms": lead,
+           "first_kernel_after_start": all(x is not None and x >= 0 for x in lead)}
+    if on_card and (len(cpu) != len(floods) or not size or max(size) > 1.0):
+        raise AssertionError(f"flood spans against the profiler's events: {out}")
     return out
 
 
@@ -5310,6 +5336,11 @@ def main(argv=None) -> int:
                 f"{ad['run_wall_s']:.3f} s, device busy {ad['run_busy_ms']:.1f} ms (share "
                 f"{ad['run_busy_share']:.3f}); host s {ad['host_s']}; device busy ms "
                 f"{ad['device_busy_ms']}; calls {ad['calls']}; floods {ad['floods']}")
+            fc = ad["flood_clock"]
+            log(f"  flood spans vs profiler [{label}]: {fc['floods']} spans, {fc['events']} "
+                f"events, |offset| median {fc['median_abs_ms']} ms, max {fc['max_abs_ms']} ms, "
+                f"first kernel after the span's start {fc['first_kernel_after_start']} "
+                f"({fc['first_kernel_after_ms']} ms)")
             if "flood_trace" in ad:
                 t = ad["flood_trace"]
                 log(f"  one flood of 8 prompts [{label}]: {ad['flood_ms']:.3f} ms unprofiled, "

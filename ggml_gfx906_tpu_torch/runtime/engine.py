@@ -104,7 +104,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..utils import abort, config
+from ..utils import abort, config, trace
 from ..utils.device import resolve, to_device, tree_device, upload
 from .batched_kv import BatchedKVCache, WindowDelta, absorb_temp
 from .graphs import GraphCache, HostCopy
@@ -114,8 +114,16 @@ from .sampling import gumbel_noise, sample_batch
 MAX_K = 64
 
 
+def _timing():
+    return field(default=0, compare=False, repr=False)
+
+
 @dataclass
 class Request:
+    """A request and, once served, its host timestamps (time.perf_counter_ns:
+    submit, admission — the start of its flood or first chunk —, the harvest
+    of its first token, finish) and how it was admitted ("flood" or
+    "chunk"); the timings take no part in equality."""
     rid: int
     prompt: list[int]
     max_new_tokens: int
@@ -126,6 +134,20 @@ class Request:
     seed: int = 0
     out: list[int] = field(default_factory=list)
     done: bool = False
+    t_submit: int = _timing()
+    t_admit: int = _timing()
+    t_first: int = _timing()
+    t_finish: int = _timing()
+    admitted_by: str | None = field(default=None, compare=False, repr=False)
+
+
+def _trace_request(r: Request):
+    """A finished request's lifetime into the span recorder: `request` and
+    its three phases under it, all keyed by its rid."""
+    sid = trace.record(trace.REQUEST, r.t_submit, r.t_finish, rid=r.rid)
+    times = (r.t_submit, r.t_admit, r.t_first, r.t_finish)
+    for name, a, b in zip(trace.REQUEST_PHASES, times, times[1:]):
+        trace.record(name, a, b, parent=sid, rid=r.rid)
 
 
 def _bucket(n: int, buckets=(16, 32, 64, 128, 256, 512, 1024, 2048)) -> int:
@@ -350,6 +372,7 @@ class Engine:
             raise ValueError(f"prompt length {len(prompt)} >= max_seq {self.max_seq}")
         r = Request(next(self._rid), list(prompt), max_new_tokens, eos_id,
                     temp, top_k, top_p, seed)
+        r.t_submit = time.perf_counter_ns()
         self.queue.append(r)
         return r.rid
 
@@ -387,24 +410,27 @@ class Engine:
         carry_n = 0   # first tokens harvested before any window was logged
         t_win = time.perf_counter()
         while True:
-            work = self._working()
-            cur, aborted = self._dispatch_window(depth) if work else (None, None)
-            if prev:
-                n = carry_n + self._harvest(prev)
-                carry_n = 0
-                now = time.perf_counter()
-                self.window_log.append((now - t_win, n))
-                t_win = now
-            elif self._first_pending:
-                carry_n += self._harvest([])
-            flush()
-            prev = cur
-            if aborted is not None:
-                # tokens already dispatched are not lost: harvest the
-                # partial window, then propagate
+            # the iteration's span is recorded only: a profiler's range over
+            # it would cover every idle gap of the trace
+            with trace.named_scope("engine.window", mirror=False):
+                work = self._working()
+                cur, aborted = self._dispatch_window(depth) if work else (None, None)
                 if prev:
-                    self._harvest(prev)
-                raise aborted
+                    n = carry_n + self._harvest(prev)
+                    carry_n = 0
+                    now = time.perf_counter()
+                    self.window_log.append((now - t_win, n))
+                    t_win = now
+                elif self._first_pending:
+                    carry_n += self._harvest([])
+                flush()
+                prev = cur
+                if aborted is not None:
+                    # tokens already dispatched are not lost: harvest the
+                    # partial window, then propagate
+                    if prev:
+                        self._harvest(prev)
+                    raise aborted
             if cur is None and not work:
                 break
         out, self.finished = self.finished, []
@@ -416,12 +442,11 @@ class Engine:
         one batched decode step (one replay), immediate harvest (the
         depth-1 cadence: one token per active slot). Returns the number of
         tokens harvested."""
-        abort.check()   # cooperative-cancel poll point (utils/abort.py)
-        self._advance_admission()
-        d = self._dispatch()
-        if d is None:
-            return 0
-        return self._harvest([d])
+        with trace.named_scope("engine.window", mirror=False):
+            abort.check()   # cooperative-cancel poll point (utils/abort.py)
+            self._advance_admission()
+            d = self._dispatch()
+            return 0 if d is None else self._harvest([d])
 
     # -- engine internals -------------------------------------------------
 
@@ -523,30 +548,38 @@ class Engine:
         free = [b for b, s in enumerate(self.slots) if s is None]
         if len(free) < 2:
             return False
-        reqs = []
-        while (self.queue and len(reqs) < len(free)
-               and len(self.queue[0].prompt) <= self.chunk_size):
-            reqs.append(self.queue.pop(0))
+        n = 0
+        while (n < min(len(free), len(self.queue))
+               and len(self.queue[n].prompt) <= self.chunk_size):
+            n += 1
         if self.paged:
             # every admitted request needs its pages up front, from its
             # slot's group; the flood is trimmed to what the free lists seat
-            # (the rest go back to the queue's head in order)
             seated, budget = 0, [len(f) for f in self._free_pages]
-            for b, r in zip(free, reqs):
+            for b, r in zip(free, self.queue[:n]):
                 need = -(-len(r.prompt) // self.page_size)
                 if budget[self._group(b)] < need:
                     break
                 budget[self._group(b)] -= need
                 seated += 1
-            self.queue[0:0] = reqs[seated:]
-            reqs = reqs[:seated]
-        if len(reqs) < 2:
-            self.queue[0:0] = reqs
+            n = seated
+        if n < 2:
             return False
+        with trace.named_scope("engine.flood") as span:
+            reqs, self.queue[:n] = self.queue[:n], []
+            for r in reqs:
+                r.t_admit, r.admitted_by = span.t0, "flood"
+            self._flood(reqs, free[:n], span)
+        return True
+
+    def _flood(self, reqs: list[Request], slots: list[int], span: trace.Span):
+        """The flood of `reqs` into `slots` (`_admit_batch`), its counts on
+        `span`: the requests, their prompt tokens and the rows computed
+        (max_batch × s_pad, pad rows included)."""
         # prompts are < max_seq (submit), so min() keeps them whole
         s_pad = min(_bucket(max(len(r.prompt) for r in reqs)), self.chunk_size, self.max_seq)
-        slots = free[:len(reqs)]
         B, dev = self.max_batch, self.device
+        span.set(requests=len(reqs), tokens=sum(len(r.prompt) for r in reqs), rows=B * s_pad)
         k = min(MAX_K, self.cfg.n_vocab)
         toks = np.zeros((B, s_pad), np.int64)
         # per-slot rows, uploaded as one: admitted, plen, temp, top_k, top_p,
@@ -594,7 +627,6 @@ class Engine:
         shared = _Firsts(firsts)
         for b, r in zip(slots, reqs):
             self._install(b, r, shared, b)
-        return True
 
     def _first_token(self, logits_row: torch.Tensor, r: Request) -> torch.Tensor:
         """A request's first token, sampled on the device under its
@@ -616,30 +648,43 @@ class Engine:
         paged pool the install waits while the pool lacks the request's
         pages (active slots keep decoding; completions free pages), and
         raises when no slot is active to free any."""
-        if self.pending is None:
-            if not self.queue or self._free_slot() is None:
-                return
-            r = self.queue.pop(0)
-            kv = self.m.make_cache(self.cfg, self.max_seq, device=self.device,
-                                   quant=self.kv_quant)
-            if self.mesh is not None:
-                from ..parallel.tp import shard_kv
+        if self.pending is None and (not self.queue or self._free_slot() is None):
+            return
+        if self.pending is not None and self.pending.first is not None:
+            self._install_pending()      # prefilled, waiting for pages
+            return
+        with trace.named_scope("engine.chunk") as span:
+            if self.pending is None:
+                r = self.queue.pop(0)
+                r.t_admit, r.admitted_by = span.t0, "chunk"
+                kv = self.m.make_cache(self.cfg, self.max_seq, device=self.device,
+                                       quant=self.kv_quant)
+                if self.mesh is not None:
+                    from ..parallel.tp import shard_kv
 
-                kv = shard_kv(self.mesh, kv, batched=False)
-            self.pending = _Pending(r, kv)
-        p = self.pending
-        r = p.req
-        toks = r.prompt
-        if p.first is None:
-            chunk = toks[p.done_tokens:p.done_tokens + self.chunk_size]
+                    kv = shard_kv(self.mesh, kv, batched=False)
+                self.pending = _Pending(r, kv)
+            p = self.pending
+            r = p.req
+            chunk = r.prompt[p.done_tokens:p.done_tokens + self.chunk_size]
             padded = np.zeros(min(_bucket(len(chunk)), self.chunk_size), np.int64)
             padded[:len(chunk)] = chunk
+            span.rid = r.rid
+            span.set(tokens=len(chunk))
             logits, p.kv = self._prefill_chunk(to_device(padded, self.device), p.kv,
                                                p.done_tokens)
             p.done_tokens += len(chunk)
-            if p.done_tokens < len(toks):
+            if p.done_tokens < len(r.prompt):
                 return
             p.first = self._first_token(logits[len(chunk) - 1], r)
+            self._install_pending()
+
+    def _install_pending(self):
+        """Install the prefilled pending request into a free slot; on the
+        paged pool only once the pool has its pages."""
+        p = self.pending
+        r = p.req
+        toks = r.prompt
         b = self._free_slot()
         lb = self._local(b)
         if self.paged:
@@ -671,6 +716,8 @@ class Engine:
                 or (r.eos_id is not None and r.out and r.out[-1] == r.eos_id)
                 or len(r.prompt) + len(r.out) >= self.max_seq):
             r.done = True
+            r.t_finish = time.perf_counter_ns()
+            _trace_request(r)
             self.finished.append(r)
             self.slots[b] = None
             self.host_len[b] = 0
@@ -762,16 +809,17 @@ class Engine:
     def _replay(self, active: np.ndarray, depth: int, window: int, flow: str = "step"):
         """Replay the `depth`-step program; returns (HostCopy of its token
         stack, slot→rid snapshots)."""
-        if self.paged:
-            self._ensure_pages(active, depth)
-        self._upload_state(active)
-        self._load_noise(depth)
-        if flow == "delta" and depth not in self._delta:
-            self._delta[depth] = WindowDelta.create(self.cfg.n_layer, self._bl, self._kvh,
-                                                    depth, self.cfg.head_dim,
-                                                    device=self.device)
-        out = self._graph(window, depth, flow).replay()[0]
-        rows = HostCopy(out)    # before the next replay overwrites it
+        with trace.named_scope("engine.replay"):
+            if self.paged:
+                self._ensure_pages(active, depth)
+            self._upload_state(active)
+            self._load_noise(depth)
+            if flow == "delta" and depth not in self._delta:
+                self._delta[depth] = WindowDelta.create(self.cfg.n_layer, self._bl, self._kvh,
+                                                        depth, self.cfg.head_dim,
+                                                        device=self.device)
+            out = self._graph(window, depth, flow).replay()[0]
+            rows = HostCopy(out)    # before the next replay overwrites it
         self.counters += depth
         self.host_len += active.astype(np.int32) * depth
         return rows, [[r.rid if r is not None else None for r in self.slots]] * depth
@@ -839,20 +887,22 @@ class Engine:
         whose request completed earlier (rid mismatch or freed slot) are
         discarded, so the outputs match depth 1 exactly (reference
         :887-918)."""
-        n = 0
-        firsts, self._first_pending = self._first_pending, []
-        for rid, b, tok, j in firsts:
-            r = self.slots[b]
-            if r is not None and r.rid == rid:
-                r.out.append(tok.item(j))
-                n += 1
-                self._check_done(b)
-        for rows, snaps in dispatched:
-            for row, snap in zip(rows.numpy(), snaps):
-                for b, rid in enumerate(snap):
-                    r = self.slots[b]
-                    if r is not None and r.rid == rid:
-                        r.out.append(int(row[b]))
-                        n += 1
-                        self._check_done(b)
+        with trace.named_scope("engine.harvest"):
+            n = 0
+            firsts, self._first_pending = self._first_pending, []
+            for rid, b, tok, j in firsts:
+                r = self.slots[b]
+                if r is not None and r.rid == rid:
+                    r.out.append(tok.item(j))
+                    r.t_first = time.perf_counter_ns()
+                    n += 1
+                    self._check_done(b)
+            for rows, snaps in dispatched:
+                for row, snap in zip(rows.numpy(), snaps):
+                    for b, rid in enumerate(snap):
+                        r = self.slots[b]
+                        if r is not None and r.rid == rid:
+                            r.out.append(int(row[b]))
+                            n += 1
+                            self._check_done(b)
         return n

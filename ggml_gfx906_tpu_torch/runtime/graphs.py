@@ -34,12 +34,13 @@ of replaying a stale program (the reference's key, engine.py:205-206).
 """
 from __future__ import annotations
 
+import gc
 import time
 
 import torch
 
 from ..ops import cuda as kernels
-from ..utils import config
+from ..utils import config, trace
 
 # the config knobs that the traced decode code reads
 TRACED_KNOBS = ("attn_impl", "qmm_pipeline", "int8_min_m", "weights_layout", "int8_tile",
@@ -79,8 +80,17 @@ class StepGraph:
         before = [k.launches for k in kernels.KERNELS]
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=pool):
-            self.outputs = _as_tuple(self.fn())
+        # no garbage collection inside the capture: a dead cycle that holds
+        # a CUDA graph (an engine and its programs' closures) destroyed
+        # there would invalidate it
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=pool):
+                self.outputs = _as_tuple(self.fn())
+        finally:
+            if collecting:
+                gc.enable()
         self.capture_s = time.perf_counter() - t0
         for k, n in zip(kernels.KERNELS, before):
             if k.launches != n:
@@ -110,7 +120,8 @@ class GraphCache:
     memory pool and one warm-up stream. capture=False keeps every program
     a direct call on the card too: an Engine on a gloo mesh
     (parallel/mesh.py), whose collectives a CUDA graph cannot hold, runs
-    its window bodies so, uncaptured; `captured` says which."""
+    its window bodies so, uncaptured; `captured` says which. Each new
+    program is made inside a `graphs.capture` span (utils/trace.py)."""
 
     def __init__(self, device: torch.device, capture: bool = True):
         self.device = device
@@ -125,11 +136,12 @@ class GraphCache:
         key = tuple(key) + config_key()
         g = self.graphs.get(key)
         if g is None:
-            if self.captured and self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-                self._stream = torch.cuda.Stream(self.device)
-            g = self.graphs[key] = StepGraph(fn, self.device, state, self._pool,
-                                             self._stream, self.captured)
+            with trace.named_scope("graphs.capture"):
+                if self.captured and self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                    self._stream = torch.cuda.Stream(self.device)
+                g = self.graphs[key] = StepGraph(fn, self.device, state, self._pool,
+                                                 self._stream, self.captured)
         return g
 
     def capture_s(self) -> float:
@@ -151,7 +163,8 @@ class HostCopy:
     """A device tensor's value on the host, copied now and read later: on
     the card a copy into pinned memory ordered on the current stream, with
     an event that `numpy()` waits on (so a read waits for the work queued
-    before the copy, not for the work queued after it)."""
+    before the copy, not for the work queued after it), inside a
+    `graphs.wait` span."""
 
     def __init__(self, t: torch.Tensor):
         self._event = None
@@ -164,6 +177,7 @@ class HostCopy:
             self._host = t.detach().clone()
 
     def numpy(self):
-        if self._event is not None:
-            self._event.synchronize()
-        return self._host.numpy()
+        with trace.named_scope("graphs.wait"):
+            if self._event is not None:
+                self._event.synchronize()
+            return self._host.numpy()
