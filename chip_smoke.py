@@ -75,7 +75,10 @@ Phases (each failure raises, so the script exits non-zero):
      request. The 32-layer Q4_K file adds two phases: `admission`, one
      whole traced engine run split by the engine's own spans (flood,
      chunk, replay, capture, harvest, wait; each flood span held against
-     its profiler event within 1 ms) and one flood alone traced;
+     its profiler event within 1 ms), one flood alone traced, and one
+     flood of the 8 short prompts beside a decoding slot of a 16-slot
+     engine, its 8 rows against the 16-row block (first tokens and K/V
+     rows bit-equal, both floods' device ms);
      `kv_variants`, the engine on the int8 cache (== generate(kv_quant=
      True) where one route, K2 on int8 K/V), on a paged pool of half the
      dense pages (== the dense engine, with and without kv_quant) and with
@@ -1572,8 +1575,8 @@ def engine_vs_generate(recipe, cfg, params, device, prompts, done, int8_route: b
                        mod=llama) -> dict:
     """Each engine stream against `generate`'s for its prompt: asserted equal
     where both prefill the prompt on one matmul route, recorded (the first
-    divergence) elsewhere. A flood prefills at M = B·s_pad, so on a file
-    with an int8 route (Q4_K, Q8_0, Q4_0 tensors in the kernel layout) a
+    divergence) elsewhere. A flood's products take the routes of M =
+    B·s_pad, so on a file with an int8 route (Q4_K, Q8_0, Q4_0 tensors in the kernel layout) a
     flooded prompt shorter than int8_min_m takes K3 / K5-i8 / K6-i8 where
     `generate` takes the f32 kernel; a tree without the flood admits
     request by request, on generate's route. `mod`: the model's module."""
@@ -1740,6 +1743,58 @@ def admission_phase(device, cfg, params, prompts, long_prompt, streams) -> dict:
     del eng, flood
     gc.collect()
     torch.cuda.empty_cache()
+    if hasattr(Engine, "_flood_rows"):
+        out["compact_flood"] = compact_flood_check(device, cfg, params, prompts, long_prompt)
+    return out
+
+
+def compact_flood_check(device, cfg, params, prompts, long_prompt) -> dict:
+    """One flood of the 8 short prompts into a 16-slot engine whose first
+    slot decodes the long prompt (admitted in chunks), run as the engine
+    sizes it (the admitted rows, `Engine._flood_rows`) and as the full block
+    of every slot's row, each in an engine of its own: the first tokens, the
+    admitted slots' lengths and their installed K/V rows [0, plen) of every
+    layer must be bit-equal. Each flood traced alone (`trace_device`): its
+    device busy ms. `blocks`: the token block's (rows, s_pad) each time."""
+    got, out = {}, {}
+    for mode in ("compact", "full"):
+        eng = Engine(llama, cfg, params, max_batch=16, max_seq=1024, device=device)
+        if mode == "full":
+            eng._flood_rows = lambda n, s_pad: eng.max_batch
+        blocks, prefill = [], eng._prefill_flood
+
+        def spy(toks, *a, prefill=prefill, blocks=blocks, **kw):
+            blocks.append(list(toks.shape))
+            return prefill(toks, *a, **kw)
+
+        eng._prefill_flood = spy
+        eng.submit(long_prompt, N_NEW)
+        while eng.pending is not None or eng.queue:
+            eng.step()
+        for j, p in enumerate(prompts):
+            eng.submit(p, N_NEW, seed=j)
+        rec = trace_device(eng._admit_batch)
+        firsts = {b: tok.item(j) for _, b, tok, j in eng._first_pending}   # the flood's
+        slots = sorted(firsts)
+        rows = [[(eng.kv.k[li][b, :, :len(eng.slots[b].prompt)].clone(),
+                  eng.kv.v[li][b, :, :len(eng.slots[b].prompt)].clone())
+                 for li in range(cfg.n_layer)] for b in slots]
+        got[mode] = (slots, firsts, eng.kv.lengths[slots].tolist(), rows)
+        out[mode] = {"blocks": blocks, "device_busy_ms": rec["busy_ms"],
+                     "profiled_wall_ms": rec["profiled_wall_ms"], "top_ms": rec["top_ms"][:4]}
+        eng.run()
+        del eng, spy
+        gc.collect()
+        torch.cuda.empty_cache()
+    (slots, firsts, lengths, rows), (slots_f, firsts_f, lengths_f, rows_f) = (
+        got["compact"], got["full"])
+    kv_equal = all(torch.equal(a, c) and torch.equal(b, d)
+                   for slot, slot_f in zip(rows, rows_f)
+                   for (a, b), (c, d) in zip(slot, slot_f))
+    out.update(slots=slots, first_tokens=[firsts[b] for b in slots],
+               equal=slots == slots_f and firsts == firsts_f and lengths == lengths_f and kv_equal)
+    if not out["equal"] or out["compact"]["blocks"][0][0] >= 16:
+        raise AssertionError(f"compact flood against the full block: {out}")
     return out
 
 

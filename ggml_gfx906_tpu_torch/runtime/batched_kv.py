@@ -83,6 +83,15 @@ class BatchedKVCache:
     def max_seq(self) -> int:
         return self.k[0].shape[2]
 
+    def rows(self, n: int) -> "BatchedKVCache":
+        """The cache of its first n slots: views of its buffers and lengths
+        (itself where n covers every slot)."""
+        if n >= self.max_batch:
+            return self
+        return BatchedKVCache([t[:n] for t in self.k], [t[:n] for t in self.v],
+                              [t[:n] for t in self.k_d], [t[:n] for t in self.v_d],
+                              self.lengths[:n])
+
     def with_lengths(self, lengths: torch.Tensor) -> "BatchedKVCache":
         """Set the lengths IN PLACE: the engine's captured decode programs
         read this very tensor, so it is never rebound."""
@@ -158,17 +167,22 @@ class BatchedKVCache:
         return self
 
 
-def absorb_temp(kv: BatchedKVCache, temp: BatchedKVCache,
-                slots: torch.Tensor) -> BatchedKVCache:
+def absorb_temp(kv: BatchedKVCache, temp: BatchedKVCache, slots: torch.Tensor,
+                rows: torch.Tensor | None = None) -> BatchedKVCache:
     """Install a flood's prefill (runtime/engine.py::_admit_batch): the
-    rows [0, S) and the lengths of the temp cache's slots `slots` (a
-    device index vector) into the live dense cache, in place; no other
-    slot is written (the reference's `_absorb_temp`, engine.py:143-168)."""
+    positions [0, S) and the length of temp row rows[i] into live slot
+    slots[i] (device index vectors; rows by default the temp cache's first
+    len(slots) rows), in place; no other slot is written (the reference's
+    `_absorb_temp`, engine.py:143-168, where temp row b is slot b)."""
     S = temp.max_seq
     pairs = list(zip(kv.k + kv.v, temp.k + temp.v))
     if kv.quantized:
         pairs += list(zip(kv.k_d + kv.v_d, temp.k_d + temp.v_d))
+
+    def take(t):
+        return t[:slots.shape[0]] if rows is None else t.index_select(0, rows)
+
     for buf, t in pairs:
-        buf[slots, :, :S] = t.index_select(0, slots).to(buf.dtype)
-    kv.lengths[slots] = temp.lengths.index_select(0, slots)
+        buf[slots, :, :S] = take(t).to(buf.dtype)
+    kv.lengths[slots] = take(temp.lengths)
     return kv

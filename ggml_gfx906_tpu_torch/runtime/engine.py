@@ -9,9 +9,11 @@ A fixed pool of B slots over a preallocated batched KV cache: dense, int8
 Admission first tries a FLOOD (`_admit_batch`, reference :586-711): when no
 chunked request is pending, at least 2 slots are free and at least 2
 single-chunk prompts head the queue, up to one per free slot are prefilled
-in ONE eager `forward_batch` at M = B·s_pad into a temp cache, their first
-tokens sampled on the device, and the admitted rows installed into the
-live cache in place (`batched_kv.absorb_temp`, or through the page table).
+in ONE eager `forward_batch` at M = r·s_pad into a temp cache (r rows: the
+n admitted prompts, raised with pad rows only as far as every product keeps
+the route of the max_batch block, `_flood_rows`), their first tokens
+sampled on the device, and row i installed into the live cache in place at
+its slot (`batched_kv.absorb_temp`, or through the slot's page-table row).
 Otherwise it prefills one request at a time in fixed-size chunks (each
 padded to a bucket), interleaved with decode steps, so a long prompt never
 stalls the active slots for more than one chunk; below half occupancy
@@ -68,11 +70,11 @@ Streams: with engine_window_delta False they equal the reference engine's
 at the same setting, at any depth, on every cache flavour (the delta
 formulation changes bits: attention's reduction order and the bf16 delta).
 A request's stream equals `generate`'s when both prefill it on one matmul
-route: a flood prefills at M = B·s_pad, so on files with an int8 route
-(Q4_K, Q8_0, Q4_0 tensors) a flooded prompt shorter than int8_min_m
-prefills on K3 / K5-i8 / K6-i8 where `generate` takes the f32 kernel, as
-in the reference; the rows of both bodies are bit-equal across M, so on
-one route the streams are equal.
+route: a flood's products take the routes of M = B·s_pad, so on files
+with an int8 route (Q4_K, Q8_0, Q4_0 tensors) a flooded prompt shorter
+than int8_min_m prefills on K3 / K5-i8 / K6-i8 where `generate` takes the
+f32 kernel, as in the reference; the rows of both bodies are bit-equal
+across M, so on one route the streams are equal.
 
 Deliberate differences: the graphs belong to an Engine instance, because
 they hold its KV buffers' addresses; the reference shares its jitted
@@ -81,9 +83,14 @@ engine_window_delta defaults to False, the reference's to True: on the
 H100 the delta window is slower than the strict one (168 against 141 ms a
 depth-8 window of a 32-layer 7B-width model at attention window 256) and
 changes every stream's bits. A flood runs eagerly, not as a captured
-program. On a gloo mesh the windows run uncaptured (a CUDA graph cannot
-hold a gloo collective; chosen by the mesh's backend, `graphs.captured`),
-on an NCCL mesh they are captured with the collectives inside.
+program. A flood computes the rows of the requests it admits
+(`_flood_rows`), where the reference's `_prefill_batch` computes every
+slot's row; a row's bits depend neither on the rows beside it nor on M
+within one route, so the streams are the same (a mesh Engine keeps the
+full block). On a gloo mesh the windows run uncaptured (a CUDA graph
+cannot hold a gloo collective; chosen by the mesh's backend,
+`graphs.captured`), on an NCCL mesh they are captured with the
+collectives inside.
 
 Sampling: token j of a request draws its Gumbel noise under the key
 fold_in(PRNGKey(seed), j), bit for bit the reference's (runtime/sampling.py):
@@ -104,6 +111,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..ops.cuda import dispatch
 from ..utils import abort, config, trace
 from ..utils.device import resolve, to_device, tree_device, upload
 from .batched_kv import BatchedKVCache, WindowDelta, absorb_temp
@@ -242,12 +250,12 @@ def decode_window(fb, kv, tok, active, noise, temps, top_ks, top_ps, window: int
 
 def prefill_batch(fb, toks, temp, starts, plens, noise, temps, top_ks, top_ps,
                   slots: slice = slice(None), gather=None) -> tuple:
-    """A flood's prefill (reference :586-711): every slot's row of the
-    (B, s_pad) token block at `starts` into the temp cache, one
-    forward_batch at attention window s_pad, each row's first token
-    sampled on the device from its logits at plen − 1 (noise (B, k) under
-    the counter-0 keys), the temp cache's lengths set to plens. fb, slots
-    and gather as in `decode_window`. Returns (the (B,) first tokens, temp)."""
+    """A flood's prefill (reference :586-711): every row of the (R, s_pad)
+    token block at `starts` into the temp cache (R rows), one forward_batch
+    at attention window s_pad, each row's first token sampled on the device
+    from its logits at plen − 1 (noise (R, k) under the counter-0 keys), the
+    temp cache's lengths set to plens. fb, slots and gather as in
+    `decode_window`. Returns (the (R,) first tokens, temp)."""
     t = toks[slots]
     logits, temp = fb(t, temp, starts[slots], attn_window=t.shape[1])
     pl = plens[slots]
@@ -517,8 +525,9 @@ class Engine:
         self._slot_pages[b] = pages
         return pages
 
-    def _temp_cache(self, s_pad: int) -> BatchedKVCache:
-        """The flood's temp cache of s_pad positions (this rank's slots and
+    def _temp_cache(self, s_pad: int, rows: int) -> BatchedKVCache:
+        """The flood's temp cache of s_pad positions and `rows` rows: a view
+        of the first rows of the bucket's cache (this rank's slots and
         heads), made once per bucket. It needs no zeroing: a flood's forward
         writes every position [0, s_pad) of every row (and every scale when
         quantized) before its attention reads them."""
@@ -527,7 +536,30 @@ class Engine:
             temp = self._temp_kv[s_pad] = BatchedKVCache.create(
                 self.cfg.n_layer, self._bl, s_pad, self._kvh, self.cfg.head_dim,
                 dtype=self.cfg.compute_dtype, device=self.device, quant=self.kv_quant)
-        return temp
+        return temp.rows(rows)
+
+    def _flood_rows(self, n: int, s_pad: int) -> int:
+        """The rows of a flood of n prompts at s_pad: n, raised with pad rows
+        as far as every product of the block needs to take the route it
+        takes in the max_batch block. A route changes with M alone
+        (ops/cuda/dispatch.py::route; a flood's M is never 1, K10's): the
+        block's products run at M = rows·s_pad, an expert stack's at C =
+        rows·s_pad·n_expert_used (ops/recurrent.py::mul_mat_id). M grows with
+        the rows, so the search ends at max_batch at the latest. A mesh keeps
+        the full block: each dp rank prefills its own slots."""
+        B = self.max_batch
+        if self.mesh is not None:
+            return B
+        us = {1, int(getattr(self.cfg, "n_expert_used", 1))}
+        types = sorted(dispatch.INT8_TYPES)
+
+        def routes(r):
+            return [dispatch.route(r * s_pad * u, t) for u in us for t in types]
+
+        full, r = routes(B), n
+        while r < B and routes(r) != full:
+            r += 1
+        return r
 
     def _admit_batch(self) -> bool:
         """Admit up to one single-chunk prompt per free slot in ONE batched
@@ -536,13 +568,15 @@ class Engine:
         slots are free and at least 2 prompts of at most chunk_size tokens
         head the queue, taken strictly FIFO (on the paged pool, as many as
         the free pages seat): a pure function of host state. The flood
-        prefills every slot's row of a (B, s_pad) token block at starts 0
-        into the temp cache (the other rows process pad and are dropped),
-        samples the admitted rows' first tokens on the device at counter 0
-        from the row at plen − 1 (the keys of the single-request path), and
-        installs the admitted rows' K/V [0, s_pad) and lengths into the live
-        cache in place, ordered on the stream after any dispatched replay.
-        Runs eagerly; raises on any failure."""
+        prefills an (r, s_pad) token block at starts 0 into the temp cache,
+        row i the i-th admitted request (rows past them, `_flood_rows`'
+        pad, are dropped), samples the admitted rows' first tokens on the
+        device at counter 0 from the row at plen − 1 (the keys of the
+        single-request path), and installs the admitted rows' K/V [0, s_pad)
+        and lengths into their slots of the live cache in place, ordered on
+        the stream after any dispatched replay. A mesh Engine prefills the
+        (max_batch, s_pad) block, row b slot b. Runs eagerly; raises on any
+        failure."""
         if self.pending is not None:
             return False
         free = [b for b, s in enumerate(self.slots) if s is None]
@@ -574,33 +608,36 @@ class Engine:
 
     def _flood(self, reqs: list[Request], slots: list[int], span: trace.Span):
         """The flood of `reqs` into `slots` (`_admit_batch`), its counts on
-        `span`: the requests, their prompt tokens and the rows computed
-        (max_batch × s_pad, pad rows included)."""
+        `span`: the requests, their prompt tokens, the rows of the block
+        (`batch`) and the rows computed (batch × s_pad, pad rows included)."""
         # prompts are < max_seq (submit), so min() keeps them whole
         s_pad = min(_bucket(max(len(r.prompt) for r in reqs)), self.chunk_size, self.max_seq)
-        B, dev = self.max_batch, self.device
-        span.set(requests=len(reqs), tokens=sum(len(r.prompt) for r in reqs), rows=B * s_pad)
+        dev, mesh, n = self.device, self.mesh is not None, len(reqs)
+        R = self._flood_rows(n, s_pad)
+        # the block row of each request: its slot on a mesh, its index otherwise
+        rows = slots if mesh else list(range(n))
+        span.set(requests=n, tokens=sum(len(r.prompt) for r in reqs), rows=R * s_pad, batch=R)
         k = min(MAX_K, self.cfg.n_vocab)
-        toks = np.zeros((B, s_pad), np.int64)
-        # per-slot rows, uploaded as one: admitted, plen, temp, top_k, top_p,
-        # and this rank's rows of the admitted slots (all exact in f64)
+        toks = np.zeros((R, s_pad), np.int64)
+        # per-row vectors, uploaded as one: admitted, plen, temp, top_k, top_p,
+        # and this rank's cache rows of the admitted slots (all exact in f64)
         local = [lb for lb in map(self._local, slots) if lb is not None]
-        vec = np.zeros((6, B), np.float64)
+        vec = np.zeros((6, R), np.float64)
         vec[3], vec[4] = 1, 1
-        seeds = [0] * B
-        for b, r in zip(slots, reqs):
-            toks[b, :len(r.prompt)] = r.prompt
-            vec[:5, b] = (1, len(r.prompt), r.temp, r.top_k, r.top_p)
-            seeds[b] = r.seed
+        seeds = [0] * R
+        for j, r in zip(rows, reqs):
+            toks[j, :len(r.prompt)] = r.prompt
+            vec[:5, j] = (1, len(r.prompt), r.temp, r.top_k, r.top_p)
+            seeds[j] = r.seed
         vec[5, :len(local)] = local
-        noise = (gumbel_noise(seeds, [0] * B, k, dev) if any(r.temp > 0 for r in reqs)
-                 else torch.zeros((B, k), device=dev))
+        noise = (gumbel_noise(seeds, [0] * R, k, dev) if any(r.temp > 0 for r in reqs)
+                 else torch.zeros((R, k), device=dev))
         toks_d, vec_d = to_device(toks, dev), to_device(vec, dev)
-        admitted = vec_d[0] > 0
+        admitted = vec_d[0] > 0 if mesh else None
         plens = vec_d[1].to(torch.int32)
         idx = vec_d[5, :len(local)].to(torch.int64)
-        temp = self._temp_cache(s_pad)
-        firsts, temp = self._prefill_flood(toks_d, temp, self._zeros, plens, noise,
+        temp = self._temp_cache(s_pad, R)
+        firsts, temp = self._prefill_flood(toks_d, temp, self._zeros[:R], plens, noise,
                                            vec_d[2].float(), vec_d[3].to(torch.int32),
                                            vec_d[4].float())
         if self.paged:
@@ -614,19 +651,22 @@ class Engine:
                     i += 1
             if local:
                 self.kv.page_table[idx] = to_device(pt, dev)
-            if self.mesh is None:
-                self.kv.absorb(temp, self._zeros, s_pad, mask=admitted)
+            if not mesh:
+                self.kv.absorb(temp.rows(n), self._zeros[:n], s_pad, slots=idx)
             else:
                 from ..parallel.tp import tp_absorb_temp_paged
 
                 tp_absorb_temp_paged(self.mesh, self.kv, temp, admitted, s_pad)
         elif local:
-            absorb_temp(self.kv, temp, idx)
+            absorb_temp(self.kv, temp, idx, rows=idx if mesh else None)
         # the captured graphs read this very buffer: updated in place
-        self._tok.copy_(torch.where(admitted, firsts.to(self._tok.dtype), self._tok))
+        if mesh:
+            self._tok.copy_(torch.where(admitted, firsts.to(self._tok.dtype), self._tok))
+        else:
+            self._tok.index_copy_(0, idx, firsts[:n].to(self._tok.dtype))
         shared = _Firsts(firsts)
-        for b, r in zip(slots, reqs):
-            self._install(b, r, shared, b)
+        for b, j, r in zip(slots, rows, reqs):
+            self._install(b, r, shared, j)
 
     def _first_token(self, logits_row: torch.Tensor, r: Request) -> torch.Tensor:
         """A request's first token, sampled on the device under its

@@ -118,17 +118,21 @@ class PagedKVCache:
                               self.lengths)
 
     def absorb(self, dense: BatchedKVCache, starts: torch.Tensor, depth: int,
-               mask: torch.Tensor | None = None) -> "PagedKVCache":
+               mask: torch.Tensor | None = None,
+               slots: torch.Tensor | None = None) -> "PagedKVCache":
         """Scatter positions starts[b] .. starts[b]+depth-1 (clamped to
         max_seq - 1) of every layer of `dense` back through the page table,
         in place. mask (B,) bool: when given, only masked slots' rows land
         in their pages (the others on the scratch page) and only their
-        lengths are taken from `dense` (the flood's install); without it
+        lengths are taken from `dense` (a mesh flood's install); slots (R,)
+        int64: dense's row i is slot slots[i], each row lands in its slot's
+        pages and gives it its length (the flood's install); with neither
         `dense` is the scan window's view, whose lengths are the pool's."""
         ps = self.page_size
         pos = starts.to(torch.int64)[:, None] + torch.arange(depth, device=starts.device)
-        pos = torch.clamp(pos, max=self.max_seq - 1)                          # (B, depth)
-        pages = torch.gather(self.page_table.to(torch.int64), 1, pos // ps)
+        pos = torch.clamp(pos, max=self.max_seq - 1)                          # (R, depth)
+        table = self.page_table if slots is None else self.page_table[slots]
+        pages = torch.gather(table.to(torch.int64), 1, pos // ps)
         if mask is not None:
             pages = torch.where(mask[:, None], pages, torch.full_like(pages, self.scratch_page))
         offs = pos % ps
@@ -138,7 +142,9 @@ class PagedKVCache:
             for pool, src in zip(self._pools(li), srcs):
                 # (B, H, W[, D]) at (row, :, pos) → (B, depth, H[, D])
                 pool[pages, :, offs] = src[li][rows, :, pos].to(pool.dtype)
-        if mask is not None:
+        if slots is not None:
+            self.lengths[slots] = dense.lengths
+        elif mask is not None:
             self.lengths.copy_(torch.where(mask, dense.lengths, self.lengths))
         return self
 

@@ -1,31 +1,39 @@
 """Port parity: the engine's batched flood admission and the paged KV pool.
 
-The port's Engine floods short prompts (one `forward_batch` at M = B·s_pad
-into a temp cache, first tokens sampled on the device, the admitted rows
-installed in place) as the JAX Engine does (runtime/engine.py:586-711), on
-the dense cache, the int8 cache (kv_quant) and the paged pool
-(runtime/paged_kv.py). Its streams, greedy and seeded-sampled, equal the
-JAX Engine's at the same settings (engine_window_delta False on both
-sides; int8_min_m = 0 on both, so that every product is f32 and both
-packages compute the same function). Page bookkeeping: the pool against
-the dense cache, deferred admission while the pool is full, the
-too-small-pool error, a flood trimmed to the free pages."""
+The port's Engine floods short prompts (one `forward_batch` over the
+admitted requests' rows into a temp cache, first tokens sampled on the
+device, row i installed in place at its slot) where the JAX Engine
+prefills every slot's row (runtime/engine.py:586-711), on the dense cache,
+the int8 cache (kv_quant) and the paged pool (runtime/paged_kv.py). Its
+streams, greedy and seeded-sampled, equal the JAX Engine's at the same
+settings (engine_window_delta False on both sides; int8_min_m = 0 on both,
+so that every product is f32 and both packages compute the same
+function), for a flood into an empty engine and one beside active slots.
+A compact flood keeps every product's route of the full block (the port
+alone, int8_min_m > 0). Page bookkeeping: the pool against the dense
+cache, deferred admission while the pool is full, the too-small-pool
+error, a flood trimmed to the free pages."""
+import itertools
+
 import numpy as np
 import pytest
 import torch
 
 from ggml_gfx906_tpu.models import llama as jllama
+from ggml_gfx906_tpu.models import moe as jmoe
 from ggml_gfx906_tpu.quant.types import GGMLType
 from ggml_gfx906_tpu.runtime.engine import Engine as JEngine
 from ggml_gfx906_tpu.runtime.paged_kv import PagedKVCache as JPagedKVCache
 from ggml_gfx906_tpu.utils import config as jconfig
 from ggml_gfx906_tpu_torch.models import llama as tllama
+from ggml_gfx906_tpu_torch.models import moe as tmoe
+from ggml_gfx906_tpu_torch.ops.cuda import dispatch
 from ggml_gfx906_tpu_torch.runtime.batched_kv import BatchedKVCache
 from ggml_gfx906_tpu_torch.runtime.engine import Engine
 from ggml_gfx906_tpu_torch.runtime.paged_kv import PagedKVCache
 from ggml_gfx906_tpu_torch.utils import config as tconfig
 
-from _torch_port import one_torch_thread, tiny_models  # noqa: F401
+from _torch_port import jax_params_to_numpy, one_torch_thread, tiny_models  # noqa: F401
 
 MAX_SEQ = 64
 CHUNK = 32
@@ -79,48 +87,85 @@ def _spy_floods(eng) -> list:
     return floods
 
 
-def _serve(eng, prompts, n_new, sampled=(), **kw):
+def _spy_blocks(eng) -> list:
+    """Record the (rows, s_pad) shape of every flood's token block."""
+    blocks = []
+    orig = eng._prefill_flood
+
+    def spy(toks, *a, **kw):
+        blocks.append(tuple(toks.shape))
+        return orig(toks, *a, **kw)
+
+    eng._prefill_flood = spy
+    return blocks
+
+
+def _serve(eng, prompts, n_new, sampled=(), waves=(), **kw):
     """The streams of `prompts` (request j seeded 21 + j; the requests whose
-    index is in `sampled` at temp > 0)."""
-    rids = [eng.submit(p, n_new, seed=21 + j, **(SAMPLED if j in sampled else {}), **kw)
-            for j, p in enumerate(prompts)]
+    index is in `sampled` at temp > 0). waves: the sizes of leading groups
+    submitted one at a time, each followed by two engine steps; the rest
+    then arrive together."""
+    rids = []
+    for j, p in enumerate(prompts):
+        rids.append(eng.submit(p, n_new, seed=21 + j, **(SAMPLED if j in sampled else {}),
+                               **kw))
+        if j + 1 in itertools.accumulate(waves):
+            eng.step()
+            eng.step()
     done = {r.rid: r.out for r in eng.run()}
     assert set(done) == set(rids)
     return [done[r] for r in rids]
 
 
+# arrival "together": four prompts into an empty 4-slot engine, one flood
+# of every slot; "beside": two prompts flood an empty 8-slot engine, then
+# three more flood beside them (two greedy, one sampled)
+ARRIVALS = {"together": dict(lengths=[9, 20, 3, 17, 5], max_batch=4, waves=(), sampled=(1, 3),
+                             blocks=[(4, 32)], greedy=(0, 2)),
+            "beside": dict(lengths=[25, 11, 9, 3, 14], max_batch=8, waves=(2,), sampled=(3,),
+                           blocks=[(2, 32), (3, 16)], greedy=(2, 4))}
+
+
+@pytest.mark.parametrize("arrival", list(ARRIVALS))
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
 @pytest.mark.parametrize("kv_quant", [False, True], ids=["f32kv", "int8kv"])
-def test_flood_matches_reference_engine(models, both, kv_quant, paged):
-    """Four short prompts arrive together: both engines admit them as one
-    flood (the port's floods counted) and give the same streams, two greedy
-    and two sampled, on each cache flavour; a fifth request, admitted after
-    a slot frees, goes through the same flood-or-chunk choice."""
+def test_flood_matches_reference_engine(models, both, kv_quant, paged, arrival):
+    """Short prompts arrive together, or in two waves: both engines admit
+    them in the same floods (the port's counted) and give the same
+    streams, greedy and sampled, on each cache flavour. A flood that fills
+    every slot of an empty engine computes every slot's row; one beside
+    active slots computes its own requests' rows only. In "together" a
+    fifth request, admitted after a slot frees, goes through the same
+    flood-or-chunk choice."""
     jcfg, jp, tcfg, tp = models
+    a = ARRIVALS[arrival]
     both("kv_quant", kv_quant)
-    prompts = _prompts([9, 20, 3, 17, 5], seed=1)
-    pages = 16 if paged else None
-    ref = _serve(JEngine(jllama, jcfg, jp, max_batch=4, max_seq=MAX_SEQ, chunk_size=CHUNK,
-                         paged_pages=pages), prompts, 6, sampled=(1, 3))
-    eng = Engine(tllama, tcfg, tp, max_batch=4, max_seq=MAX_SEQ, chunk_size=CHUNK,
-                 device="cpu", paged_pages=pages)
-    floods = _spy_floods(eng)
-    got = _serve(eng, prompts, 6, sampled=(1, 3))
-    assert floods[0] == 4
+    prompts = _prompts(a["lengths"], seed=1)
+    kw = dict(max_batch=a["max_batch"], max_seq=MAX_SEQ, chunk_size=CHUNK,
+              paged_pages=16 if paged else None)
+    serve = dict(n_new=6, sampled=a["sampled"], waves=a["waves"])
+    ref = _serve(JEngine(jllama, jcfg, jp, **kw), prompts, **serve)
+    eng = Engine(tllama, tcfg, tp, device="cpu", **kw)
+    floods, blocks = _spy_floods(eng), _spy_blocks(eng)
+    got = _serve(eng, prompts, **serve)
+    assert floods[:len(a["blocks"])] == [rows for rows, _ in a["blocks"]]
+    assert blocks[:len(a["blocks"])] == a["blocks"]
     assert eng.kv.quantized == kv_quant
     assert got == ref
     assert isinstance(eng.kv, PagedKVCache if paged else BatchedKVCache)
     greedy = [tllama.generate(tcfg, tp, prompts[j], 6, max_seq=MAX_SEQ, device="cpu",
-                              kv_quant=kv_quant)[len(prompts[j]):] for j in (0, 2)]
-    assert [got[0], got[2]] == greedy
-    assert got[1] != tllama.generate(tcfg, tp, prompts[1], 6, max_seq=MAX_SEQ, device="cpu",
-                                     kv_quant=kv_quant)[len(prompts[1]):]
+                              kv_quant=kv_quant)[len(prompts[j]):] for j in a["greedy"]]
+    assert [got[j] for j in a["greedy"]] == greedy
+    j = a["sampled"][0]
+    assert got[j] != tllama.generate(tcfg, tp, prompts[j], 6, max_seq=MAX_SEQ, device="cpu",
+                                     kv_quant=kv_quant)[len(prompts[j]):]
 
 
 def test_flood_near_cap(models, both):
-    """An active slot near max_seq, then a flood of two: the active slot's
-    cache is untouched by the flood (its stream equals the JAX Engine's and
-    generate's), and the flooded requests equal the JAX Engine's."""
+    """An active slot near max_seq, then a flood of two (its block of two
+    rows): the active slot's cache is untouched by the flood (its stream
+    equals the JAX Engine's and generate's), and the flooded requests equal
+    the JAX Engine's."""
     jcfg, jp, tcfg, tp = models
     long_prompt = _prompts([24], seed=4)[0]
     short = _prompts([2, 3], seed=5)
@@ -130,7 +175,8 @@ def test_flood_near_cap(models, both):
                  lambda: Engine(tllama, tcfg, tp, max_batch=4, max_seq=32, chunk_size=CHUNK,
                                 device="cpu")):
         eng = make()
-        floods = _spy_floods(eng) if isinstance(eng, Engine) else None
+        if isinstance(eng, Engine):
+            floods, blocks = _spy_floods(eng), _spy_blocks(eng)
         rid = eng.submit(long_prompt, 40)                  # runs to the 32-position cap
         for _ in range(4):
             eng.step()
@@ -138,10 +184,78 @@ def test_flood_near_cap(models, both):
         done = {r.rid: r.out for r in eng.run()}
         outs.append([done[r] for r in [rid] + rids])
     assert floods == [2]
+    assert blocks == [(2, 16)]              # the two admitted rows, not the 4 slots
     assert outs[1] == outs[0]
     assert len(outs[1][0]) == 8
     assert long_prompt + outs[1][0] == tllama.generate(tcfg, tp, long_prompt, 8, max_seq=32,
                                                        device="cpu")
+
+
+@pytest.fixture(scope="module")
+def moe_models():
+    """A tiny Mixtral-class model (4 experts, 2 a token; Q4_K), the port's."""
+    jcfg = jmoe.MoEConfig(n_vocab=256, n_ctx=MAX_SEQ, n_embd=256, n_head=4, n_kv_head=2,
+                          n_layer=2, n_ff=512, n_expert=4, n_expert_used=2)
+    tcfg = tmoe.MoEConfig(**{f: getattr(jcfg, f) for f in (
+        "n_vocab", "n_ctx", "n_embd", "n_head", "n_kv_head", "n_layer", "n_ff", "n_expert",
+        "n_expert_used", "rms_eps", "rope_base", "rope_freq_scale")})
+    jp = jmoe.random_params(jcfg, seed=0, qtype=GGMLType.Q4_K)
+    return tcfg, tmoe.params_from_numpy(jax_params_to_numpy(jp), device="cpu")
+
+
+@pytest.mark.parametrize("family,min_m,rows", [("llama", 64, 4), ("moe", 64, 4),
+                                               ("moe", 160, 5)])
+def test_a_compact_flood_keeps_every_route(models, moe_models, monkeypatch, family, min_m,
+                                           rows):
+    """int8_min_m set so that the 8-slot block at s_pad 16 takes the int8
+    route (M = 128; the experts' C = 256) where the two admitted prompts'
+    rows alone would not (M = 32, C = 64): the flood beside an active slot
+    computes `rows` rows (the fewest that keep the route: at 160 only the
+    experts cross), every product of it takes the route that the same flood
+    as the full block takes, and the streams are the full block's."""
+    mod, cfg, params = ((tllama,) + models[2:] if family == "llama"
+                        else (tmoe,) + moe_models)
+    real, taking = dispatch.route, {}
+
+    def route(*a, **kw):
+        r = real(*a, **kw)
+        if "flood" in taking:
+            taking["flood"].append(r)
+        return r
+
+    def run(full: bool):
+        """(blocks, the routes of the flood's products, streams)."""
+        eng = Engine(mod, cfg, params, max_batch=8, max_seq=MAX_SEQ, chunk_size=CHUNK,
+                     device="cpu")
+        if full:
+            eng._flood_rows = lambda n, s_pad: eng.max_batch
+        blocks, routes, prefill = [], [], eng._prefill_flood
+
+        def flood(toks, *a, **kw):
+            blocks.append(tuple(toks.shape))
+            taking["flood"] = routes
+            try:
+                return prefill(toks, *a, **kw)
+            finally:
+                del taking["flood"]
+
+        eng._prefill_flood = flood
+        rids = [eng.submit(_prompts([20], seed=11)[0], 4)]
+        eng.step()                                 # a chunk: one slot active
+        rids += [eng.submit(p, 4) for p in _prompts([5, 9], seed=12)]
+        done = {r.rid: r.out for r in eng.run()}
+        return blocks, routes, [done[r] for r in rids]
+
+    monkeypatch.setattr(dispatch, "route", route)
+    tconfig.set("int8_min_m", min_m)
+    try:
+        (blocks, routes, streams), (full_blocks, full_routes, full_streams) = map(
+            run, (False, True))
+    finally:
+        tconfig.unset("int8_min_m")
+    assert blocks == [(rows, 16)] and full_blocks == [(8, 16)]
+    assert "i8" in routes and routes == full_routes
+    assert streams == full_streams
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["f32kv", "int8kv"])

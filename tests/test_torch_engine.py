@@ -66,8 +66,8 @@ def _serve_flooded(tcfg, tp, lengths, chunk, min_m):
 
 def test_engine_matches_generate(models):
     """Engine streams equal generate's where both prefill a prompt on one
-    matmul route. A flood prefills at M = B·s_pad, which crosses int8_min_m
-    where generate's prefill of a short prompt does not, so both run the
+    matmul route. A flood's products take the routes of M = B·s_pad, which
+    crosses int8_min_m where generate's prefill of a short prompt does not, so both run the
     f32 route here (int8_min_m=0): the short prompts [5, 20] flood, the
     70-token one is admitted in three 32-token chunks."""
     _, _, tcfg, tp = models

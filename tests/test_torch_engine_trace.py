@@ -14,6 +14,7 @@ from ggml_gfx906_tpu.quant.types import GGMLType
 from ggml_gfx906_tpu_torch.models import llama as tllama
 from ggml_gfx906_tpu_torch.runtime.engine import Engine, Request
 from ggml_gfx906_tpu_torch.runtime.graphs import GraphCache, HostCopy
+from ggml_gfx906_tpu_torch.utils import config as tconfig
 from ggml_gfx906_tpu_torch.utils import trace
 from port_bench.driver import Done
 from port_bench.run import load_reader
@@ -276,16 +277,22 @@ def test_each_request_is_admitted_by_what_admitted_it(served):
 
 def test_a_flood_counts_its_prompts_and_rows(served):
     """Each flood's counts against the requests it admitted (those whose
-    admission is its start): their number, their prompt tokens and the
-    max_batch × s_pad rows of the prefill (s_pad the bucket of the longest)."""
+    admission is its start): their number, their prompt tokens, the rows of
+    its block (`batch`: one a request, raised to what keeps the max_batch
+    block's int8 route at M = batch × s_pad) and the batch × s_pad rows
+    computed (s_pad the bucket of the longest)."""
     reqs, spans = served
     floods = [s for s in spans if s.name == "engine.flood"]
     assert floods
+    min_m = int(tconfig.get("int8_min_m"))
     for f in floods:
         prompts = [len(r.prompt) for r in reqs if r.admitted_by == "flood" and r.t_admit == f.t0]
         s_pad = min(b for b in (16, 32, 64, 128) if b >= max(prompts))
+        batch = len(prompts)
+        if 0 < min_m <= MAX_BATCH * s_pad:
+            batch = max(batch, -(-min_m // s_pad))
         assert f.attrs == {"requests": len(prompts), "tokens": sum(prompts),
-                           "rows": MAX_BATCH * s_pad}
+                           "rows": batch * s_pad, "batch": batch}
         assert len(prompts) >= 2
     assert sum(f.attrs["requests"] for f in floods) == sum(r.admitted_by == "flood" for r in reqs)
 
